@@ -8,12 +8,19 @@ not 0):
   1. device  - require CUDA, print the card, TF32 off
   2. build   - compile the kernels in csrc/ with nvcc for sm_90a
   3. kernels - each kernel against its plain PyTorch version at the p1
-               step's shapes (B=256, C=6, T=354, R=6), timed with CUDA events
+               step's shapes (B=256, C=6, T=354, R=6; the biLSTMs at R=6,
+               H=128, the encoder's B=512 and the decoder's B=256 with
+               h0/c0; the packed select at the scaled B=4096, T=48), timed
+               with CUDA events beside a PyTorch library call
   4. main    - the p1 trainer at the default Config width takes 8 steps and
                one eval forward on a synthetic T=354 cohort; the kernels'
                launch counters must show the path went through them
-  5. plain   - one train step with the kernels and one with their plain
-               versions, from the same weights and draws, must agree
+  5. scaled  - the trainer at B=4096, T=48 (the 100k-encounter scale
+               configuration) runs two epochs of a cohort with a ragged
+               368-encounter tail; the second is timed and counted
+  6. plain   - one train step with the kernels and one with their plain
+               versions, from the same weights and draws, must agree; so
+               must one masked tail step at the scaled configuration
 Then a `{"kernels": [...]}` line, the card's name and power limit from
 nvidia-smi, and as the last line `{"ok": true, "device": {...}}`.
 
@@ -46,6 +53,12 @@ SPIN_CYCLES = 4_000_000  # ~2 ms at the boost clock
 B, C, T, R = 256, 6, 354, 6
 N_TRAIN = 2048
 STEPS = 8
+H = 128  # Config().lstm_hidden
+# the scaled configuration (benchmarks/scale_100k.py, cli/p0.py
+# --synthetic_max_obs 48): three full batches and the 368-encounter tail
+# that the 100k cohort's training split leaves (70,000 mod 4,096)
+SCALED_B, SCALED_T = 4096, 48
+SCALED_TRAIN = 3 * SCALED_B + 368
 
 
 def say(phase: str, **kw) -> None:
@@ -90,6 +103,44 @@ def bound(n_bytes: float, n_flop: float, n_expf: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def lstm_work(t_len: int, b: int, hidden: int, backward: bool):
+    """(bytes, flop, transcendentals) of one B6 or B7 call on both
+    directions: each input read once and each output written once; the
+    recurrent products (one per step forward; gate recompute, dh and dW
+    backward) at 2 flop per FMA plus ~14 (forward) or ~30 (backward)
+    operations and 5 or 6 expf/tanhf per (direction, t, row, unit)."""
+    f32 = 4
+    units = 2 * t_len * b * hidden
+    gates, seqs = 2 * t_len * b * 4 * hidden, t_len * b * hidden
+    weights = 2 * hidden * 4 * hidden + 2 * 4 * hidden
+    states = 2 * 2 * b * hidden
+    fma = units * 4 * hidden
+    if not backward:  # xg in; ys, cs out
+        return f32 * (gates + weights + states + 4 * seqs), 2 * fma + 14 * units, 5 * units
+    # xg, w, h0/c0, ys/cs and their cotangents in; dxg, dW, db, dh0/dc0 out
+    n_bytes = f32 * (gates + weights + states + 4 * seqs + 4 * seqs + gates + weights + states)
+    return n_bytes, 3 * 2 * fma + 30 * units, 6 * units
+
+
+def params_agree(net_k, net_p):
+    """The repo's parameter-parity rule after an Adam step: elements with
+    |grad| near Adam's eps move by lr*g/(|g|+eps), so a few may differ by
+    more than 1e-5; at most 0.01% of them, each below 1e-3. Returns (max
+    difference, elements beyond 1e-5, elements)."""
+    n_viol = n_tot = 0
+    worst = 0.0
+    plain_params = {n: p.detach() for n, p in net_p.named_parameters()}
+    for n, p in net_k.named_parameters():
+        d = (p.detach() - plain_params[n]).abs()
+        worst = max(worst, float(d.max()))
+        n_viol += int((d > 1e-5 + 1e-5 * plain_params[n].abs()).sum())
+        n_tot += d.numel()
+    if worst >= 1e-3 or n_viol > max(1, n_tot // 10_000):
+        raise AssertionError(f"params after one step: max diff {worst}, "
+                             f"{n_viol}/{n_tot} beyond 1e-5")
+    return worst, n_viol, n_tot
+
+
 def main() -> None:
     import torch
 
@@ -109,6 +160,7 @@ def main() -> None:
     from deep_interpolation_clustering_tpu_torch.models import Net
     from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
     from deep_interpolation_clustering_tpu_torch.ops import cuda_interp as ci
+    from deep_interpolation_clustering_tpu_torch.ops import cuda_lstm as cl
     from deep_interpolation_clustering_tpu_torch.ops import cuda_select as cs
     from deep_interpolation_clustering_tpu_torch.ops.interpolation import reference_times
     from deep_interpolation_clustering_tpu_torch.train import (
@@ -235,11 +287,144 @@ def main() -> None:
         # per observed slot and r: ~7 float32 operations and 1 expf
         bytes=3 * rows * T * f32 + rows * R * f32, flop=7 * R * n_obs, expf=R * n_obs,
     )
+    # B2: the packed select at the scaled shape (rows = 4096 x 6, T = 48),
+    # bit-identical, with the ragged masks of a T=48 synthetic cohort
+    n_scaled = SCALED_TRAIN + 256
+    train_share = (SCALED_TRAIN + 0.5) / n_scaled  # int(share * n) = SCALED_TRAIN
+    scaled = process_splits(
+        make_synthetic_cohorts(n_total=n_scaled, max_obs=SCALED_T, seed=cfg.seed,
+                               split=(train_share, 1.0 - train_share, 0.0)),
+        rng=np.random.RandomState(1),
+    )
+    scfg = Config(batch_size=SCALED_B, num_timestamps=SCALED_T)
+    sdata = ArrayDataset(scfg, scaled["training"], "training")
+    if len(sdata) != SCALED_TRAIN:
+        raise AssertionError(f"scaled cohort: {len(sdata)} training encounters")
+    rows_s = SCALED_B * C
+    m_s = torch.as_tensor(sdata.padding_mask[:SCALED_B], device=dev).reshape(rows_s, SCALED_T)
+    nv_s = m_s.sum(1).to(torch.int32)
+    k_s = torch.where(nv_s > 0, torch.clamp(nv_s // 2, min=1), torch.zeros_like(nv_s))
+    bits_s = draw_bits((rows_s, SCALED_T), gen, dev)
+    got = cs.fake_select_packed(bits_s, nv_s, k_s)
+    want = cs._select_sort(bits_s, nv_s, k_s)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"fake_select_packed differs from the sort oracle at "
+                             f"{int((got != want).sum())} slots")
+    if not torch.equal(got.sum(1).to(torch.int32), k_s):
+        raise AssertionError("fake_select_packed did not take exactly k per row")
+    report["fake_select_packed"] = dict(
+        max_abs_err=0.0, tolerance="bit-identical", shape=[rows_s, SCALED_T],
+        ms=time_ms(lambda: cs.fake_select_packed(bits_s, nv_s, k_s)),
+        plain_ms=time_ms(lambda: cs._select_sort(bits_s, nv_s, k_s)),
+        library_ms=time_ms(lambda: torch.sort(bits_s, dim=-1)),
+        # K1 on the same rows: the time the packed kernel has to beat
+        k1_ms=time_ms(lambda: cs.fake_select(bits_s, nv_s, k_s)),
+        bytes=rows_s * SCALED_T * (4 + 1) + rows_s * 8, flop=0, expf=0,
+    )
+
+    # B6/B7 at the encoder's shape (real+fake batched, B = 2 x 256, no
+    # state) and the decoder's (B = 256, seeded with h0/c0)
+    def lstm_inputs(b, feat, with_state):
+        bnd = 1.0 / np.sqrt(H)
+        uni = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bnd
+        w = dict(w_ih=uni(2, 4 * H, feat), b_ih=uni(2, 4 * H), w_hh=uni(2, 4 * H, H),
+                 b_hh=uni(2, 4 * H), x=torch.randn((R, b, feat), generator=gen, device=dev))
+        xg = [torch.matmul(w["x"], w["w_ih"][d].T) + w["b_ih"][d] for d in range(2)]
+        state = [torch.randn((2, b, H), generator=gen, device=dev) * 0.5 if with_state
+                 else torch.zeros((2, b, H), device=dev) for _ in range(2)]
+        w_hhT = w["w_hh"].transpose(1, 2).contiguous()
+        return [xg[0], xg[1], w_hhT, w["b_hh"], state[0], state[1]], w
+
+    def cudnn_lstm(w, feat):
+        """cuDNN's bidirectional LSTM with the same weights (the port never
+        calls it): it also does the input projection."""
+        lib = torch.nn.LSTM(feat, H, bidirectional=True).to(dev)
+        with torch.no_grad():
+            for d, sfx in enumerate(("", "_reverse")):
+                for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+                    torch_name = {"w": "weight", "b": "bias"}[name[0]] + name[1:]
+                    getattr(lib, f"{torch_name}_l0{sfx}").copy_(w[name][d])
+        return lib
+
+    lstm_checks = {}
+    for tag, b_l, feat, with_state in (("encoder", 2 * B, 3 * C, False),
+                                       ("decoder", B, 2 * H, True)):
+        ins, w = lstm_inputs(b_l, feat, with_state)
+        outs = cl.lstm_forward(*ins)
+        want = cl.recurrence_plain(*ins)
+        err_f = max(float((a - b_).abs().max()) for a, b_ in zip(outs, want))
+        if not err_f <= 1e-5:
+            raise AssertionError(f"lstm_forward ({tag}) max abs err {err_f} > 1e-5")
+        cots = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+        w_hh = ins[2].transpose(1, 2).contiguous()
+        bwd_args = (*ins[:3], w_hh, *ins[3:], *outs, *cots)
+        got_g = cl.lstm_backward(*bwd_args)
+        again = cl.lstm_backward(*bwd_args)
+        want_g = cl._recurrence_bwd_plain(*bwd_args)
+        errs, rels = [], []
+        for name, a, b_, a2 in zip(("dxgf", "dxgb", "dw_hhT", "db_hh", "dh0", "dc0"),
+                                   got_g, want_g, again):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"lstm_backward ({tag}) {name} differs between two runs")
+            e = float((a - b_).abs().max())
+            rel = e / max(float(b_.abs().max()), 1e-30)
+            errs.append(e)
+            rels.append(rel)
+            if not rel <= 1e-4:
+                raise AssertionError(f"lstm_backward ({tag}) {name}: err {e} is {rel:.2e} "
+                                     f"of max|{name}|")
+        lstm_checks[tag] = (ins, bwd_args, w, feat, err_f, max(errs), max(rels))
+        say("lstm_check", shape=tag, B=b_l, forward_err=f"{err_f:.3g}",
+            backward_err=f"{max(errs):.3g}", backward_rel=f"{max(rels):.3g}",
+            repeat="bit-identical")
+
+    ins, bwd_args, w, feat, err_f, err_b, rel_b = lstm_checks["encoder"]
+    lib = cudnn_lstm(w, feat)
+    x_lib = w["x"].clone().requires_grad_()
+    lib_cots = [torch.randn(s_, generator=gen, device=dev)
+                for s_ in ((R, 2 * B, 2 * H), (2, 2 * B, H), (2, 2 * B, H))]
+
+    def lib_fwd_bwd():
+        out, (hn, cn) = lib(x_lib)
+        torch.autograd.backward([out, hn, cn], lib_cots)
+
+    with torch.no_grad():
+        lib_fwd_ms = time_ms(lambda: lib(w["x"]))
+    lib_train_fwd_ms = time_ms(lambda: lib(x_lib))
+    lib_fwd_bwd_ms = time_ms(lib_fwd_bwd)
+    dec_ins, dec_bwd = lstm_checks["decoder"][:2]
+    n_bytes, n_flop, n_expf = lstm_work(R, 2 * B, H, backward=False)
+    report["lstm_forward"] = dict(
+        max_abs_err=max(err_f, lstm_checks["decoder"][4]), tolerance=1e-5,
+        shape=[R, 2 * B, H],
+        ms=time_ms(lambda: cl.lstm_forward(*ins)),
+        plain_ms=time_ms(lambda: cl.recurrence_plain(*ins)),
+        library_ms=lib_fwd_ms, library="cuDNN nn.LSTM forward incl. input projection",
+        decoder_ms=time_ms(lambda: cl.lstm_forward(*dec_ins)),
+        bytes=n_bytes, flop=n_flop, expf=n_expf,
+    )
+    n_bytes, n_flop, n_expf = lstm_work(R, 2 * B, H, backward=True)
+    report["lstm_backward"] = dict(
+        max_abs_err=max(err_b, lstm_checks["decoder"][5]),
+        tolerance="1e-4 x max|grad| per output; two runs bit-identical",
+        max_rel_err=max(rel_b, lstm_checks["decoder"][6]), shape=[R, 2 * B, H],
+        ms=time_ms(lambda: cl.lstm_backward(*bwd_args)),
+        plain_ms=time_ms(lambda: cl._recurrence_bwd_plain(*bwd_args)),
+        library_ms=lib_fwd_bwd_ms - lib_train_fwd_ms,
+        library="cuDNN nn.LSTM forward+backward less its training forward",
+        decoder_ms=time_ms(lambda: cl.lstm_backward(*dec_bwd)),
+        bytes=n_bytes, flop=n_flop, expf=n_expf,
+    )
+    del lib, x_lib, lstm_checks
+
     for name, r in report.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flop"), r.pop("expf"))
         say("kernels", name=name, max_abs_err=f"{r['max_abs_err']:.3g}",
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
-            bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"])
+            bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+            library_ms=None if r["library_ms"] is None else f"{r['library_ms']:.4f}",
+            **{k: f"{r[k]:.4f}" for k in ("k1_ms", "decoder_ms") if k in r})
 
     # ------------------------------------------------------------ 4. main path
     trainer = Trainer(cfg, {"training": datasets["training"],
@@ -266,7 +451,8 @@ def main() -> None:
     if unchanged:
         raise AssertionError(f"parameters unchanged after {STEPS} steps: {unchanged}")
     need = {"fake_select": STEPS, "sci_forward": 2 * STEPS,
-            "sci_backward": 2 * STEPS, "rbf_push": STEPS}
+            "sci_backward": 2 * STEPS, "rbf_push": STEPS,
+            "lstm_forward": 2 * STEPS, "lstm_backward": 2 * STEPS}
     short = {k: (launches[k], n) for k, n in need.items() if launches[k] < n}
     if short:
         raise AssertionError(f"kernel launches below the path's count: {short}")
@@ -275,51 +461,91 @@ def main() -> None:
         steps_per_s=f"{steps_per_s:.2f}", encounters_per_s=f"{steps_per_s * B:.1f}",
         latent=tuple(latent.shape), launches=json.dumps(launches), card=repr(smi))
 
-    # ------------------------------------------------- 5. main path vs plain
-    cfg0 = cfg.replace(dropout=0.0)
-    net_k = Net(cfg0, generator=torch.Generator().manual_seed(1)).to(dev)
-    net_p = copy.deepcopy(net_k)
-    draws = {
-        "fake_bits": draw_bits((B, C, T), gen, dev),
-        "fake_noise": torch.rand((B, C, T), generator=gen, device=dev),
-        "perm": torch.randperm(2 * B, generator=gen, device=dev),
-    }
-    out = {}
-    for use_kernels, net in ((True, net_k), (False, net_p)):
-        inputs = build_inputs(cfg0, batch, None, True, False, draws, use_kernels)
-        out[use_kernels] = update(net, make_optimizer(cfg0, net.parameters()), cfg0,
-                                  inputs, None, use_kernels)
-    for k in out[True]:
-        a, b_ = float(out[True][k]), float(out[False][k])
-        if not abs(a - b_) <= 1e-5 * max(1.0, abs(b_)):
-            raise AssertionError(f"loss {k}: kernels {a} vs plain {b_}")
-    # the repo's parameter-parity rule after an Adam step: elements with
-    # |grad| near Adam's eps move by lr*g/(|g|+eps), so a few may differ by
-    # more than 1e-5; at most 0.01% of them, each below 1e-3
-    n_viol = n_tot = 0
-    worst = 0.0
-    plain_params = {n: p.detach() for n, p in net_p.named_parameters()}
-    for n, p in net_k.named_parameters():
-        p = p.detach()
-        d = (p - plain_params[n]).abs()
-        worst = max(worst, float(d.max()))
-        n_viol += int((d > 1e-5 + 1e-5 * plain_params[n].abs()).sum())
-        n_tot += d.numel()
-    if worst >= 1e-3 or n_viol > max(1, n_tot // 10_000):
-        raise AssertionError(f"params after one step: max diff {worst}, "
-                             f"{n_viol}/{n_tot} beyond 1e-5")
+    # ------------------------------------------------------ 5. scaled path
+    strainer = Trainer(scfg, {"training": sdata}, device=dev)
+    sbefore = {n: p.detach().clone() for n, p in strainer.net.named_parameters()}
+    n_batches = len(strainer._epoch_batches(strainer.epoch))
+    if n_batches != 4:
+        raise AssertionError(f"scaled epoch: {n_batches} batches, expected 3 + the tail")
+    warm = strainer.train_one_epoch()  # warm-up: allocator, cuBLAS at B=4096
+    torch.cuda.synchronize()
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    epoch_losses = strainer.train_one_epoch()
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    slaunches = {w.name: w.launches for w in cb.KERNELS}
+    for k, v in {**warm, **epoch_losses}.items():
+        if not np.isfinite(v):
+            raise AssertionError(f"scaled loss {k} is not finite: {v}")
+    unchanged = [n for n, p in strainer.net.named_parameters() if torch.equal(p, sbefore[n])]
+    if unchanged:
+        raise AssertionError(f"scaled: parameters unchanged after two epochs: {unchanged}")
+    if slaunches["fake_select_packed"] != n_batches or slaunches["fake_select"] != 0:
+        raise AssertionError(f"scaled select launches: {slaunches}")
+    sneed = {"fake_select_packed": n_batches, "sci_forward": 2 * n_batches,
+             "sci_backward": 2 * n_batches, "rbf_push": n_batches,
+             "lstm_forward": 2 * n_batches, "lstm_backward": 2 * n_batches}
+    short = {k: (slaunches[k], n) for k, n in sneed.items() if slaunches[k] < n}
+    if short:
+        raise AssertionError(f"scaled kernel launches below the path's count: {short}")
+    say("scaled", batch=SCALED_B, T=SCALED_T, encounters=SCALED_TRAIN, steps=n_batches,
+        loss=f"{epoch_losses['loss']:.5f}", epoch_s=f"{dt_s:.4f}",
+        encounters_per_s=f"{SCALED_TRAIN / dt_s:.1f}", launches=json.dumps(slaunches),
+        card=repr(smi))
+    del strainer
+
+    # ------------------------------------------------- 6. main path vs plain
+    def kernel_vs_plain_step(cfg0, batch, draws):
+        net_k = Net(cfg0, generator=torch.Generator().manual_seed(1)).to(dev)
+        net_p = copy.deepcopy(net_k)
+        out = {}
+        for use_kernels, net in ((True, net_k), (False, net_p)):
+            inputs = build_inputs(cfg0, batch, None, True, False, draws, use_kernels)
+            out[use_kernels] = update(net, make_optimizer(cfg0, net.parameters()), cfg0,
+                                      inputs, None, use_kernels)
+        for k in out[True]:
+            a, b_ = float(out[True][k]), float(out[False][k])
+            if not abs(a - b_) <= 1e-5 * max(1.0, abs(b_)):
+                raise AssertionError(f"loss {k}: kernels {a} vs plain {b_}")
+        return (*params_agree(net_k, net_p), float(out[True]["loss"]))
+
+    def step_draws(b, t_len):
+        return {
+            "fake_bits": draw_bits((b, C, t_len), gen, dev),
+            "fake_noise": torch.rand((b, C, t_len), generator=gen, device=dev),
+            "perm": torch.randperm(2 * b, generator=gen, device=dev),
+        }
+
+    worst, n_viol, n_tot, loss = kernel_vs_plain_step(cfg.replace(dropout=0.0), batch,
+                                                      step_draws(B, T))
+    # the masked tail step at the scaled configuration: the 368 real rows
+    # repeated to B=4096, sample_mask 1 on them
+    sarrays = {k: torch.as_tensor(v, device=dev) for k, v in sdata.arrays().items()}
+    n_tail = SCALED_TRAIN % SCALED_B
+    tail = np.resize(np.arange(SCALED_TRAIN - n_tail, SCALED_TRAIN), SCALED_B)
+    sbatch = gather_batch(sarrays, torch.as_tensor(tail, device=dev))
+    sbatch["sample_mask"] = (torch.arange(SCALED_B, device=dev) < n_tail).float()
+    t_worst, t_viol, t_tot, t_loss = kernel_vs_plain_step(
+        scfg.replace(dropout=0.0), sbatch, step_draws(SCALED_B, SCALED_T))
     say("plain", max_param_diff=f"{worst:.3g}", beyond_1e5=f"{n_viol}/{n_tot}",
-        loss=f"{float(out[True]['loss']):.6f}")
+        loss=f"{loss:.6f}", tail_max_param_diff=f"{t_worst:.3g}",
+        tail_beyond_1e5=f"{t_viol}/{t_tot}", tail_loss=f"{t_loss:.6f}")
 
     kernels = []
     for w in cb.KERNELS:
         r = report[w.name]
+        # each kernel's count from the path that runs it: the scaled path
+        # for the packed select (T <= 192), the main path for the others
+        path_launches = slaunches if w.name == "fake_select_packed" else launches
         kernels.append({
             "name": w.name, "route": "cuda", "source": w.source, "replaces": w.replaces,
-            "launches": launches[w.name], "max_abs_err": r["max_abs_err"],
+            "launches": path_launches[w.name], "launches_main": launches[w.name],
+            "launches_scaled": slaunches[w.name], "max_abs_err": r["max_abs_err"],
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("k1_ms", "decoder_ms", "shape", "library") if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

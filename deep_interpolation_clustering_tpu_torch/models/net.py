@@ -111,10 +111,10 @@ class Net(nn.Module):
             return sci_forward_multi(kernel, streams, r, hours)
         return [sci_forward(kernel, p, r, hours) for p in streams]
 
-    def _encode_rep(self, rep: torch.Tensor):
+    def _encode_rep(self, rep: torch.Tensor, use_kernels: bool):
         rep = cci_forward(self.cci.kernel, rep)
         rep = rep.permute(1, 0, 2)  # time-major (R, B, 3C)
-        enc_out, hidden, cell = bilstm_forward(self.encoder.lstm, rep)
+        enc_out, hidden, cell = bilstm_forward(self.encoder.lstm, rep, use_kernel=use_kernels)
         cat_hidden = torch.cat([hidden[0], hidden[1]], dim=-1)
         return enc_out, hidden, cell, cat_hidden
 
@@ -145,13 +145,14 @@ class Net(nn.Module):
         # every stream through ONE encode: each encode op is per sample, so
         # this equals separate passes (net.py:212-244)
         enc_out, hidden, cell, cat_all = self._encode_rep(
-            torch.cat(self._sci_streams(streams, use_kernels), dim=0)
+            torch.cat(self._sci_streams(streams, use_kernels), dim=0), use_kernels
         )
         enc_out, hidden, cell = enc_out[:, :b], hidden[:, :b], cell[:, :b]
         cat_hidden = cat_all[:b]
 
         dec_in = torch.relu(enc_out)  # DecoderRNN ReLUs its input
-        dec_out, _, _ = bilstm_forward(self.decoder.lstm, dec_in, hidden, cell)
+        dec_out, _, _ = bilstm_forward(self.decoder.lstm, dec_in, hidden, cell,
+                                       use_kernel=use_kernels)
         interp_data = dec_out.permute(1, 0, 2)  # (B, R, 2H)
 
         masked = train and sample_mask is not None

@@ -1,0 +1,163 @@
+"""Hand-written CUDA kernels for the biLSTM recurrence (counterpart of the
+JAX `ops/pallas_lstm.py`).
+
+  B6 `lstm_forward`  (csrc/lstm.cu)  the whole recurrence   <- `_fwd_kernel`
+  B7 `lstm_backward` (csrc/lstm.cu)  its reverse walk       <- `_bwd_kernel`
+
+The interface is the JAX `bilstm_recurrence_pallas`'s: pre-projected gates
+`xg_f`, `xg_b` (T, B, 4H), the backward direction not flipped; `w_hhT`
+(2, H, 4H); `b_hh` (2, 4H); `h0`, `c0` (2, B, H) -> `ys_f`, `ys_b`, `cs_f`,
+`cs_b` (T, B, H), time-aligned. Gate order [i|f|g|o]; gates
+`(xg + h W_hh^T) + b_hh` in that association order. float32 only.
+
+The plain forward is the step loop of the port's `ops/lstm.py`; the plain
+backward is PyTorch autograd of it. `LSTMRecurrence` holds the kernel pair
+in one `torch.autograd.Function`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _cuda_build as cb
+
+MAX_HIDDEN = 256  # one thread per hidden unit (csrc/lstm.cu)
+_M_PER_SPLIT = 512  # (t, row) pairs per partial of dW_hh^T / db_hh
+
+
+# ------------------------------------------------------------ plain versions
+def _run_direction(xg: torch.Tensor, w_hhT: torch.Tensor, b_hh: torch.Tensor,
+                   h: torch.Tensor, c: torch.Tensor, reverse: bool):
+    """Step one direction over `xg` (T, B, 4H); returns the time-aligned h and
+    c sequences (T, B, H)."""
+    t_len = xg.shape[0]
+    ys, cs = [None] * t_len, [None] * t_len
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        gates = xg[t] + torch.matmul(h, w_hhT) + b_hh
+        i, f, g, o = torch.chunk(gates, 4, dim=-1)
+        i = torch.sigmoid(i)
+        f = torch.sigmoid(f)
+        g = torch.tanh(g)
+        o = torch.sigmoid(o)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys[t], cs[t] = h, c
+    return torch.stack(ys), torch.stack(cs)
+
+
+def recurrence_plain(xgf, xgb, w_hhT, b_hh, h0, c0):
+    """Plain version of B6 -> (ys_f, ys_b, cs_f, cs_b)."""
+    ys_f, cs_f = _run_direction(xgf, w_hhT[0], b_hh[0], h0[0], c0[0], reverse=False)
+    ys_b, cs_b = _run_direction(xgb, w_hhT[1], b_hh[1], h0[1], c0[1], reverse=True)
+    return ys_f, ys_b, cs_f, cs_b
+
+
+def _recurrence_bwd_plain(xgf, xgb, w_hhT, w_hh, b_hh, h0, c0,
+                          ysf, ysb, csf, csb, dysf, dysb, dcsf, dcsb):
+    """Plain version of B7: autograd of `recurrence_plain` (it recomputes the
+    forward; `w_hh` and the saved outputs are the kernel's inputs only) ->
+    (dxgf, dxgb, dw_hhT, db_hh, dh0, dc0)."""
+    del w_hh, ysf, ysb, csf, csb
+    with torch.enable_grad():
+        ins = [a.detach().requires_grad_() for a in (xgf, xgb, w_hhT, b_hh, h0, c0)]
+        outs = recurrence_plain(*ins)
+        return tuple(torch.autograd.grad(outs, ins, (dysf, dysb, dcsf, dcsb)))
+
+
+# ------------------------------------------------------------------ launches
+def _check_forward(name, xgf, xgb, w_hhT, b_hh, h0, c0):
+    t_len, b, four_h = xgf.shape
+    hidden = four_h // 4
+    if not (t_len >= 1 and b >= 1 and four_h == 4 * hidden and 1 <= hidden <= MAX_HIDDEN):
+        raise ValueError(f"{name}: takes T >= 1, B >= 1 and 1 <= H <= {MAX_HIDDEN}, "
+                         f"got xg of shape {tuple(xgf.shape)}")
+    cb.check(f"{name} xgf", xgf, torch.float32)
+    cb.check(f"{name} xgb", xgb, torch.float32, xgf.shape)
+    cb.check(f"{name} w_hhT", w_hhT, torch.float32, (2, hidden, four_h))
+    cb.check(f"{name} b_hh", b_hh, torch.float32, (2, four_h))
+    cb.check(f"{name} h0", h0, torch.float32, (2, b, hidden))
+    cb.check(f"{name} c0", c0, torch.float32, (2, b, hidden))
+    return t_len, b, hidden
+
+
+def _forward_launch(xgf, xgb, w_hhT, b_hh, h0, c0):
+    t_len, b, hidden = _check_forward("lstm_forward", xgf, xgb, w_hhT, b_hh, h0, c0)
+    outs = [torch.empty((t_len, b, hidden), dtype=xgf.dtype, device=xgf.device)
+            for _ in range(4)]
+    fn = cb.c_function("lstm", "dicl_lstm_fwd", 10, 3)
+    cb.raise_on_error("lstm_forward", fn(
+        cb.ptr(xgf), cb.ptr(xgb), cb.ptr(w_hhT), cb.ptr(b_hh), cb.ptr(h0), cb.ptr(c0),
+        *(cb.ptr(o) for o in outs), t_len, b, hidden, cb.stream_of(xgf),
+    ))
+    return tuple(outs)
+
+
+def _dw_splits(t_len: int, b: int) -> int:
+    """Partials of dW_hh^T and db_hh: one per `_M_PER_SPLIT` (t, row) pairs."""
+    return max(1, min(64, -(-t_len * b // _M_PER_SPLIT)))
+
+
+def _backward_launch(xgf, xgb, w_hhT, w_hh, b_hh, h0, c0,
+                     ysf, ysb, csf, csb, dysf, dysb, dcsf, dcsb):
+    t_len, b, hidden = _check_forward("lstm_backward", xgf, xgb, w_hhT, b_hh, h0, c0)
+    four_h = 4 * hidden
+    cb.check("lstm_backward w_hh", w_hh, torch.float32, (2, four_h, hidden))
+    for name, a in zip(("ysf", "ysb", "csf", "csb", "dysf", "dysb", "dcsf", "dcsb"),
+                       (ysf, ysb, csf, csb, dysf, dysb, dcsf, dcsb)):
+        cb.check(f"lstm_backward {name}", a, torch.float32, (t_len, b, hidden))
+    new = lambda *shape: torch.empty(shape, dtype=xgf.dtype, device=xgf.device)
+    dxgf, dxgb = new(t_len, b, four_h), new(t_len, b, four_h)
+    dw_hhT, db_hh = new(2, hidden, four_h), new(2, four_h)
+    dh0, dc0 = new(2, b, hidden), new(2, b, hidden)
+    nsplit = _dw_splits(t_len, b)
+    dw_part, db_part = new(nsplit, 2, hidden, four_h), new(nsplit, 2, four_h)  # scratch
+    fn = cb.c_function("lstm", "dicl_lstm_bwd", 23, 4)
+    cb.raise_on_error("lstm_backward", fn(
+        *(cb.ptr(a) for a in (xgf, xgb, w_hhT, w_hh, b_hh, h0, c0, ysf, ysb, csf, csb,
+                              dysf, dysb, dcsf, dcsb, dxgf, dxgb, dw_hhT, db_hh, dh0,
+                              dc0, dw_part, db_part)),
+        t_len, b, hidden, nsplit, cb.stream_of(xgf),
+    ))
+    return dxgf, dxgb, dw_hhT, db_hh, dh0, dc0
+
+
+_PALLAS_LSTM = "deep_interpolation_clustering_tpu/ops/pallas_lstm.py"
+_SOURCE = "deep_interpolation_clustering_tpu_torch/csrc/lstm.cu"
+
+lstm_forward = cb.register(cb.KernelWrapper(
+    "lstm_forward", _SOURCE, f"{_PALLAS_LSTM}:88", recurrence_plain, _forward_launch))
+lstm_backward = cb.register(cb.KernelWrapper(
+    "lstm_backward", _SOURCE, f"{_PALLAS_LSTM}:111", _recurrence_bwd_plain,
+    _backward_launch))
+
+
+# --------------------------------------------------------- autograd function
+class LSTMRecurrence(torch.autograd.Function):
+    """The merged two-direction recurrence with B6 as the forward and B7 as
+    the backward. Inputs as `recurrence_plain`; every input gets a gradient.
+    Cotangents may arrive on any of the four outputs at any t; autograd
+    passes zeros for an output that nothing used (`materialize_grads`)."""
+
+    @staticmethod
+    def forward(ctx, xgf, xgb, w_hhT, b_hh, h0, c0):
+        outs = lstm_forward(xgf, xgb, w_hhT, b_hh, h0, c0)
+        ctx.save_for_backward(xgf, xgb, w_hhT, b_hh, h0, c0, *outs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cots):
+        xgf, xgb, w_hhT, b_hh, h0, c0, *outs = ctx.saved_tensors
+        w_hh = w_hhT.transpose(1, 2).contiguous()
+        return lstm_backward(xgf, xgb, w_hhT, w_hh, b_hh, h0, c0, *outs,
+                             *(g.contiguous() for g in cots))
+
+
+def bilstm_recurrence(xgf: torch.Tensor, xgb: torch.Tensor, w_hhT: torch.Tensor,
+                      b_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recurrence through B6/B7 (plain versions for CPU tensors). The
+    inputs are made contiguous: the decoder's `h0`/`c0` are slices of the
+    encoder's state."""
+    return LSTMRecurrence.apply(*(a.contiguous() for a in (xgf, xgb, w_hhT, b_hh, h0, c0)))

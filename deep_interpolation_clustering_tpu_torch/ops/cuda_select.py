@@ -2,9 +2,12 @@
 
 For each (encounter, channel) row it takes exactly k of the first `n_valid`
 slots: the k smallest 30-bit keys, a key being the random high bits of the
-slot's 32-bit draw above the slot position. On a CUDA tensor this is the
-hand-written kernel K1 (`csrc/fake_select.cu`); its plain version is the
-sort oracle `_select_sort`, the JAX `_select_xla`. The two are bit-identical.
+slot's 32-bit draw above the slot position. On a CUDA tensor this is a
+hand-written kernel in `csrc/fake_select.cu`, routed by T as the JAX
+`_select_local` routes on the TPU: for T <= 192 the packed kernel
+(`fake_select_packed`, `pack_factor(T)` rows per block), above it K1
+(`fake_select`, one row per block). The plain version of both is the sort
+oracle `_select_sort`, the JAX `_select_xla`. All three are bit-identical.
 
 Bits travel as int32 tensors holding the uint32 bit patterns (torch's
 uint32 has few operations); every shift of them is logical.
@@ -18,11 +21,18 @@ from . import _cuda_build as cb
 
 _KEY_BITS = 30
 _INVALID = 0x7FFFFFFF  # int32 max: sorts after every valid key
+_PACK_SLOTS = 384  # slots per block of the packed kernel
 
 
 def pos_bits(t: int) -> int:
     """Low key bits reserved for the slot position (unique within a row)."""
     return max(1, (t - 1).bit_length())
+
+
+def pack_factor(t: int) -> int:
+    """Rows per block of the packed select (the JAX `_pack_factor`); 1 means
+    the row-per-block K1."""
+    return max(1, _PACK_SLOTS // t)
 
 
 def _select_sort(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -59,13 +69,31 @@ def _launch(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch
     return out
 
 
+def _launch_packed(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    rows, t_len = bits.shape
+    if not (rows >= 1 and 1 <= t_len <= _PACK_SLOTS // 2):
+        raise ValueError(f"fake_select_packed: takes 1 <= T <= {_PACK_SLOTS // 2} and "
+                         f">= 1 row, got ({rows}, {t_len})")
+    g = pack_factor(t_len)
+    cb.check("fake_select_packed bits", bits, torch.int32)
+    cb.check("fake_select_packed n_valid", n_valid, torch.int32, (rows,))
+    cb.check("fake_select_packed k", k, torch.int32, (rows,))
+    out = torch.empty((rows, t_len), dtype=torch.bool, device=bits.device)
+    fn = cb.c_function("fake_select", "dicl_fake_select_packed", 4, 4)
+    cb.raise_on_error("fake_select_packed", fn(
+        cb.ptr(bits), cb.ptr(n_valid), cb.ptr(k), cb.ptr(out),
+        rows, t_len, g, pos_bits(t_len), cb.stream_of(bits),
+    ))
+    return out
+
+
+_SOURCE = "deep_interpolation_clustering_tpu_torch/csrc/fake_select.cu"
+_PALLAS_SELECT = "deep_interpolation_clustering_tpu/ops/pallas_select.py"
+
 fake_select = cb.register(cb.KernelWrapper(
-    name="fake_select",
-    source="deep_interpolation_clustering_tpu_torch/csrc/fake_select.cu",
-    replaces="deep_interpolation_clustering_tpu/ops/pallas_select.py:122",
-    plain=_select_sort,
-    launch=_launch,
-))
+    "fake_select", _SOURCE, f"{_PALLAS_SELECT}:122", _select_sort, _launch))
+fake_select_packed = cb.register(cb.KernelWrapper(
+    "fake_select_packed", _SOURCE, f"{_PALLAS_SELECT}:202", _select_sort, _launch_packed))
 
 
 def fake_select_mask(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor,
@@ -75,6 +103,8 @@ def fake_select_mask(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor,
     the first n_valid slots. `use_kernel=False` takes the plain version on
     any device."""
     b, c, t = bits.shape
-    fn = fake_select if use_kernel else _select_sort
+    fn = _select_sort
+    if use_kernel:
+        fn = fake_select_packed if pack_factor(t) >= 2 else fake_select
     sel = fn(bits.reshape(b * c, t), n_valid.reshape(b * c), k.reshape(b * c))
     return sel.reshape(b, c, t)

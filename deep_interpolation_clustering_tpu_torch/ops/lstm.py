@@ -1,10 +1,16 @@
-"""Bidirectional one-layer LSTM in plain PyTorch (counterpart of the JAX
+"""Bidirectional one-layer LSTM (counterpart of the JAX
 `ops/lstm.py::bilstm_forward`).
 
-The recurrence is a Python loop of `torch.matmul` steps over the R=6
-reference points, as the JAX default (`use_pallas_lstm=False`) leaves it to
-XLA. cuDNN's `nn.LSTM` is not used. Weights keep torch's names and its
-[i|f|g|o] gate packing so reference checkpoints load unchanged.
+The input projections `x W_ih^T + b_ih` are `torch.matmul`, hoisted out of
+the recurrence as the JAX package hoists them. The recurrence itself, both
+directions over the R=6 reference points, is `ops/cuda_lstm.py`: on the card
+the hand-written kernels B6 (forward) and B7 (backward) whenever the step's
+`use_kernels` is on, as for the other kernels. The JAX config's
+`use_pallas_lstm` switch is ignored (config.py): on the TPU the Pallas pair
+is opt-in, on the card the kernels are the path. `use_kernel=False` runs
+the plain step loop of `torch.matmul` on any device. cuDNN's `nn.LSTM` is
+not used. Weights keep torch's names and its [i|f|g|o] gate packing so
+reference checkpoints load unchanged.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from . import cuda_lstm
 from .nn import uniform_
 
 
@@ -47,31 +54,12 @@ class LSTMWeights(nn.Module):
                 getattr(self, f"bias_ih_l0{s}"), getattr(self, f"bias_hh_l0{s}"))
 
 
-def _run_direction(xg, w_hh, b_hh, h, c, reverse: bool):
-    """Step one direction over pre-projected gates `xg: (T, B, 4H)`;
-    returns the time-aligned outputs and the final (h, c)."""
-    t_len = xg.shape[0]
-    outs = [None] * t_len
-    steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
-    for t in steps:
-        # (x W_ih^T + b_ih) + h W_hh^T, then + b_hh: the JAX addition order
-        gates = xg[t] + torch.matmul(h, w_hh.T) + b_hh
-        i, f, g, o = torch.chunk(gates, 4, dim=-1)
-        i = torch.sigmoid(i)
-        f = torch.sigmoid(f)
-        g = torch.tanh(g)
-        o = torch.sigmoid(o)
-        c = f * c + i * g
-        h = o * torch.tanh(c)
-        outs[t] = h
-    return torch.stack(outs), h, c
-
-
 def bilstm_forward(
     weights: LSTMWeights,
     x: torch.Tensor,
     h0: Optional[torch.Tensor] = None,
     c0: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the biLSTM over time-major `x: (T, B, F)`.
 
@@ -79,19 +67,20 @@ def bilstm_forward(
     torch's layout: output concatenates [fwd, bwd] per step, time-aligned;
     hidden/cell stack the final state of each direction (fwd first).
     `(h0, c0)`, each `(2, B, H)`, seed the two directions.
+    `use_kernel=False` takes the plain recurrence on any device.
     """
-    _, b_sz, _ = x.shape
-    zeros = x.new_zeros((b_sz, weights.hidden))
-    h0_f, h0_b = (zeros, zeros) if h0 is None else (h0[0], h0[1])
-    c0_f, c0_b = (zeros, zeros) if c0 is None else (c0[0], c0[1])
-
     w_ih_f, w_hh_f, b_ih_f, b_hh_f = weights.direction(reverse=False)
     w_ih_b, w_hh_b, b_ih_b, b_hh_b = weights.direction(reverse=True)
     # input projections hoisted out of the recurrence
     xg_f = torch.matmul(x, w_ih_f.T) + b_ih_f  # (T, B, 4H)
     xg_b = torch.matmul(x, w_ih_b.T) + b_ih_b
-
-    out_f, h_f, c_f = _run_direction(xg_f, w_hh_f, b_hh_f, h0_f, c0_f, reverse=False)
-    out_b, h_b, c_b = _run_direction(xg_b, w_hh_b, b_hh_b, h0_b, c0_b, reverse=True)
-    output = torch.cat([out_f, out_b], dim=-1)
-    return output, torch.stack([h_f, h_b]), torch.stack([c_f, c_b])
+    w_hhT = torch.stack([w_hh_f.T, w_hh_b.T])  # (2, H, 4H)
+    b_hh = torch.stack([b_hh_f, b_hh_b])
+    zeros = x.new_zeros((2, x.shape[1], weights.hidden))
+    recurrence = cuda_lstm.bilstm_recurrence if use_kernel else cuda_lstm.recurrence_plain
+    ys_f, ys_b, cs_f, cs_b = recurrence(xg_f, xg_b, w_hhT, b_hh,
+                                        zeros if h0 is None else h0,
+                                        zeros if c0 is None else c0)
+    output = torch.cat([ys_f, ys_b], dim=-1)
+    # final states: the fwd stream ends at T-1, the bwd stream at 0
+    return output, torch.stack([ys_f[-1], ys_b[0]]), torch.stack([cs_f[-1], cs_b[0]])

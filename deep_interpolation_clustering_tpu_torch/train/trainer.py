@@ -1,15 +1,18 @@
 """A lean p1 trainer (counterpart of the JAX `train/trainer.py`).
 
 It keeps the training cohort on the device, gathers each batch there and
-runs shuffled full batches through `steps.train_step`. Checkpoints, dumps,
-early stop, LR schedules and the padded-tail masked step come with the full
-trainer (ROADMAP.md, queue A).
+runs the shuffled batches through `steps.train_step`. Every encounter trains
+once per epoch: a short final batch is padded to the full batch by
+repeating its real rows and trained as one masked step (`sample_mask` 1 on
+the real rows), as the JAX `_tail_train_step` does; the reference has no
+`drop_last`. Checkpoints, dumps, early stop and LR schedules come with the
+full trainer (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Iterator, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,34 +55,49 @@ class Trainer:
             }
         return self._cohorts[cohort]
 
-    def _epoch_batches(self, epoch: int) -> List[torch.Tensor]:
-        """The epoch's shuffled full batches (index tensors on the device)."""
+    def _epoch_batches(self, epoch: int) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+        """The epoch's shuffled batches as (index tensor, sample mask) on the
+        device. Full batches have no mask; a short final batch is padded to
+        the batch size by cyclically repeating its real rows (finite values
+        everywhere, as the JAX `_tail_train_step`), its mask 1 on them."""
         n, bs = len(self.datasets["training"]), self.cfg.batch_size
         order = np.arange(n)
         np.random.RandomState(self.cfg.seed + epoch).shuffle(order)
-        idx = torch.as_tensor(order[: n // bs * bs], device=self.device)
-        return list(idx.reshape(-1, bs))
+        n_full = n // bs * bs
+        idx = torch.as_tensor(order[:n_full], device=self.device)
+        batches = [(i, None) for i in idx.reshape(-1, bs)]
+        if n_full < n:
+            mask = torch.zeros(bs, dtype=torch.float32, device=self.device)
+            mask[: n - n_full] = 1.0
+            tail = torch.as_tensor(np.resize(order[n_full:], bs), device=self.device)
+            batches.append((tail, mask))
+        return batches
 
-    def step(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def step(self, idx: torch.Tensor, sample_mask: Optional[torch.Tensor] = None
+             ) -> Dict[str, torch.Tensor]:
+        """One train step on the encounters `idx`; `sample_mask` (B,) leaves
+        the padded rows of a tail batch out of the losses and BatchNorm."""
         batch = gather_batch(self.cohort_data("training"), idx)
+        if sample_mask is not None:
+            batch["sample_mask"] = sample_mask
         return train_step(self.net, self.opt, self.cfg, batch, self.generator,
                           self.cfg.denoise)
 
-    def _stream(self) -> Iterator[torch.Tensor]:
+    def _stream(self) -> Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
         while True:
-            for idx in self._epoch_batches(self.epoch):
-                yield idx
+            yield from self._epoch_batches(self.epoch)
             self.epoch += 1
 
     def train_steps(self, n: int) -> List[Dict[str, torch.Tensor]]:
         """Take `n` steps over the shuffled epochs; the losses stay on the
         device."""
         stream = self._stream()
-        return [self.step(next(stream)) for _ in range(n)]
+        return [self.step(*next(stream)) for _ in range(n)]
 
     def train_one_epoch(self) -> Dict[str, float]:
-        """One epoch of full batches; returns the mean losses."""
-        losses = [self.step(idx) for idx in self._epoch_batches(self.epoch)]
+        """One epoch over every training encounter; returns the mean losses
+        over its batches (the masked tail counts as one, as in JAX)."""
+        losses = [self.step(*b) for b in self._epoch_batches(self.epoch)]
         self.epoch += 1
         return {k: float(torch.stack([l[k] for l in losses]).mean()) for k in losses[0]}
 

@@ -43,7 +43,7 @@ def phase_times(trainer, n: int) -> Dict[str, float]:
     cfg, net, opt, gen = trainer.cfg, trainer.net, trainer.opt, trainer.generator
     data = trainer.cohort_data("training")
     times = defaultdict(list)
-    for idx in trainer._epoch_batches(trainer.epoch)[:n]:
+    for idx, _ in trainer._epoch_batches(trainer.epoch)[:n]:
         box = {}
         times["build_inputs"].append(_sync_ms(lambda: box.update(inputs=build_inputs(
             cfg, gather_batch(data, idx), gen, True, cfg.denoise))))
@@ -112,7 +112,7 @@ def main() -> None:
     trainer = Trainer(cfg, {"training": ArrayDataset(cfg, cohorts["training"], "training")})
     trainer.train_steps(3)  # warm-up: kernel build, cuBLAS, allocator
     stream = trainer._stream()
-    step = lambda: trainer.step(next(stream))
+    step = lambda: trainer.step(*next(stream))
     step_ms = float(np.median([_sync_ms(step) for _ in range(10)]))
     torch.cuda.reset_peak_memory_stats()
     out = {

@@ -16,7 +16,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 import deep_interpolation_clustering_tpu_torch as port
 from deep_interpolation_clustering_tpu_torch import Config
 from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
-from deep_interpolation_clustering_tpu_torch.ops import cuda_interp, cuda_select  # noqa: F401 (registers the kernels)
+from deep_interpolation_clustering_tpu_torch.ops import cuda_interp, cuda_lstm, cuda_select  # noqa: F401 (registers the kernels)
 from deep_interpolation_clustering_tpu_torch.train import Trainer
 
 torch.set_num_threads(1)
@@ -91,13 +91,23 @@ def test_trainer_without_device_raises_when_no_card(monkeypatch):
 def _fake_cuda_args(wrapper):
     """Arguments of the wrapper's kernel as CUDA tensors without a card."""
     rows, c, t, r = 12, 6, 40, 6
+    b, h = 5, 16
     with FakeTensorMode():
         plane = lambda: torch.zeros(rows, t, device="cuda")
         ref_t = torch.linspace(0.0, 6.0, r, device="cuda")
         alpha = torch.ones(c, device="cuda")
-        if wrapper.name == "fake_select":
+        if wrapper.name in ("fake_select", "fake_select_packed"):
             vec = lambda: torch.ones(rows, dtype=torch.int32, device="cuda")
             return (torch.zeros(rows, t, dtype=torch.int32, device="cuda"), vec(), vec())
+        if wrapper.name.startswith("lstm_"):
+            xg = lambda: torch.zeros(r, b, 4 * h, device="cuda")
+            state = lambda: torch.zeros(2, b, h, device="cuda")
+            w_hhT, b_hh = torch.zeros(2, h, 4 * h, device="cuda"), torch.zeros(2, 4 * h, device="cuda")
+            if wrapper.name == "lstm_forward":
+                return (xg(), xg(), w_hhT, b_hh, state(), state())
+            seq = lambda: torch.zeros(r, b, h, device="cuda")
+            return (xg(), xg(), w_hhT, torch.zeros(2, 4 * h, h, device="cuda"), b_hh,
+                    state(), state(), *(seq() for _ in range(8)))
         if wrapper.name == "sci_forward":
             return (plane(), plane(), plane(), alpha, ref_t)
         if wrapper.name == "sci_backward":
@@ -110,7 +120,15 @@ def _no_plain(*_):
     raise AssertionError("the plain version ran for a CUDA tensor")
 
 
-@pytest.mark.parametrize("name", ["fake_select", "sci_forward", "sci_backward", "rbf_push"])
+KERNEL_NAMES = ["fake_select", "fake_select_packed", "sci_forward", "sci_backward",
+                "rbf_push", "lstm_forward", "lstm_backward"]
+
+
+def test_every_kernel_is_covered():
+    assert sorted(w.name for w in cb.KERNELS) == sorted(KERNEL_NAMES)
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_wrapper_launches_for_cuda_tensors(monkeypatch, name):
     """A CUDA tensor goes to the kernel's launch (and is counted), never to
     the plain version."""
@@ -123,7 +141,7 @@ def test_wrapper_launches_for_cuda_tensors(monkeypatch, name):
     assert len(called) == 1 and wrapper.launches == 1
 
 
-@pytest.mark.parametrize("name", ["fake_select", "sci_forward", "sci_backward", "rbf_push"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_wrapper_raises_without_cuda(monkeypatch, name):
     """Without a card and a toolkit the launch raises: no fallback, no count."""
     wrapper = next(w for w in cb.KERNELS if w.name == name)

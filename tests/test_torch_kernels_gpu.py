@@ -6,9 +6,11 @@ directory's conftest, so they run on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
 Shapes cover the ragged edges the kernels mask themselves: rows that do not
-fill a block, T below and across a warp, R from 1 to 8, rows with k = 0.
-Tolerances: the select is bit-identical; forward values 1e-5 (abs and
-relative, float32); gradients 1e-4 of their largest element.
+fill a block (or a pack of rows), T below and across a warp, R from 1 to 8,
+rows with k = 0, LSTM batches that do not fill a tile. Tolerances: the
+selects are bit-identical; forward values 1e-5 (abs and relative, float32);
+gradients 1e-4 of their largest element; the LSTM backward repeats bit for
+bit.
 """
 
 import numpy as np
@@ -18,7 +20,9 @@ import torch
 from deep_interpolation_clustering_tpu_torch import Config
 from deep_interpolation_clustering_tpu_torch.models import Net
 from deep_interpolation_clustering_tpu_torch.ops import cuda_interp as ci
+from deep_interpolation_clustering_tpu_torch.ops import cuda_lstm as cl
 from deep_interpolation_clustering_tpu_torch.ops import cuda_select as cs
+from deep_interpolation_clustering_tpu_torch.ops.lstm import LSTMWeights, bilstm_forward
 from deep_interpolation_clustering_tpu_torch.ops.interpolation import (
     Planes,
     reference_times,
@@ -62,6 +66,92 @@ def test_fake_select_bit_identical(dev, t):
     got = cs.fake_select(*args)
     assert torch.equal(got, cs._select_sort(*args))
     assert torch.equal(got.sum(1).to(torch.int32), args[2])
+
+
+@pytest.mark.parametrize("t", [1, 2, 16, 37, 48, 100, 192])
+def test_fake_select_packed_bit_identical(dev, t):
+    rng = np.random.RandomState(1000 + t)
+    g = cs.pack_factor(t)
+    rows = 3 * g + 1  # the last block holds one row
+    n_valid = rng.randint(0, t + 1, size=rows).astype(np.int32)
+    n_valid[:2] = (0, t)  # an empty row and a full row
+    k = np.where(n_valid > 0, np.maximum(1, n_valid // 2), 0).astype(np.int32)
+    bits = rng.randint(0, 2**32, size=(rows, t), dtype=np.uint64).astype(np.uint32)
+    bits[2:5] &= np.uint32(0xC0000000)  # rows of ties in the random part
+    args = [torch.from_numpy(a).to(dev) for a in (bits.view(np.int32), n_valid, k)]
+    got = cs.fake_select_packed(*args)
+    assert torch.equal(got, cs._select_sort(*args))
+    assert torch.equal(got.sum(1).to(torch.int32), args[2])
+    assert torch.equal(got, cs.fake_select(*args))  # K1 takes T <= 1024 too
+
+
+def _lstm_inputs(t, b, h, with_state, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *shape, scale=1.0: torch.randn(shape, generator=gen, device=dev) * scale
+    bound = 1.0 / np.sqrt(h)
+    xgf, xgb = rand(t, b, 4 * h), rand(t, b, 4 * h)
+    w_hhT = (torch.rand((2, h, 4 * h), generator=gen, device=dev) * 2 - 1) * bound
+    b_hh = (torch.rand((2, 4 * h), generator=gen, device=dev) * 2 - 1) * bound
+    if with_state:
+        h0, c0 = rand(2, b, h, scale=0.5), rand(2, b, h, scale=0.5)
+    else:
+        h0 = c0 = torch.zeros((2, b, h), device=dev)
+    return [xgf, xgb, w_hhT, b_hh, h0, c0]
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("h", [16, 128])
+@pytest.mark.parametrize("b", [1, 13, 256, 512])
+@pytest.mark.parametrize("t", [1, 6, 9])
+def test_lstm_forward_and_backward(dev, t, b, h, with_state):
+    ins = _lstm_inputs(t, b, h, with_state, dev)
+    got = cl.lstm_forward(*ins)
+    want = cl.recurrence_plain(*ins)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cots = [torch.randn(w.shape, generator=gen, device=dev) for w in want]
+    w_hh = ins[2].transpose(1, 2).contiguous()
+    got_g = cl.lstm_backward(*ins[:3], w_hh, *ins[3:], *got, *cots)
+    want_g = cl._recurrence_bwd_plain(*ins[:3], w_hh, *ins[3:], *want, *cots)
+    for name, a, w in zip(("dxgf", "dxgb", "dw_hhT", "db_hh", "dh0", "dc0"), got_g, want_g):
+        assert _rel_err(a, w) <= 1e-4, name
+
+
+def test_lstm_backward_repeats_bit_for_bit(dev):
+    ins = _lstm_inputs(6, 512, 128, True, dev, seed=2)
+    outs = cl.lstm_forward(*ins)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    w_hh = ins[2].transpose(1, 2).contiguous()
+    first = cl.lstm_backward(*ins[:3], w_hh, *ins[3:], *outs, *cots)
+    second = cl.lstm_backward(*ins[:3], w_hh, *ins[3:], *outs, *cots)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bilstm_gradient_kernels_match_plain(dev):
+    """`bilstm_forward` through B6/B7 against the plain loop under autograd,
+    with h0/c0 given as slices (as the decoder's are)."""
+    t, b, feat, h = 6, 37, 256, 128
+    weights = LSTMWeights(feat, h)
+    weights.reset_parameters(torch.Generator().manual_seed(4))
+    weights = weights.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((t, b, feat), generator=gen, device=dev)
+    state = torch.randn((2, 2 * b, h), generator=gen, device=dev) * 0.3
+    wo = torch.randn((t, b, 2 * h), generator=gen, device=dev)
+    grads = []
+    for use_kernel in (True, False):
+        weights.zero_grad()
+        xs = x.clone().requires_grad_()
+        st = state.clone().requires_grad_()
+        out, hid, cell = bilstm_forward(weights, xs, st[:, :b], st[:, b:], use_kernel=use_kernel)
+        (torch.sum(out * wo) + hid.sum() + 0.5 * cell.sum()).backward()
+        grads.append([out.detach(), xs.grad, st.grad] + [p.grad for p in weights.parameters()])
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-5, atol=1e-5)
+    for a, w in zip(grads[0][1:], grads[1][1:]):
+        assert _rel_err(a, w) <= 1e-4
 
 
 @pytest.mark.parametrize("rows,t,r", [(15, 7, 1), (18, 354, 6), (1536, 354, 6), (6, 40, 8)])
@@ -155,6 +245,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         ci.sci_fwd(x.double(), ts, mask, alpha, ref_t)
     with pytest.raises(ValueError, match="R=9"):
         ci.sci_fwd(x, ts, mask, alpha, reference_times(9, 6.0, device=dev))
+    n = torch.ones(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="T <= 1024"):
-        n = torch.ones(2, dtype=torch.int32, device=dev)
         cs.fake_select(torch.zeros((2, 1025), dtype=torch.int32, device=dev), n, n)
+    with pytest.raises(ValueError, match="T <= 192"):
+        cs.fake_select_packed(torch.zeros((2, 193), dtype=torch.int32, device=dev), n, n)
+    with pytest.raises(ValueError, match="H <= 256"):
+        cl.lstm_forward(*_lstm_inputs(2, 3, 264, False, dev))

@@ -1,8 +1,8 @@
 """Port of the exact-k fake-sample select vs the JAX package.
 
 The port's select (plain version on the CPU) must be BIT-IDENTICAL to the
-JAX sort oracle `_select_xla` and to the Pallas kernel `_select_pallas`
-(interpreter mode), given the same uint32 bits.
+JAX sort oracle `_select_xla` and to the Pallas kernels `_select_pallas`
+and `_select_pallas_packed` (interpreter mode), given the same uint32 bits.
 """
 
 import functools
@@ -17,6 +17,7 @@ import torch
 from deep_interpolation_clustering_tpu.data.loader import make_fake_ob as jax_make_fake_ob
 from deep_interpolation_clustering_tpu.ops import pallas_select as ps
 from deep_interpolation_clustering_tpu_torch.data.loader import make_fake_ob
+from deep_interpolation_clustering_tpu_torch.ops import cuda_select
 from deep_interpolation_clustering_tpu_torch.ops.cuda_select import fake_select_mask
 
 torch.set_num_threads(1)
@@ -62,6 +63,46 @@ def test_select_bit_identical_to_pallas_interpret(rng, t):
             jnp.asarray(k).reshape(B * C, 1),
         )).reshape(B, C, t)
     np.testing.assert_array_equal(_port(bits, counts, k), want)
+
+
+@pytest.mark.parametrize("rows,t", [(48, 48), (37, 37), (23, 100), (96, 16), (7, 192)])
+def test_select_bit_identical_to_packed_pallas_interpret(rows, t):
+    """The short-T route (T <= 192) against the JAX packed kernel in
+    interpret mode, rows not a multiple of the pack factor included."""
+    rng = np.random.RandomState(rows * 1000 + t)
+    g = ps._pack_factor(t)
+    assert g >= 2 and cuda_select.pack_factor(t) == g
+    nv = rng.randint(0, t + 1, size=rows).astype(np.int32)
+    nv[:2] = (0, t)  # an empty row and a full row
+    k = np.where(nv > 0, np.maximum(1, nv // 2), 0).astype(np.int32)
+    bits = rng.randint(0, 2**32, size=(rows, t), dtype=np.uint64).astype(np.uint32)
+    with mock.patch.object(
+        ps.pl, "pallas_call", functools.partial(ps.pl.pallas_call, interpret=True)
+    ):
+        want = np.asarray(ps._select_pallas_packed(
+            jnp.asarray(bits), jnp.asarray(nv)[:, None], jnp.asarray(k)[:, None], g))
+    got = fake_select_mask(torch.from_numpy(bits.view(np.int32)).reshape(rows, 1, t),
+                           torch.from_numpy(nv).reshape(rows, 1),
+                           torch.from_numpy(k).reshape(rows, 1)).reshape(rows, t).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("t,kernel", [(1, "fake_select_packed"), (48, "fake_select_packed"),
+                                      (192, "fake_select_packed"), (193, "fake_select"),
+                                      (354, "fake_select")])
+def test_select_routes_by_t(monkeypatch, t, kernel):
+    """T <= 192 goes to the packed kernel, longer rows to K1, as the JAX
+    `_select_local` routes on the TPU; `use_kernel=False` to neither."""
+    called = []
+    for name in ("fake_select", "fake_select_packed"):
+        wrapper = getattr(cuda_select, name)
+        monkeypatch.setattr(wrapper, "plain",
+                            lambda *a, _n=name: called.append(_n) or cuda_select._select_sort(*a))
+    bits = torch.zeros((2, 3, t), dtype=torch.int32)
+    n = torch.full((2, 3), t, dtype=torch.int32)
+    fake_select_mask(bits, n, n // 2)
+    fake_select_mask(bits, n, n // 2, use_kernel=False)
+    assert called == [kernel]
 
 
 @pytest.mark.parametrize("t", [24, 48, 354])

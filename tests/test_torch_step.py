@@ -29,7 +29,7 @@ from deep_interpolation_clustering_tpu.train.optim import (
     ScaleByTorchAmsgradState,
     make_optimizer as jmake_optimizer,
 )
-from deep_interpolation_clustering_tpu.train.steps import _make_update
+from deep_interpolation_clustering_tpu.train.steps import _make_update, make_train_step
 from deep_interpolation_clustering_tpu.train.steps import build_inputs as jbuild_inputs
 from deep_interpolation_clustering_tpu_torch.compat import state_dict_from_jax
 from deep_interpolation_clustering_tpu_torch.ops.nn import BN_MOMENTUM
@@ -170,3 +170,83 @@ def test_trainer_cpu_steps_and_eval():
     hidden = tr.eval_batch("validation")
     assert hidden.shape == (cfg.batch_size, cfg.dim_enc_hidden)
     assert torch.isfinite(hidden).all()
+
+
+def test_masked_tail_step_matches_jax():
+    """The padded tail step: 5 real encounters cyclically repeated to B=8
+    with `sample_mask` 1 on the real rows, against JAX
+    `make_train_step(masked=True)` on the same padded batch and draws."""
+    jcfg, cfg = configs(dropout=0.0)
+    params, state = init_net(jax.random.PRNGKey(20), jcfg)
+    joptimizer = jmake_optimizer(jcfg)
+    opt_state = joptimizer.init(params)
+    net = port_net(cfg, params, state)
+    opt = make_optimizer(cfg, net.parameters())
+    data = jax_batch(jcfg)  # an 8-encounter cohort
+    tail = np.array([6, 2, 5, 0, 3], np.int32)
+    idx = np.resize(tail, cfg.batch_size)
+    mask = np.zeros(cfg.batch_size, np.float32)
+    mask[: len(tail)] = 1.0
+    batch = {k: v[idx] for k, v in data.items()}
+    batch["sample_mask"] = mask
+    key = jax.random.PRNGKey(21)
+    inputs = jbuild_inputs(jcfg, batch, jax.random.split(key)[0], True, False)
+    before = {n: p.detach().clone() for n, p in net.named_parameters()}
+    jstep = make_train_step(jcfg, joptimizer, False, gather=True, masked=True)
+    params, state, opt_state, jlosses = jstep(
+        params, state, opt_state, {k: jax.numpy.asarray(v) for k, v in data.items()},
+        jax.numpy.asarray(idx), jax.numpy.asarray(mask), key)
+    losses = update(net, opt, cfg, to_torch(inputs), None)
+    for k in jlosses:
+        assert abs(float(losses[k]) - float(jlosses[k])) <= 1e-5 * max(
+            1.0, abs(float(jlosses[k]))), k
+    eps_regime = {n: n.endswith(".model.0.bias")
+                  | ((p.grad + cfg.weight_decay_rate * before[n]).abs() < 1e-6)
+                  for n, p in net.named_parameters()}
+    _assert_params_close(net, params, state, eps_regime, 2 * cfg.init_lr, "tail step")
+    sd = net.state_dict()
+    for name, v in state_dict_from_jax(params, state).items():
+        if "running_var" in name:  # the running means carry the fc1-bias drift
+            np.testing.assert_allclose(sd[name].numpy(), v.numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+
+
+def test_trainer_epoch_visits_every_encounter_once(monkeypatch):
+    """42 training encounters at B=8: five full batches and a masked tail of
+    2 real rows padded by repeating them. `train_one_epoch` and the
+    `train_steps` stream each visit every training index exactly once."""
+    _, cfg = configs()
+    cohorts = port_process_splits(
+        port_synthetic(n_total=60, max_obs=cfg.num_timestamps, seed=3),
+        rng=np.random.RandomState(0),
+    )
+    ds = {c: ArrayDataset(cfg, d, c) for c, d in cohorts.items()}
+    n = len(ds["training"])
+    assert n % cfg.batch_size == 2
+    tr = Trainer(cfg, ds, device="cpu")
+    seen = []
+    step = tr.step
+    monkeypatch.setattr(tr, "step", lambda idx, mask=None: seen.append((idx, mask))
+                        or step(idx, mask))
+
+    def real_rows():
+        rows = []
+        for idx, mask in seen:
+            assert idx.shape == (cfg.batch_size,)
+            if mask is None:
+                rows += idx.tolist()
+            else:
+                k = int(mask.sum())
+                assert mask[:k].eq(1).all() and mask[k:].eq(0).all()
+                np.testing.assert_array_equal(idx.numpy(), np.resize(idx[:k].numpy(),
+                                                                     cfg.batch_size))
+                rows += idx[:k].tolist()
+        seen.clear()
+        return sorted(rows)
+
+    epoch = tr.train_one_epoch()
+    assert np.isfinite(epoch["loss"])
+    assert real_rows() == list(range(n))
+    losses = tr.train_steps(-(-n // cfg.batch_size))  # one epoch of steps
+    assert all(torch.isfinite(v) for step_losses in losses for v in step_losses.values())
+    assert real_rows() == list(range(n))
