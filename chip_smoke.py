@@ -47,8 +47,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 EXPF_PER_S = 16 * 132 * 1.98e9
-L2_FLUSH_BYTES = 64 << 20  # more than the card's 50 MB L2
-SPIN_CYCLES = 4_000_000  # ~2 ms at the boost clock
 
 B, C, T, R = 256, 6, 354, 6
 N_TRAIN = 2048
@@ -63,36 +61,6 @@ SCALED_TRAIN = 3 * SCALED_B + 368
 
 def say(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
-
-
-def time_ms(fn, reps: int = 50, warmup_s: float = 0.2) -> float:
-    """Median over `reps` calls of `fn`, each between two CUDA events and
-    each after the L2 cache was flushed (the bound counts device-memory
-    bytes). Before each start event the card spins for about 2 ms, so the
-    host has queued all of `fn`'s launches before the card reaches them:
-    the events then time the device's work, not the host's launch
-    overhead. A warm-up of `warmup_s` seconds first brings the card's clocks
-    up from idle."""
-    import torch
-
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < warmup_s:
-        flush.zero_()
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
 def bound(n_bytes: float, n_flop: float, n_expf: float):
@@ -167,6 +135,7 @@ def main() -> None:
         Trainer, build_inputs, gather_batch, make_optimizer, update,
     )
     from deep_interpolation_clustering_tpu_torch.utils import resolve_device
+    from deep_interpolation_clustering_tpu_torch.utils.cuda_timing import time_ms
 
     dev = resolve_device("cuda")  # TF32 off
     kind = torch.cuda.get_device_name(0)

@@ -26,16 +26,41 @@
 // __syncthreads per step are the only synchronisation.
 //
 // Backward design: as the TPU kernel, it recomputes the gates from the saved
-// h/c and saves no activations. The same (tile, direction) blocks walk the
-// steps in reverse with dh and dc of the tile's rows in registers; the
-// tile's dpre (kRows x 4H) goes to shared memory so that each thread can
-// form its unit's dh = dpre W_hh. dW_hh^T and db_hh sum over every (t, row)
-// pair of all tiles: on the TPU they accumulate across a sequential grid, but
-// Hopper's blocks run in no order. So two more kernels follow on the stream:
-// a tiled float32 product h_prev^T dpre over fixed chunks of the (t, row)
-// axis writes per-chunk partials into a scratch buffer from the wrapper, and
-// a last pass sums the partials in chunk order. No float atomics: two runs
-// give the same bits.
+// h/c and saves no activations, in four launches on the stream:
+//  1. lstm_gate_products_kernel: the gates' h_prev W_hh^T for every (t, row)
+//     pair at once, a register-tiled float32 SGEMM (8 x 8 outputs a thread),
+//     summed over k in the forward's order so that the gates come back bit
+//     for bit. It writes them into the dxg buffers. The TPU kernel recomputes
+//     them inside its reverse walk, but they do not depend on that walk.
+//  2. lstm_bwd_kernel: the reverse walk. Grid = (batch tiles of kBwdRows
+//     rows, direction), 4H threads (16 warps at H=128; 512 threads with two
+//     work items each above). Each step is two phases between barriers: the
+//     (unit, row) pairs form dpre from the gates (writing it over them in
+//     dxg and into shared memory) and carry dc; then ~4H work items, each 4
+//     units of dh = dpre W_hh over one of 16 splits of the 4H columns, as 4
+//     x kBwdRows register tiles (one float4 of W and kBwdRows / 4 float4
+//     broadcasts of dpre feed 32 FMAs); the next step adds the 16 partials
+//     in split order. The next step's inputs are loaded during the products.
+//  3. lstm_dw_partial_kernel: dW_hh^T = h_prev^T dpre and db_hh over fixed
+//     chunks of the (t, row) axis, the same SGEMM tile, enough chunks for
+//     two blocks per SM, partials into a scratch buffer from the wrapper;
+//  4. lstm_dw_reduce_kernel: the partials summed in chunk order. On the TPU
+//     dW accumulates across a sequential grid; Hopper's blocks run in no
+//     order. No float atomics anywhere: two runs give the same bits.
+//
+// What bounds the walk on the H100: W_hh. Each step needs all of one
+// direction's W_hh (256 KB at H=128) against a block's 227 KB of shared
+// memory, beside the tile's partials, dpre and dc. So the walk keeps the
+// first rows of W_hh that fit (278 of 512 at H=128, copied in with cp.async
+// during the first step) in shared memory and reads the rest from L2 at
+// every step. Recomputing the gates inside the walk as well would read all
+// of W in both layouts, 512 KB per block per step, and the L2's rate then
+// bounds the walk (PERF.md, the B7 findings). The steps are serial, so the
+// walk is bound by each block's own latency: the decoder's half batch takes
+// about as long as the encoder's.
+// kBwdRows is the trade between W reads (fewer with more rows a block) and
+// the FMAs of each block (more); the rows-per-block sweep
+// (utils/lstm_rows_sweep.py) chose it.
 
 #include <cstdint>
 
@@ -44,7 +69,7 @@
 namespace {
 
 constexpr int kRows = 8;         // batch rows per block of the recurrence
-constexpr int kMaxHidden = 256;  // one thread per hidden unit
+constexpr int kMaxHidden = 256;  // the forward's one thread per hidden unit
 
 __device__ __forceinline__ float sigmoid_acc(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -79,15 +104,23 @@ struct Gates {
   float i, f, g, o;
 };
 
+// (xg + h W_hh^T) + b_hh, the JAX association order, from the four gate
+// products `pre` of one (unit, row); x points at the unit's input gate i.
+__device__ __forceinline__ Gates activate_pre(const float* __restrict__ x,
+                                              const float (&pre)[4],
+                                              const float (&bias)[4], int hidden) {
+  const float pi = __fadd_rn(__fadd_rn(x[0], pre[0]), bias[0]);
+  const float pf = __fadd_rn(__fadd_rn(x[hidden], pre[1]), bias[1]);
+  const float pg = __fadd_rn(__fadd_rn(x[2 * hidden], pre[2]), bias[2]);
+  const float po = __fadd_rn(__fadd_rn(x[3 * hidden], pre[3]), bias[3]);
+  return {sigmoid_acc(pi), sigmoid_acc(pf), tanhf(pg), sigmoid_acc(po)};
+}
+
 __device__ __forceinline__ Gates activate(const float* __restrict__ x,
                                           const float (&acc)[4][kRows], int r,
                                           const float (&bias)[4], int hidden) {
-  // (xg + h W_hh^T) + b_hh, the JAX association order
-  const float pi = __fadd_rn(__fadd_rn(x[0], acc[0][r]), bias[0]);
-  const float pf = __fadd_rn(__fadd_rn(x[hidden], acc[1][r]), bias[1]);
-  const float pg = __fadd_rn(__fadd_rn(x[2 * hidden], acc[2][r]), bias[2]);
-  const float po = __fadd_rn(__fadd_rn(x[3 * hidden], acc[3][r]), bias[3]);
-  return {sigmoid_acc(pi), sigmoid_acc(pf), tanhf(pg), sigmoid_acc(po)};
+  const float pre[4] = {acc[0][r], acc[1][r], acc[2][r], acc[3][r]};
+  return activate_pre(x, pre, bias, hidden);
 }
 
 __global__ void __launch_bounds__(kMaxHidden) lstm_fwd_kernel(
@@ -142,218 +175,504 @@ __global__ void __launch_bounds__(kMaxHidden) lstm_fwd_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kMaxHidden) lstm_bwd_kernel(
-    const float* __restrict__ xgf, const float* __restrict__ xgb,
-    const float* __restrict__ w_hhT, const float* __restrict__ w_hh,
-    const float* __restrict__ b_hh, const float* __restrict__ h0,
-    const float* __restrict__ c0, const float* __restrict__ ysf,
-    const float* __restrict__ ysb, const float* __restrict__ csf,
+// ------------------------------------------------------- recurrence backward
+constexpr int kBwdRows = 8;          // batch rows per block
+constexpr int kBwdMaxThreads = 512;  // one work item a thread up to H = 128, two above
+constexpr int kBwdGroup = 8;         // units side by side in the (unit, row) mapping
+constexpr int kBwdCols = 4;          // units per dh work item: one float4 of W_hh
+constexpr int kDhSplits = 16;        // splits of n in the dh products
+constexpr int kBwdPairCap = kBwdRows / 2;  // (unit, row) pairs a thread holds at H = 256
+constexpr int kSmemLimit = 232448;   // the most shared memory a Hopper block can have
+static_assert(kBwdRows % 4 == 0, "rows are read and written as float4");
+
+// Shared memory of the recurrence, in floats: the dh partials (split, row,
+// unit) with a padded unit stride, dpre (4H x rows), dc (H x rows), then as
+// many rows of W_hh (padded to a float4 multiple) as the rest holds.
+__host__ __device__ constexpr int bwd_unit_stride(int hidden) { return (hidden + 3) / 4 * 4; }
+__host__ __device__ constexpr int bwd_part_stride(int hidden) { return bwd_unit_stride(hidden) + 8; }
+__host__ __device__ constexpr int bwd_fixed_floats(int hidden) {
+  return kDhSplits * kBwdRows * bwd_part_stride(hidden) + 5 * hidden * kBwdRows;
+}
+__host__ __device__ constexpr int bwd_resident_rows(int hidden) {
+  const int rows = (kSmemLimit / 4 - bwd_fixed_floats(hidden)) / bwd_unit_stride(hidden);
+  return rows < 0 ? 0 : rows < 4 * hidden ? rows : 4 * hidden;
+}
+__host__ __device__ constexpr int bwd_smem_bytes(int hidden) {
+  return 4 * (bwd_fixed_floats(hidden) + bwd_resident_rows(hidden) * bwd_unit_stride(hidden));
+}
+
+// Slot p of the (unit j, row r) pairs of a tile: kBwdGroup consecutive units
+// of one row side by side, so that a warp reads and writes 32-byte runs of
+// each of four rows in device memory and hits shared memory with at most two
+// lanes on one bank.
+__device__ __forceinline__ void bwd_pair(int p, int& j, int& r) {
+  const int group = p / (kBwdGroup * kBwdRows);
+  const int w = p - group * (kBwdGroup * kBwdRows);
+  j = group * kBwdGroup + w % kBwdGroup;
+  r = w / kBwdGroup;
+}
+
+// acc[c][r] = sum over i in [lo, hi), in i order, of w(i)[c] * v[i][r]:
+// w(i) is kBwdCols consecutive columns of one row of W as a float4, v is in
+// shared memory as (i, row) float4 rows. One float4 of W
+// and kBwdRows / 4 float4 broadcasts feed kBwdCols x kBwdRows FMAs.
+template <class LoadW>
+__device__ __forceinline__ void tile_products(LoadW w, const float4* v, int lo, int hi,
+                                              float (&acc)[kBwdCols][kBwdRows]) {
+#pragma unroll
+  for (int c = 0; c < kBwdCols; ++c)
+#pragma unroll
+    for (int r = 0; r < kBwdRows; ++r) acc[c][r] = 0.0f;
+#pragma unroll 4
+  for (int i = lo; i < hi; ++i) {
+    const float4 w4 = w(i);
+    const float wc[kBwdCols] = {w4.x, w4.y, w4.z, w4.w};
+    float x[kBwdRows];
+#pragma unroll
+    for (int q = 0; q < kBwdRows / 4; ++q) {
+      const float4 f = v[i * (kBwdRows / 4) + q];
+      x[4 * q] = f.x;
+      x[4 * q + 1] = f.y;
+      x[4 * q + 2] = f.z;
+      x[4 * q + 3] = f.w;
+    }
+#pragma unroll
+    for (int c = 0; c < kBwdCols; ++c)
+#pragma unroll
+      for (int r = 0; r < kBwdRows; ++r) acc[c][r] = fmaf(x[r], wc[c], acc[c][r]);
+  }
+}
+
+// Asynchronous 16-byte copy from device to shared memory (cp.async, which
+// bypasses the registers); copy_async_wait() waits for this thread's copies.
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// What the pointwise part of one step reads from device memory for one
+// (unit, row): prefetched during the previous step's dh products.
+struct PairIn {
+  float pre[4];  // h_prev W_hh^T of the four gates (lstm_gate_products_kernel)
+  float c, c_prev, dy, dc;
+};
+
+// Grid (batch tiles of kBwdRows rows, direction), blockDim.x threads (a
+// multiple of 32, at most kBwdMaxThreads, with blockDim.x * kPairs pairs at
+// least those of a tile), bwd_smem_bytes(hidden) of dynamic shared memory.
+// The gates' products h_prev W_hh^T arrive in dxg (lstm_gate_products_kernel
+// wrote them there), and dpre replaces them. The resident rows of W_hh are
+// copied in asynchronously during the first step's pointwise phase. Each
+// reverse step is two phases between barriers:
+//   C. (unit, row) pairs: dh = the previous step's 16 partials summed in
+//      split order, the gates, dpre (written as dxg and kept in shared
+//      memory), dc carried; then the next step's inputs are loaded;
+//   D. ~4H items (units 4g..4g+3, n split q of 16): part[q][r][j] = sum
+//      over n in split q, in n order, of dpre[r][n] W_hh[n][j], with W_hh
+//      read from shared memory for its resident rows and from L2 after.
+template <int kPairs>
+__global__ void __launch_bounds__(kBwdMaxThreads) lstm_bwd_kernel(
+    const float* __restrict__ w_hh, const float* __restrict__ b_hh,
+    const float* __restrict__ c0, const float* __restrict__ xgf,
+    const float* __restrict__ xgb, const float* __restrict__ csf,
     const float* __restrict__ csb, const float* __restrict__ dysf,
     const float* __restrict__ dysb, const float* __restrict__ dcsf,
     const float* __restrict__ dcsb, float* __restrict__ dxgf,
     float* __restrict__ dxgb, float* __restrict__ dh0, float* __restrict__ dc0,
     int t_len, int batch, int hidden) {
-  __shared__ float4 hs4[kMaxHidden * kRows / 4];
-  __shared__ float4 dp4[4 * kMaxHidden * kRows / 4];
-  float* hs = reinterpret_cast<float*>(hs4);
-  float* dp = reinterpret_cast<float*>(dp4);  // (n, row) for n in [0, 4H)
-  const int d = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int j = threadIdx.x;
+  constexpr int R = kBwdRows;
+  extern __shared__ float4 smem4[];
+  const int H = hidden;
   const int G = 4 * hidden;
+  const int ldu = bwd_unit_stride(H);
+  const int ldp = bwd_part_stride(H);
+  const int n_res = bwd_resident_rows(H);
+  float* part = reinterpret_cast<float*>(smem4);  // (split, row, unit)
+  float* pd = part + kDhSplits * R * ldp;         // (n, row): dpre
+  float* dcs_t = pd + G * R;                      // (j, row)
+  float* ws = dcs_t + H * R;                      // (n < n_res, unit): W_hh
+  const float4* pd4 = reinterpret_cast<const float4*>(pd);
+  const float4* ws4 = reinterpret_cast<const float4*>(ws);
+  const int d = blockIdx.y;
+  const int row0 = blockIdx.x * R;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int n_slots = (H + kBwdGroup - 1) / kBwdGroup * kBwdGroup * R;
+  const int n_groups = ldu / kBwdCols;  // unit groups of phase D
   const float* xg = d ? xgb : xgf;
-  const float* ys = d ? ysb : ysf;
   const float* cs = d ? csb : csf;
   const float* dys = d ? dysb : dysf;
   const float* dcs = d ? dcsb : dcsf;
   float* dxg = d ? dxgb : dxgf;
-  const float* w = w_hhT + static_cast<size_t>(d) * hidden * G;
-  const float* wt = w_hh + static_cast<size_t>(d) * G * hidden;
-  float bias[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) bias[q] = b_hh[d * G + q * hidden + j];
+  const float* wt = w_hh + static_cast<size_t>(d) * G * H;
+  const float* bias_d = b_hh + d * G;
 
-  float dh[kRows], dc[kRows];
+  const auto load_in = [&](int s, int p, PairIn& in) {
+    int j, r;
+    bwd_pair(p, j, r);
+    const int row = row0 + r;
+    if (p >= n_slots || j >= H || row >= batch) return;
+    const int t = d ? t_len - 1 - s : s;
+    const size_t base = static_cast<size_t>(t) * batch + row;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) dh[r] = dc[r] = 0.0f;
+    for (int q = 0; q < 4; ++q) in.pre[q] = dxg[base * G + q * H + j];
+    in.c = cs[base * H + j];
+    const int t_prev = d ? t + 1 : t - 1;  // read only when s > 0
+    in.c_prev = s > 0 ? cs[(static_cast<size_t>(t_prev) * batch + row) * H + j]
+                      : c0[(static_cast<size_t>(d) * batch + row) * H + j];
+    in.dy = dys[base * H + j];
+    in.dc = dcs[base * H + j];
+  };
+  if (H == ldu) {  // the resident rows are one contiguous run of float4
+    for (int i = tid; i < n_res * ldu / 4; i += nt) {
+      copy_async16(ws + 4 * i, wt + 4 * static_cast<size_t>(i));
+    }
+  } else {
+    for (int i = tid; i < n_res * ldu; i += nt) {
+      const int n = i / ldu;
+      const int j = i - n * ldu;
+      ws[i] = j < H ? wt[static_cast<size_t>(n) * H + j] : 0.0f;
+    }
+  }
+  PairIn in[kPairs];
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) load_in(t_len - 1, tid + i * nt, in[i]);
 
   for (int s = t_len - 1; s >= 0; --s) {
     const int t = d ? t_len - 1 - s : s;
-    const int t_prev = d ? t_len - s : s - 1;  // read only when s > 0
-    float c_prev[kRows];
+    // C
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      float hv = 0.0f, cv = 0.0f;
-      if (row < batch) {
-        if (s > 0) {
-          const size_t o = (static_cast<size_t>(t_prev) * batch + row) * hidden + j;
-          hv = ys[o];
-          cv = cs[o];
-        } else {
-          const size_t o = (static_cast<size_t>(d) * batch + row) * hidden + j;
-          hv = h0[o];
-          cv = c0[o];
-        }
-      }
-      hs[j * kRows + r] = hv;
-      c_prev[r] = cv;
-    }
-    __syncthreads();
-    float acc[4][kRows];
-    gate_products(w, hs4, hidden, j, acc);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int i = 0; i < kPairs; ++i) {
+      const int p = tid + i * nt;
+      if (p >= n_slots) break;
+      int j, r;
+      bwd_pair(p, j, r);
+      if (j >= H) continue;
       const int row = row0 + r;
       float dpre[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (row < batch) {
         const size_t base = static_cast<size_t>(t) * batch + row;
-        const Gates a = activate(xg + base * G + j, acc, r, bias, hidden);
-        const float tc = tanhf(cs[base * hidden + j]);
-        dh[r] += dys[base * hidden + j];
-        dc[r] += dcs[base * hidden + j];
-        const float d_o = dh[r] * tc;
-        dc[r] += dh[r] * a.o * (1.0f - tc * tc);
-        const float di = dc[r] * a.g;
-        const float df = dc[r] * c_prev[r];
-        const float dg = dc[r] * a.i;
+        const float bias[4] = {__ldg(bias_d + j), __ldg(bias_d + H + j),
+                               __ldg(bias_d + 2 * H + j), __ldg(bias_d + 3 * H + j)};
+        const Gates a = activate_pre(xg + base * G + j, in[i].pre, bias, H);
+        const float tc = tanhf(in[i].c);
+        float dh = 0.0f;
+        if (s < t_len - 1) {
+          for (int q = 0; q < kDhSplits; ++q) dh += part[(q * R + r) * ldp + j];
+        }
+        dh += in[i].dy;
+        float dc = s < t_len - 1 ? dcs_t[j * R + r] : 0.0f;
+        dc += in[i].dc;
+        const float d_o = dh * tc;
+        dc += dh * a.o * (1.0f - tc * tc);
+        const float di = dc * a.g;
+        const float df = dc * in[i].c_prev;
+        const float dg = dc * a.i;
         dpre[0] = di * a.i * (1.0f - a.i);
         dpre[1] = df * a.f * (1.0f - a.f);
         dpre[2] = dg * (1.0f - a.g * a.g);
         dpre[3] = d_o * a.o * (1.0f - a.o);
         float* dx = dxg + base * G + j;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) dx[q * hidden] = dpre[q];
-        dc[r] *= a.f;
+        for (int q = 0; q < 4; ++q) dx[q * H] = dpre[q];
+        dcs_t[j * R + r] = dc * a.f;
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) dp[(q * hidden + j) * kRows + r] = dpre[q];
+      for (int q = 0; q < 4; ++q) pd[(q * H + j) * R + r] = dpre[q];
+    }
+    if (s == t_len - 1) copy_async_wait();  // the resident W, before the barrier
+    __syncthreads();
+    if (s > 0) {
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) load_in(s - 1, tid + i * nt, in[i]);
+    }
+    // D
+    for (int u = tid; u < kDhSplits * n_groups; u += nt) {
+      const int g = u % n_groups;
+      const int q = u / n_groups;
+      const int lo = q * G / kDhSplits;
+      const int hi = (q + 1) * G / kDhSplits;
+      const int j0 = kBwdCols * g;
+      float acc[kBwdCols][R];
+      if (H % kBwdCols == 0) {
+        const float4* wt4 = reinterpret_cast<const float4*>(wt);
+        tile_products(
+            [&](int n) {
+              return n < n_res ? ws4[n * n_groups + g]
+                               : __ldg(wt4 + static_cast<size_t>(n) * n_groups + g);
+            },
+            pd4, lo, hi, acc);
+      } else {  // rows of W_hh in device memory are not float4-aligned
+        tile_products(
+            [&](int n) {
+              if (n < n_res) return ws4[n * n_groups + g];
+              const float* p = wt + static_cast<size_t>(n) * H + j0;
+              return make_float4(__ldg(p), j0 + 1 < H ? __ldg(p + 1) : 0.0f,
+                                 j0 + 2 < H ? __ldg(p + 2) : 0.0f,
+                                 j0 + 3 < H ? __ldg(p + 3) : 0.0f);
+            },
+            pd4, lo, hi, acc);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        *reinterpret_cast<float4*>(part + (q * R + r) * ldp + j0) =
+            make_float4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+      }
     }
     __syncthreads();
-    // dh[r] = sum_n dpre[r][n] * W_hh[n][j], W_hh (4H, H)
-    float acc2[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc2[r] = 0.0f;
-#pragma unroll 4
-    for (int n = 0; n < G; ++n) {
-      const float wv = __ldg(wt + static_cast<size_t>(n) * hidden + j);
-      const float4 a = dp4[2 * n];
-      const float4 b = dp4[2 * n + 1];
-      const float v[kRows] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc2[r] = fmaf(v[r], wv, acc2[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) dh[r] = acc2[r];
-    __syncthreads();  // hs and dp are rewritten by the next step
   }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int p = tid; p < n_slots; p += nt) {
+    int j, r;
+    bwd_pair(p, j, r);
     const int row = row0 + r;
-    if (row >= batch) continue;
-    const size_t o = (static_cast<size_t>(d) * batch + row) * hidden + j;
-    dh0[o] = dh[r];
-    dc0[o] = dc[r];
+    if (j >= H || row >= batch) continue;
+    float dh = 0.0f;
+    for (int q = 0; q < kDhSplits; ++q) dh += part[(q * R + r) * ldp + j];
+    const size_t o = (static_cast<size_t>(d) * batch + row) * H + j;
+    dh0[o] = dh;
+    dc0[o] = dcs_t[j * R + r];
   }
 }
 
-// ------------------------------------------------ dW_hh^T and db_hh partials
-constexpr int kTileK = 32;   // rows k of dW_hh^T per block
-constexpr int kTileN = 64;   // columns n per block
-constexpr int kChunkM = 16;  // (t, row) pairs per shared-memory stage
-constexpr int kGemmThreads = 256;
+// ------------------------------ register-tiled float32 products of the pass
+// Two products over all (t, row) pairs at once, as a float32 SGEMM tile: the
+// gates' h_prev W_hh^T before the recurrence (summed over k) and dW_hh^T =
+// h_prev^T dpre after it (summed over the pairs). A block of kGemmThreads
+// threads computes a kGemmTileA x kGemmTileN tile of the output; thread
+// (ty, tx) owns rows {4 ty, 32 + 4 ty} + {0..3} and columns {4 tx, 64 +
+// 4 tx} + {0..3}: per step of the sum, four float4 shared-memory reads feed
+// 64 FMAs. The sum runs in stages of kGemmStage, the next stage loaded into
+// registers while the current one is multiplied out of shared memory.
+constexpr int kGemmTileA = 64;    // output rows per block
+constexpr int kGemmTileN = 128;   // output columns per block
+constexpr int kGemmStage = 16;    // summed index per shared-memory stage
+constexpr int kGemmThreads = 128;
+constexpr int kGemmLdA = kGemmTileA + 4;  // padded: the gates' A tile is stored transposed
+constexpr int kGemmLoadA = kGemmStage * kGemmTileA / kGemmThreads;
+constexpr int kGemmLoadB = kGemmStage * kGemmTileN / kGemmThreads;
+static_assert(kGemmTileN == kGemmThreads && kGemmThreads % kGemmTileA == 0, "load mapping");
 
-// h_prev of direction d at the m-th (t, row) pair, m = t * batch + row:
-// the state the step at time t started from.
-__device__ __forceinline__ float h_prev_at(int d, int m, int k, int t_len,
-                                           int batch, int hidden,
-                                           const float* __restrict__ h0,
-                                           const float* __restrict__ ysf,
-                                           const float* __restrict__ ysb) {
-  const int t = m / batch;
-  const int r = m - t * batch;
+struct GemmStage {
+  float a[kGemmStage][kGemmLdA];
+  float b[kGemmStage][kGemmTileN];
+};
+
+// acc[i][c] += sum over the stage, in order, of a[s][row i] * b[s][column c].
+__device__ __forceinline__ void stage_products(const GemmStage& st, int tx, int ty,
+                                               float (&acc)[8][8]) {
+#pragma unroll
+  for (int s = 0; s < kGemmStage; ++s) {
+    const float4 a0 = *reinterpret_cast<const float4*>(&st.a[s][4 * ty]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&st.a[s][32 + 4 * ty]);
+    const float4 b0 = *reinterpret_cast<const float4*>(&st.b[s][4 * tx]);
+    const float4 b1 = *reinterpret_cast<const float4*>(&st.b[s][64 + 4 * tx]);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+  }
+}
+
+// The stages [begin, end) in steps of kGemmStage through two shared-memory
+// buffers: load(s0) fills registers, store(stage) moves them to shared
+// memory, compute(stage) multiplies a stage out.
+template <class Load, class Store, class Compute>
+__device__ __forceinline__ void pipelined_stages(GemmStage (&st)[2], int begin, int end,
+                                                 Load load, Store store, Compute compute) {
+  int buf = 0;
+  load(begin);
+  store(st[0]);
+  __syncthreads();
+  for (int s0 = begin; s0 < end; s0 += kGemmStage) {
+    const bool more = s0 + kGemmStage < end;
+    if (more) load(s0 + kGemmStage);
+    compute(st[buf]);
+    if (more) store(st[buf ^ 1]);
+    __syncthreads();
+    buf ^= 1;
+  }
+}
+
+// Output row of thread row index i (0..7) of a tile.
+__device__ __forceinline__ int tile_row(int ty, int i) {
+  return i < 4 ? 4 * ty + i : 32 + 4 * ty + i - 4;
+}
+
+// Row of h_prev (the state the step at time t started from) of direction d
+// for the m-th (t, row) pair, m = t * batch + row, without a division:
+// forward, t = 0 is h0 and t > 0 is ys_f[t - 1]; backward, t = T - 1 is h0
+// and t < T - 1 is ys_b[t + 1].
+__device__ __forceinline__ const float* h_prev_row(int d, int m, int t_len, int batch,
+                                                   int hidden, const float* __restrict__ h0,
+                                                   const float* __restrict__ ysf,
+                                                   const float* __restrict__ ysb) {
   if (d == 0) {
-    return t == 0 ? h0[static_cast<size_t>(r) * hidden + k]
-                  : ysf[(static_cast<size_t>(t - 1) * batch + r) * hidden + k];
+    return m < batch ? h0 + static_cast<size_t>(m) * hidden
+                     : ysf + static_cast<size_t>(m - batch) * hidden;
   }
-  return t == t_len - 1
-             ? h0[(static_cast<size_t>(batch) + r) * hidden + k]
-             : ysb[(static_cast<size_t>(t + 1) * batch + r) * hidden + k];
+  const int last = (t_len - 1) * batch;
+  return m >= last ? h0 + static_cast<size_t>(m - last + batch) * hidden
+                   : ysb + static_cast<size_t>(m + batch) * hidden;
 }
 
-// Grid (ceil(4H / kTileN), ceil(H / kTileK), 2 * nsplit): block z = 2 * split
-// + d sums m over [split * chunk, (split + 1) * chunk) in increasing order.
-// Thread (ty, tx) owns k = k0 + 2 ty + {0, 1}, n = n0 + 4 tx + {0..3}; the
-// threads with ty = 0 of the first k tile also sum db over the same m.
+// Grid (ceil(4H / kGemmTileN), ceil(T B / kGemmTileA), 2): pre[d][m][n] =
+// sum over k, in k order, of h_prev[d][m][k] W_hh^T[d][k][n] (the forward's
+// sums in the forward's order, so the gates come back bit for bit), written
+// into the dxg buffers.
+__global__ void __launch_bounds__(kGemmThreads) lstm_gate_products_kernel(
+    const float* __restrict__ h0, const float* __restrict__ ysf,
+    const float* __restrict__ ysb, const float* __restrict__ w_hhT,
+    float* __restrict__ pref, float* __restrict__ preb, int t_len, int batch, int hidden) {
+  __shared__ __align__(16) GemmStage st[2];
+  const int G = 4 * hidden;
+  const int m_total = t_len * batch;
+  const int n0 = blockIdx.x * kGemmTileN;
+  const int m0 = blockIdx.y * kGemmTileA;
+  const int d = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const float* w = w_hhT + static_cast<size_t>(d) * hidden * G;
+  float* pre = d ? preb : pref;
+  // this thread's loads: A at (k = ka, m = ma + 8 l), B at (k = l, n = tid)
+  const int ka = tid % kGemmStage;
+  const int ma = tid / kGemmStage;
+  const float* arow[kGemmLoadA];
+#pragma unroll
+  for (int l = 0; l < kGemmLoadA; ++l) {
+    const int m = m0 + ma + (kGemmThreads / kGemmStage) * l;
+    arow[l] = m < m_total ? h_prev_row(d, m, t_len, batch, hidden, h0, ysf, ysb) : nullptr;
+  }
+  const bool n_ok = n0 + tid < G;
+  float ra[kGemmLoadA], rb[kGemmLoadB];
+  float acc[8][8] = {};
+  pipelined_stages(
+      st, 0, hidden,
+      [&](int k0) {
+#pragma unroll
+        for (int l = 0; l < kGemmLoadA; ++l) {
+          ra[l] = arow[l] != nullptr && k0 + ka < hidden ? arow[l][k0 + ka] : 0.0f;
+        }
+#pragma unroll
+        for (int l = 0; l < kGemmLoadB; ++l) {
+          rb[l] = k0 + l < hidden && n_ok ? __ldg(w + static_cast<size_t>(k0 + l) * G + n0 + tid)
+                                          : 0.0f;
+        }
+      },
+      [&](GemmStage& s) {
+#pragma unroll
+        for (int l = 0; l < kGemmLoadA; ++l) {
+          s.a[ka][ma + (kGemmThreads / kGemmStage) * l] = ra[l];
+        }
+#pragma unroll
+        for (int l = 0; l < kGemmLoadB; ++l) s.b[l][tid] = rb[l];
+      },
+      [&](const GemmStage& s) { stage_products(s, tx, ty, acc); });
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + tile_row(ty, i);
+    if (m >= m_total) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + 64 * half + 4 * tx;  // G = 4H: n < G covers n + 3
+      if (n < G) {
+        *reinterpret_cast<float4*>(pre + static_cast<size_t>(m) * G + n) =
+            make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2],
+                        acc[i][4 * half + 3]);
+      }
+    }
+  }
+}
+
+// Grid (ceil(4H / kGemmTileN), ceil(H / kGemmTileA), 2 * nsplit): block z =
+// 2 * split + d writes the partial of dW_hh^T[d] (and, in the first row of
+// k tiles, of db_hh[d]) summed over the pairs m in [split * chunk, (split +
+// 1) * chunk), in increasing order.
 __global__ void __launch_bounds__(kGemmThreads) lstm_dw_partial_kernel(
     const float* __restrict__ h0, const float* __restrict__ ysf,
     const float* __restrict__ ysb, const float* __restrict__ dxgf,
     const float* __restrict__ dxgb, float* __restrict__ dw_part,
     float* __restrict__ db_part, int t_len, int batch, int hidden, int chunk) {
-  __shared__ float as[kChunkM][kTileK];
-  __shared__ __align__(16) float bs[kChunkM][kTileN];
+  __shared__ __align__(16) GemmStage st[2];
   const int G = 4 * hidden;
-  const int n0 = blockIdx.x * kTileN;
-  const int k0 = blockIdx.y * kTileK;
+  const int n0 = blockIdx.x * kGemmTileN;
+  const int k0 = blockIdx.y * kGemmTileA;
   const int d = blockIdx.z & 1;
   const int split = blockIdx.z >> 1;
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int m_total = t_len * batch;
   const int m_begin = split * chunk;
-  const int m_end = min(m_total, m_begin + chunk);
+  const int m_end = min(t_len * batch, m_begin + chunk);
   const float* dxg = d ? dxgb : dxgf;
   const bool db_thread = blockIdx.y == 0 && ty == 0;
-
-  float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-  float dbs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int m0 = m_begin; m0 < m_end; m0 += kChunkM) {
-    for (int i = tid; i < kChunkM * kTileK; i += kGemmThreads) {
-      const int mm = i / kTileK, kk = i % kTileK;
-      const int m = m0 + mm, k = k0 + kk;
-      as[mm][kk] = (m < m_end && k < hidden)
-                       ? h_prev_at(d, m, k, t_len, batch, hidden, h0, ysf, ysb)
-                       : 0.0f;
-    }
-    for (int i = tid; i < kChunkM * kTileN; i += kGemmThreads) {
-      const int mm = i / kTileN, nn = i % kTileN;
-      const int m = m0 + mm, n = n0 + nn;
-      bs[mm][nn] = (m < m_end && n < G) ? dxg[static_cast<size_t>(m) * G + n] : 0.0f;
-    }
-    __syncthreads();
+  // this thread's loads: A at (m = ma + 2 l, k = kk), B at (m = l, n = tid)
+  const int kk = tid % kGemmTileA;
+  const int ma = tid / kGemmTileA;
+  const bool k_ok = k0 + kk < hidden;
+  const bool n_ok = n0 + tid < G;
+  float ra[kGemmLoadA], rb[kGemmLoadB];
+  float acc[8][8] = {};
+  float dbs[8] = {};
+  pipelined_stages(
+      st, m_begin, m_end,
+      [&](int m0) {
 #pragma unroll
-    for (int mm = 0; mm < kChunkM; ++mm) {
-      const float a[2] = {as[mm][2 * ty], as[mm][2 * ty + 1]};
-      const float4 b4 = *reinterpret_cast<const float4*>(&bs[mm][4 * tx]);
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+        for (int l = 0; l < kGemmLoadA; ++l) {
+          const int m = m0 + ma + (kGemmThreads / kGemmTileA) * l;
+          ra[l] = m < m_end && k_ok
+                      ? h_prev_row(d, m, t_len, batch, hidden, h0, ysf, ysb)[k0 + kk]
+                      : 0.0f;
+        }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int l = 0; l < kGemmLoadB; ++l) {
+          const int m = m0 + l;
+          rb[l] = m < m_end && n_ok ? dxg[static_cast<size_t>(m) * G + n0 + tid] : 0.0f;
+        }
+      },
+      [&](GemmStage& s) {
 #pragma unroll
-        for (int jn = 0; jn < 4; ++jn) acc[i][jn] = fmaf(a[i], b[jn], acc[i][jn]);
-      if (db_thread) {
+        for (int l = 0; l < kGemmLoadA; ++l) s.a[ma + (kGemmThreads / kGemmTileA) * l][kk] = ra[l];
 #pragma unroll
-        for (int jn = 0; jn < 4; ++jn) dbs[jn] += b[jn];
-      }
-    }
-    __syncthreads();
-  }
+        for (int l = 0; l < kGemmLoadB; ++l) s.b[l][tid] = rb[l];
+      },
+      [&](const GemmStage& s) {
+        stage_products(s, tx, ty, acc);
+        if (db_thread) {
+#pragma unroll
+          for (int m = 0; m < kGemmStage; ++m) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) dbs[c] += s.b[m][(c < 4 ? 0 : 60) + 4 * tx + c];
+          }
+        }
+      });
   const size_t plane = static_cast<size_t>(split) * 2 + d;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int k = k0 + 2 * ty + i;
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + tile_row(ty, i);
     if (k >= hidden) continue;
+    float* out = dw_part + (plane * hidden + k) * G;
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-      const int n = n0 + 4 * tx + jn;
-      if (n < G) dw_part[(plane * hidden + k) * G + n] = acc[i][jn];
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + 64 * half + 4 * tx;  // G = 4H: n < G covers n + 3
+      if (n < G) {
+        *reinterpret_cast<float4*>(out + n) =
+            make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2],
+                        acc[i][4 * half + 3]);
+      }
     }
   }
   if (db_thread) {
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-      const int n = n0 + 4 * tx + jn;
-      if (n < G) db_part[plane * G + n] = dbs[jn];
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + 64 * half + 4 * tx;
+      if (n < G) {
+        *reinterpret_cast<float4*>(db_part + plane * G + n) =
+            make_float4(dbs[4 * half], dbs[4 * half + 1], dbs[4 * half + 2], dbs[4 * half + 3]);
+      }
     }
   }
 }
@@ -403,44 +722,66 @@ extern "C" int dicl_lstm_fwd(const void* xgf, const void* xgb, const void* w_hhT
 // The forward's inputs and outputs, w_hh (2, 4H, H) = w_hhT transposed, the
 // cotangents dys*, dcs* (T, B, H) -> dxgf, dxgb (T, B, 4H), dw_hhT (2, H, 4H),
 // db_hh (2, 4H), dh0, dc0 (2, B, H). dw_part (nsplit, 2, H, 4H) and db_part
-// (nsplit, 2, 4H) are scratch. Three launches on `stream`; returns the first
-// cudaGetLastError() that is not 0.
+// (nsplit, 2, 4H) are scratch. The launch geometry comes from the wrapper
+// (`backward_geometry` in ops/cuda_lstm.py): `rows` must be kBwdRows,
+// `threads` a multiple of 32 up to kBwdMaxThreads that holds a tile's pairs
+// at kBwdPairCap a thread, and the nsplit chunks of `chunk` (t, row) pairs
+// must each hold at least one pair. Four launches on `stream`; returns the
+// first CUDA error that is not 0.
 extern "C" int dicl_lstm_bwd(
     const void* xgf, const void* xgb, const void* w_hhT, const void* w_hh,
     const void* b_hh, const void* h0, const void* c0, const void* ysf,
     const void* ysb, const void* csf, const void* csb, const void* dysf,
     const void* dysb, const void* dcsf, const void* dcsb, void* dxgf, void* dxgb,
     void* dw_hhT, void* db_hh, void* dh0, void* dc0, void* dw_part, void* db_part,
-    int t_len, int batch, int hidden, int nsplit, void* stream) {
-  if (bad_shape(t_len, batch, hidden) || nsplit < 1 || nsplit > 1024) {
+    int t_len, int batch, int hidden, int rows, int threads, int nsplit, int chunk,
+    void* stream) {
+  if (bad_shape(t_len, batch, hidden)) return cudaErrorInvalidValue;
+  const long long m_total = static_cast<long long>(t_len) * batch;
+  const int n_slots = (hidden + kBwdGroup - 1) / kBwdGroup * kBwdGroup * kBwdRows;
+  if (rows != kBwdRows || threads < 32 || threads > kBwdMaxThreads || threads % 32 != 0 ||
+      threads * kBwdPairCap < n_slots || bwd_fixed_floats(hidden) > kSmemLimit / 4 ||
+      nsplit < 1 || nsplit > 1024 || chunk < 1 ||
+      static_cast<long long>(nsplit) * chunk < m_total ||
+      static_cast<long long>(nsplit - 1) * chunk >= m_total) {
     return cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const dim3 grid((batch + kRows - 1) / kRows, 2);
-  lstm_bwd_kernel<<<grid, hidden, 0, s>>>(
-      f(xgf), f(xgb), f(w_hhT), f(w_hh), f(b_hh), f(h0), f(c0), f(ysf), f(ysb),
-      f(csf), f(csb), f(dysf), f(dysb), f(dcsf), f(dcsb), static_cast<float*>(dxgf),
-      static_cast<float*>(dxgb), static_cast<float*>(dh0), static_cast<float*>(dc0),
-      t_len, batch, hidden);
+  const auto out = [](void* p) { return static_cast<float*>(p); };
+  const int G = 4 * hidden;
+  const dim3 pgrid((G + kGemmTileN - 1) / kGemmTileN,
+                   static_cast<int>((m_total + kGemmTileA - 1) / kGemmTileA), 2);
+  lstm_gate_products_kernel<<<pgrid, kGemmThreads, 0, s>>>(
+      f(h0), f(ysf), f(ysb), f(w_hhT), out(dxgf), out(dxgb), t_len, batch, hidden);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int G = 4 * hidden;
-  const int m_total = t_len * batch;
-  const int chunk = (m_total + nsplit - 1) / nsplit;
-  const dim3 ggrid((G + kTileN - 1) / kTileN, (hidden + kTileK - 1) / kTileK, 2 * nsplit);
+  // a thread holds kBwdPairCap / 2 pairs up to H = 128 (4H threads), twice
+  // that at H = 256 (512 threads); the kernel keeps them in registers
+  const auto kernel = threads * (kBwdPairCap / 2) >= n_slots ? lstm_bwd_kernel<kBwdPairCap / 2>
+                                                             : lstm_bwd_kernel<kBwdPairCap>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bwd_smem_bytes(hidden));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((batch + kBwdRows - 1) / kBwdRows, 2);
+  kernel<<<grid, threads, bwd_smem_bytes(hidden), s>>>(
+      f(w_hh), f(b_hh), f(c0), f(xgf), f(xgb), f(csf), f(csb), f(dysf), f(dysb), f(dcsf),
+      f(dcsb), out(dxgf), out(dxgb), out(dh0), out(dc0), t_len, batch, hidden);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const dim3 ggrid((G + kGemmTileN - 1) / kGemmTileN, (hidden + kGemmTileA - 1) / kGemmTileA,
+                   2 * nsplit);
   lstm_dw_partial_kernel<<<ggrid, kGemmThreads, 0, s>>>(
-      f(h0), f(ysf), f(ysb), static_cast<const float*>(dxgf),
-      static_cast<const float*>(dxgb), static_cast<float*>(dw_part),
-      static_cast<float*>(db_part), t_len, batch, hidden, chunk);
+      f(h0), f(ysf), f(ysb), f(dxgf), f(dxgb), out(dw_part), out(db_part), t_len, batch,
+      hidden, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int n_dw = 2 * hidden * G;
   const int n_db = 2 * G;
   lstm_dw_reduce_kernel<<<(n_dw + n_db + 255) / 256, 256, 0, s>>>(
-      f(dw_part), f(db_part), static_cast<float*>(dw_hhT), static_cast<float*>(db_hh),
-      n_dw, n_db, nsplit);
+      f(dw_part), f(db_part), out(dw_hhT), out(db_hh), n_dw, n_db, nsplit);
   return static_cast<int>(cudaGetLastError());
 }

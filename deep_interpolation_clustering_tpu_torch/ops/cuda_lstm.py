@@ -12,19 +12,30 @@ The interface is the JAX `bilstm_recurrence_pallas`'s: pre-projected gates
 
 The plain forward is the step loop of the port's `ops/lstm.py`; the plain
 backward is PyTorch autograd of it. `LSTMRecurrence` holds the kernel pair
-in one `torch.autograd.Function`.
+in one `torch.autograd.Function`. B7 is four launches (the gates' products,
+the reverse walk, the dW partials and their ordered sum; csrc/lstm.cu), with
+the geometry of `backward_geometry`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import _cuda_build as cb
 
-MAX_HIDDEN = 256  # one thread per hidden unit (csrc/lstm.cu)
-_M_PER_SPLIT = 512  # (t, row) pairs per partial of dW_hh^T / db_hh
+MAX_HIDDEN = 256  # one thread per hidden unit in the forward (csrc/lstm.cu)
+
+# The backward's launch geometry; the constants are csrc/lstm.cu's.
+BWD_ROWS = 8  # kBwdRows: batch rows per block of the recurrence
+BWD_MAX_THREADS = 512  # kBwdMaxThreads, the block's __launch_bounds__
+BWD_PAIR_CAP = BWD_ROWS // 2  # kBwdPairCap: (unit, row) pairs a thread holds at most
+DH_SPLITS = 16  # kDhSplits: splits of the dh products' sum, added in order
+GEMM_TILE_A, GEMM_TILE_N = 64, 128  # kGemmTileA x kGemmTileN outputs per GEMM block
+GEMM_STAGE = 16  # kGemmStage: summed index per shared-memory stage
+DW_MIN_BLOCKS = 2 * 132  # two blocks of the dW product on each of the H100's SMs
+SMEM_PER_BLOCK = 232_448  # kSmemLimit: the most shared memory a Hopper block can have
 
 
 # ------------------------------------------------------------ plain versions
@@ -94,9 +105,42 @@ def _forward_launch(xgf, xgb, w_hhT, b_hh, h0, c0):
     return tuple(outs)
 
 
-def _dw_splits(t_len: int, b: int) -> int:
-    """Partials of dW_hh^T and db_hh: one per `_M_PER_SPLIT` (t, row) pairs."""
-    return max(1, min(64, -(-t_len * b // _M_PER_SPLIT)))
+class BackwardGeometry(NamedTuple):
+    rows: int  # batch rows per block of the recurrence
+    threads: int  # threads per block of the recurrence
+    blocks: int  # blocks of the recurrence: tiles x 2 directions
+    smem_bytes: int  # dynamic shared memory per block of the recurrence
+    resident_rows: int  # rows of W_hh the recurrence keeps in shared memory
+    gate_blocks: int  # blocks of the gates' product before the recurrence
+    chunk: int  # (t, row) pairs per partial of dW_hh^T / db_hh
+    nsplit: int  # partials: chunk i covers [i * chunk, (i + 1) * chunk)
+    dw_blocks: int  # blocks of the dW partial product
+
+
+def backward_geometry(t_len: int, b: int, hidden: int, rows: int = BWD_ROWS
+                      ) -> BackwardGeometry:
+    """Launch geometry of B7, as csrc/lstm.cu computes and checks it.
+    The recurrence: one thread per dh work item (4H of them) up to
+    BWD_MAX_THREADS, a multiple of 32; its shared memory holds the dh
+    partials, dpre and dc of the tile and then as many rows of W_hh as fit.
+    The dW product: chunks of the T*B (t, row) pairs, a multiple of the stage
+    size, so that the grid has at least DW_MIN_BLOCKS blocks where the pairs
+    allow."""
+    four_h = 4 * hidden
+    threads = min(BWD_MAX_THREADS, 32 * -(-four_h // 32))
+    unit_stride = -(-hidden // 4) * 4
+    fixed = DH_SPLITS * rows * (unit_stride + 8) + 5 * hidden * rows
+    resident = max(0, min(four_h, (SMEM_PER_BLOCK // 4 - fixed) // unit_stride))
+    m_total = t_len * b
+    n_tiles = -(-four_h // GEMM_TILE_N)
+    dw_tiles = 2 * -(-hidden // GEMM_TILE_A) * n_tiles
+    want = -(-DW_MIN_BLOCKS // dw_tiles)
+    chunk = GEMM_STAGE * -(-m_total // (GEMM_STAGE * want))
+    nsplit = -(-m_total // chunk)
+    return BackwardGeometry(rows, threads, 2 * -(-b // rows),
+                            4 * (fixed + resident * unit_stride), resident,
+                            2 * -(-m_total // GEMM_TILE_A) * n_tiles, chunk, nsplit,
+                            dw_tiles * nsplit)
 
 
 def _backward_launch(xgf, xgb, w_hhT, w_hh, b_hh, h0, c0,
@@ -111,14 +155,15 @@ def _backward_launch(xgf, xgb, w_hhT, w_hh, b_hh, h0, c0,
     dxgf, dxgb = new(t_len, b, four_h), new(t_len, b, four_h)
     dw_hhT, db_hh = new(2, hidden, four_h), new(2, four_h)
     dh0, dc0 = new(2, b, hidden), new(2, b, hidden)
-    nsplit = _dw_splits(t_len, b)
-    dw_part, db_part = new(nsplit, 2, hidden, four_h), new(nsplit, 2, four_h)  # scratch
-    fn = cb.c_function("lstm", "dicl_lstm_bwd", 23, 4)
+    geo = backward_geometry(t_len, b, hidden)
+    dw_part = new(geo.nsplit, 2, hidden, four_h)  # scratch
+    db_part = new(geo.nsplit, 2, four_h)
+    fn = cb.c_function("lstm", "dicl_lstm_bwd", 23, 7)
     cb.raise_on_error("lstm_backward", fn(
         *(cb.ptr(a) for a in (xgf, xgb, w_hhT, w_hh, b_hh, h0, c0, ysf, ysb, csf, csb,
                               dysf, dysb, dcsf, dcsb, dxgf, dxgb, dw_hhT, db_hh, dh0,
                               dc0, dw_part, db_part)),
-        t_len, b, hidden, nsplit, cb.stream_of(xgf),
+        t_len, b, hidden, geo.rows, geo.threads, geo.nsplit, geo.chunk, cb.stream_of(xgf),
     ))
     return dxgf, dxgb, dw_hhT, db_hh, dh0, dc0
 

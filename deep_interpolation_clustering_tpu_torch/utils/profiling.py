@@ -12,7 +12,9 @@ cohort, and prints one JSON object with:
   * from a `torch.profiler` window over a few steps: the device's busy time
     (union of its kernel and copy intervals), its idle share in that window
     and against `step_ms` (the profiler slows the host), the kernels
-    launched per step, and the kernels that take the most device time.
+    launched per step, the kernels that take the most device time, and
+    every kernel of B6/B7 (`csrc/lstm.cu`), for the split of the backward
+    between its recurrence and its dW kernels.
 It needs a CUDA card and raises without one.
 """
 
@@ -59,7 +61,8 @@ def phase_times(trainer, n: int) -> Dict[str, float]:
 
 def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
     """Profile `n` calls of `step`: device busy time and idle share over the
-    window, kernels per step, and the `top` kernels by device time."""
+    window, kernels per step, the `top` kernels by device time and every
+    kernel of csrc/lstm.cu."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -83,7 +86,9 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
     by_name: Dict[str, List[float]] = defaultdict(list)
     for e in events:
         by_name[e.name].append(e.time_range.elapsed_us())
-    ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
+    ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    per_step = lambda name, t: {"name": name[:90], "ms_per_step": sum(t) / 1e3 / n,
+                                "calls_per_step": len(t) / n}
     return {
         "window_steps": n,
         "window_ms": wall_us / 1e3,
@@ -91,8 +96,8 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us if events else None,
         "device_events_per_step": len(events) / n,
-        "top_kernels": [{"name": name[:90], "ms_per_step": sum(t) / 1e3 / n,
-                         "calls_per_step": len(t) / n} for name, t in ranked],
+        "top_kernels": [per_step(name, t) for name, t in ranked[:top]],
+        "lstm_kernels": [per_step(name, t) for name, t in ranked if "lstm_" in name],
     }
 
 

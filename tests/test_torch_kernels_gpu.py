@@ -7,7 +7,8 @@ directory's conftest, so they run on a machine without JAX:
 
 Shapes cover the ragged edges the kernels mask themselves: rows that do not
 fill a block (or a pack of rows), T below and across a warp, R from 1 to 8,
-rows with k = 0, LSTM batches that do not fill a tile. Tolerances: the
+rows with k = 0, LSTM batches that do not fill a tile and hidden widths
+whose 4H gate columns do not fill a warp or take two columns a thread. Tolerances: the
 selects are bit-identical; forward values 1e-5 (abs and relative, float32);
 gradients 1e-4 of their largest element; the LSTM backward repeats bit for
 bit.
@@ -100,7 +101,7 @@ def _lstm_inputs(t, b, h, with_state, dev, seed=0):
 
 
 @pytest.mark.parametrize("with_state", [True, False])
-@pytest.mark.parametrize("h", [16, 128])
+@pytest.mark.parametrize("h", [16, 100, 128, 256])  # 4H = 400: a partial warp
 @pytest.mark.parametrize("b", [1, 13, 256, 512])
 @pytest.mark.parametrize("t", [1, 6, 9])
 def test_lstm_forward_and_backward(dev, t, b, h, with_state):
