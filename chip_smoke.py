@@ -325,6 +325,9 @@ def main() -> None:
         err_f = max(float((a - b_).abs().max()) for a, b_ in zip(outs, want))
         if not err_f <= 1e-5:
             raise AssertionError(f"lstm_forward ({tag}) max abs err {err_f} > 1e-5")
+        for name, a, a2 in zip(("ysf", "ysb", "csf", "csb"), outs, cl.lstm_forward(*ins)):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"lstm_forward ({tag}) {name} differs between two runs")
         cots = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
         w_hh = ins[2].transpose(1, 2).contiguous()
         bwd_args = (*ins[:3], w_hh, *ins[3:], *outs, *cots)
@@ -365,8 +368,8 @@ def main() -> None:
     dec_ins, dec_bwd = lstm_checks["decoder"][:2]
     n_bytes, n_flop, n_expf = lstm_work(R, 2 * B, H, backward=False)
     report["lstm_forward"] = dict(
-        max_abs_err=max(err_f, lstm_checks["decoder"][4]), tolerance=1e-5,
-        shape=[R, 2 * B, H],
+        max_abs_err=max(err_f, lstm_checks["decoder"][4]),
+        tolerance="1e-5; two runs bit-identical", shape=[R, 2 * B, H],
         ms=time_ms(lambda: cl.lstm_forward(*ins)),
         plain_ms=time_ms(lambda: cl.recurrence_plain(*ins)),
         library_ms=lib_fwd_ms, library="cuDNN nn.LSTM forward incl. input projection",

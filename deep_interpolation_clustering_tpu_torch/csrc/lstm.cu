@@ -16,22 +16,50 @@
 // (gate recompute, dh = dpre W_hh, dW = h^T dpre).
 //
 // Forward design: one launch runs all T steps of both directions. Grid =
-// (batch tiles of kRows rows, direction); one thread per hidden unit j owns
-// that unit's four gates for the tile's rows and keeps their c in registers.
-// The tile's h lives in shared memory, laid out (k, row) so that one float4
-// pair broadcasts all kRows values of h[:, k]; each W_hh^T element read
-// (from L2: one direction's W_hh is 4H x H floats = 256 KB at H=128, more
-// than a block's shared memory, and both directions stay resident in the
-// 50 MB L2) feeds kRows FMAs. A row lives in one block, so two
-// __syncthreads per step are the only synchronisation.
+// (batch tiles of kRows rows, direction), 4H threads (16 warps at H=128; 512
+// threads with two warp items each above). What bounds it on the H100 is
+// W_hh^T: every step needs all of one direction's (256 KB at H=128) against
+// a block's 227 KB of shared memory, and the steps are serial, so a block
+// that waits on L2 for W at every step is bound by that latency. So:
+//  - W_hh^T resident. The block keeps the first rows of its direction's
+//    W_hh^T that fit beside the tile's h (104 of 128 at H=128) in dynamic
+//    shared memory, copied in once with cp.async while h0, c0, the biases
+//    and the first inputs load; each thread keeps its share of the next
+//    kFwdTailIters * 4 rows in registers (all of the rest at H=128), and
+//    only rows beyond those (H > 128) are read from L2 at every step.
+//  - A warp item is kFwdGroup = 8 hidden units x kFwdSplits = 4 splits of k
+//    (lane = 8 * split + unit). Each lane forms a register tile of the four
+//    gates of its unit for all kRows rows over its split k = split, split +
+//    4, ..., one fmaf chain from 0 in increasing k: four shared-memory words
+//    of W (row stride = 8 mod 32 words, so the 32 lanes hit 32 banks) and
+//    kRows / 4 float4 broadcasts of h (laid out (k, row)) feed 4 * kRows
+//    FMAs. The four gates of a unit are H columns apart; owning them
+//    together puts them where the pointwise part needs them.
+//  - The splits are summed by two warp shuffles that also scatter the tile:
+//    pre = (p0 + p1) + (p2 + p3) in that fixed order, and the lane of split
+//    s ends with the gates of its unit for one quarter of the tile's rows
+//    (kRows / 4 (unit, row) pairs), whose c it keeps in registers. No shared
+//    memory for partials, no atomics: two runs give the same bits.
+//  - The step's xg values are loaded before its products, so their latency
+//    hides behind the FMAs; h is double-buffered in shared memory, so one
+//    __syncthreads a step is the only synchronisation.
+//  H=100 (4H = 400, 13 warp items) masks the lanes of its last item; H=256
+//  (1 MB of W_hh^T a direction) keeps 52 rows resident and reads the rest
+//  from L2. kRows is the trade between blocks (fewer with more rows) and
+//  each block's FMAs; the rows-per-block sweep (utils/lstm_rows_sweep.py)
+//  chose it. The launch geometry comes from the wrapper (`forward_geometry`
+//  in ops/cuda_lstm.py) and is checked against this file's constants.
 //
 // Backward design: as the TPU kernel, it recomputes the gates from the saved
 // h/c and saves no activations, in four launches on the stream:
 //  1. lstm_gate_products_kernel: the gates' h_prev W_hh^T for every (t, row)
 //     pair at once, a register-tiled float32 SGEMM (8 x 8 outputs a thread),
-//     summed over k in the forward's order so that the gates come back bit
-//     for bit. It writes them into the dxg buffers. The TPU kernel recomputes
-//     them inside its reverse walk, but they do not depend on that walk.
+//     one fmaf chain over k = 0..H-1. The forward sums k in four splits, so
+//     the recomputed products differ from the forward's by float32 rounding
+//     (a few 1e-7 of a gate); the gradients stay within 1e-4 of their
+//     largest element at every tested shape. It writes them into the dxg
+//     buffers. The TPU kernel recomputes them inside its reverse walk, but
+//     they do not depend on that walk.
 //  2. lstm_bwd_kernel: the reverse walk. Grid = (batch tiles of kBwdRows
 //     rows, direction), 4H threads (16 warps at H=128; 512 threads with two
 //     work items each above). Each step is two phases between barriers: the
@@ -68,110 +96,270 @@
 
 namespace {
 
-constexpr int kRows = 8;         // batch rows per block of the recurrence
-constexpr int kMaxHidden = 256;  // the forward's one thread per hidden unit
+constexpr int kMaxHidden = 256;     // the widest recurrence either kernel takes
+constexpr int kSmemLimit = 232448;  // the most shared memory a Hopper block can have
 
 __device__ __forceinline__ float sigmoid_acc(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-// acc[q][r] = sum_k h[r][k] * w[k][q*H + j] for the four gates q of unit j,
-// h in shared memory as hs4[(k * kRows + r) / 4], w = W_hh^T (H, 4H).
-__device__ __forceinline__ void gate_products(const float* __restrict__ w,
-                                              const float4* hs4, int hidden,
-                                              int j, float (&acc)[4][kRows]) {
-  const int G = 4 * hidden;
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[q][r] = 0.0f;
-#pragma unroll 4
-  for (int k = 0; k < hidden; ++k) {
-    const float* wk = w + static_cast<size_t>(k) * G + j;
-    const float wq[4] = {__ldg(wk), __ldg(wk + hidden), __ldg(wk + 2 * hidden),
-                         __ldg(wk + 3 * hidden)};
-    const float4 a = hs4[2 * k];
-    const float4 b = hs4[2 * k + 1];
-    const float h[kRows] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[q][r] = fmaf(h[r], wq[q], acc[q][r]);
-  }
 }
 
 struct Gates {
   float i, f, g, o;
 };
 
-// (xg + h W_hh^T) + b_hh, the JAX association order, from the four gate
-// products `pre` of one (unit, row); x points at the unit's input gate i.
-__device__ __forceinline__ Gates activate_pre(const float* __restrict__ x,
-                                              const float (&pre)[4],
-                                              const float (&bias)[4], int hidden) {
+// (xg + h W_hh^T) + b_hh, the JAX association order, from the input gates
+// `x` and the gate products `pre` of one (unit, row).
+__device__ __forceinline__ Gates activate_values(const float (&x)[4], const float (&pre)[4],
+                                                 const float (&bias)[4]) {
   const float pi = __fadd_rn(__fadd_rn(x[0], pre[0]), bias[0]);
-  const float pf = __fadd_rn(__fadd_rn(x[hidden], pre[1]), bias[1]);
-  const float pg = __fadd_rn(__fadd_rn(x[2 * hidden], pre[2]), bias[2]);
-  const float po = __fadd_rn(__fadd_rn(x[3 * hidden], pre[3]), bias[3]);
+  const float pf = __fadd_rn(__fadd_rn(x[1], pre[1]), bias[1]);
+  const float pg = __fadd_rn(__fadd_rn(x[2], pre[2]), bias[2]);
+  const float po = __fadd_rn(__fadd_rn(x[3], pre[3]), bias[3]);
   return {sigmoid_acc(pi), sigmoid_acc(pf), tanhf(pg), sigmoid_acc(po)};
 }
 
-__device__ __forceinline__ Gates activate(const float* __restrict__ x,
-                                          const float (&acc)[4][kRows], int r,
-                                          const float (&bias)[4], int hidden) {
-  const float pre[4] = {acc[0][r], acc[1][r], acc[2][r], acc[3][r]};
-  return activate_pre(x, pre, bias, hidden);
+// The same with x pointing at the unit's input gate i in device memory.
+__device__ __forceinline__ Gates activate_pre(const float* __restrict__ x,
+                                              const float (&pre)[4],
+                                              const float (&bias)[4], int hidden) {
+  const float xv[4] = {x[0], x[hidden], x[2 * hidden], x[3 * hidden]};
+  return activate_values(xv, pre, bias);
 }
 
-__global__ void __launch_bounds__(kMaxHidden) lstm_fwd_kernel(
+// Asynchronous 16-byte copy from device to shared memory (cp.async, which
+// bypasses the registers); copy_async_wait() waits for this thread's copies.
+__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// -------------------------------------------------------- recurrence forward
+constexpr int kRows = 8;             // batch rows per block
+constexpr int kFwdMaxThreads = 512;  // one warp item a warp up to H = 128, two above
+constexpr int kFwdGroup = 8;         // hidden units per warp item
+constexpr int kFwdSplits = 4;        // splits of k, one per kFwdGroup lanes of a warp
+constexpr int kFwdTailIters = 6;     // k iterations past the resident rows kept in registers
+static_assert(kRows % 4 == 0, "rows are read as float4 and scattered over the four splits");
+static_assert(kFwdGroup * kFwdSplits == 32, "a warp item is one warp");
+
+// Shared memory of the forward, in floats: h of the tile, (k, row), twice
+// (read and written in turn), k padded to the splits; then as many rows of
+// W_hh^T as the rest holds, a multiple of the splits, each padded to a
+// stride of 8 mod 32 words.
+__host__ __device__ constexpr int fwd_k_rows(int hidden) {
+  return (hidden + kFwdSplits - 1) / kFwdSplits * kFwdSplits;
+}
+__host__ __device__ constexpr int fwd_h_floats(int hidden) { return 2 * fwd_k_rows(hidden) * kRows; }
+__host__ __device__ constexpr int fwd_w_stride(int hidden) { return (4 * hidden + 31) / 32 * 32 + 8; }
+__host__ __device__ constexpr int fwd_resident_rows(int hidden) {
+  const int fit = (kSmemLimit / 4 - fwd_h_floats(hidden)) / fwd_w_stride(hidden) / kFwdSplits *
+                  kFwdSplits;
+  return fit < fwd_k_rows(hidden) ? fit : fwd_k_rows(hidden);
+}
+__host__ __device__ constexpr int fwd_smem_bytes(int hidden) {
+  return 4 * (fwd_h_floats(hidden) + fwd_resident_rows(hidden) * fwd_w_stride(hidden));
+}
+
+// acc[q][r] = fmaf(h[r], w[q], acc[q][r]) for the four gates q and the
+// tile's rows r; h4 points at the kRows values of h[:, k].
+__device__ __forceinline__ void tile_fma(const float (&w)[4], const float4* h4,
+                                         float (&acc)[4][kRows]) {
+  float h[kRows];
+#pragma unroll
+  for (int v = 0; v < kRows / 4; ++v) {
+    const float4 f = h4[v];
+    h[4 * v] = f.x;
+    h[4 * v + 1] = f.y;
+    h[4 * v + 2] = f.z;
+    h[4 * v + 3] = f.w;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[q][r] = fmaf(h[r], w[q], acc[q][r]);
+}
+
+// Grid (batch tiles of kRows rows, direction), blockDim.x threads (a
+// multiple of 32, at most kFwdMaxThreads, with kItems warp items a warp
+// covering the ceil(H / kFwdGroup) items), fwd_smem_bytes(hidden) of dynamic
+// shared memory. Lane = kFwdGroup * split + unit of its warp item. kTail is
+// the number of k iterations past the resident rows whose W a thread holds
+// in registers; rows past those are read from L2 at every step. Per step:
+//   1. load the step's xg values of this lane's (unit, row) pairs;
+//   2. acc[gate][row] over k = split + 4 i, i ascending: resident rows from
+//      shared memory, then the register rows, then L2;
+//   3. two shuffles add the splits as (p0 + p1) + (p2 + p3) and leave each
+//      lane the gates of its unit for kRows / 4 rows;
+//   4. pointwise: c in registers, h and c out, h into the other h buffer.
+template <int kItems, int kTail>
+__global__ void __launch_bounds__(kFwdMaxThreads) lstm_fwd_kernel(
     const float* __restrict__ xgf, const float* __restrict__ xgb,
     const float* __restrict__ w_hhT, const float* __restrict__ b_hh,
     const float* __restrict__ h0, const float* __restrict__ c0,
     float* __restrict__ ysf, float* __restrict__ ysb, float* __restrict__ csf,
     float* __restrict__ csb, int t_len, int batch, int hidden) {
-  __shared__ float4 hs4[kMaxHidden * kRows / 4];
-  float* hs = reinterpret_cast<float*>(hs4);
-  const int d = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int j = threadIdx.x;
+  constexpr int R = kRows;
+  constexpr int P = R / 4;  // (unit, row) pairs a lane finishes per item
+  constexpr unsigned kFull = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  const int H = hidden;
   const int G = 4 * hidden;
+  const int kp = fwd_k_rows(H);
+  const int ldw = fwd_w_stride(H);
+  const int n_res = fwd_resident_rows(H);
+  float* hs = reinterpret_cast<float*>(smem4);  // [2][k < kp][row]
+  float* ws = hs + 2 * kp * R;                  // [k < n_res][ldw]: W_hh^T
+  const int d = blockIdx.y;
+  const int row0 = blockIdx.x * R;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int warp = tid >> 5;
+  const int n_warps = nt >> 5;
+  const int split = (tid & 31) / kFwdGroup;
+  const int n_items = (H + kFwdGroup - 1) / kFwdGroup;
+  const int n_iters = kp / kFwdSplits;
+  const int i_res = n_res / kFwdSplits;
+  // the tile rows this lane finishes: the split's quarter of the tile
+  const int r_own = (split & 1) * (R / 2) + (split >> 1) * P;
   const float* xg = d ? xgb : xgf;
   float* ys = d ? ysb : ysf;
   float* cs = d ? csb : csf;
-  const float* w = w_hhT + static_cast<size_t>(d) * hidden * G;
-  float bias[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) bias[q] = b_hh[d * G + q * hidden + j];
+  const float* w = w_hhT + static_cast<size_t>(d) * H * G;
 
-  float c[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = row0 + r;
-    const size_t o = (static_cast<size_t>(d) * batch + row) * hidden + j;
-    const bool ok = row < batch;
-    hs[j * kRows + r] = ok ? h0[o] : 0.0f;
-    c[r] = ok ? c0[o] : 0.0f;
+  // the resident rows of W_hh^T (rows of H float4), then zeros for its
+  // rows past H and for h's rows past H in both buffers
+  const int n_copy = n_res < H ? n_res : H;
+  for (int i = tid; i < n_copy * H; i += nt) {
+    const int k = i / H;
+    const int c4 = i - k * H;
+    copy_async16(ws + k * ldw + 4 * c4, w + static_cast<size_t>(k) * G + 4 * c4);
   }
+  for (int i = tid; i < (n_res - n_copy) * ldw; i += nt) ws[n_copy * ldw + i] = 0.0f;
+  for (int i = tid; i < (kp - H) * R; i += nt) {
+    hs[H * R + i] = 0.0f;
+    hs[kp * R + H * R + i] = 0.0f;
+  }
+
+  int unit[kItems];        // this lane's hidden unit of each item
+  int unit_ld[kItems];     // the same, clamped to H - 1 for loads
+  float c[kItems][P];
+  float bias[kItems][4];
+  float wt[kItems][kTail > 0 ? kTail : 1][4];  // W of the register rows
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const int j = (warp + it * n_warps) * kFwdGroup + (tid & 31) % kFwdGroup;
+    unit[it] = j;
+    unit_ld[it] = j < H ? j : H - 1;
+    const int jl = unit_ld[it];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bias[it][q] = b_hh[d * G + q * H + jl];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int r = r_own + p;
+      const int row = row0 + r;
+      const bool ok = j < H && row < batch;
+      const size_t o = (static_cast<size_t>(d) * batch + (ok ? row : 0)) * H + jl;
+      c[it][p] = ok ? c0[o] : 0.0f;
+      if (j < H) hs[j * R + r] = ok ? h0[o] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kTail; ++u) {
+      const int k = (i_res + u) * kFwdSplits + split;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        wt[it][u][q] = k < H ? __ldg(w + static_cast<size_t>(k) * G + q * H + jl) : 0.0f;
+      }
+    }
+  }
+  copy_async_wait();
   __syncthreads();
 
   for (int s = 0; s < t_len; ++s) {
     const int t = d ? t_len - 1 - s : s;
-    float acc[4][kRows];
-    gate_products(w, hs4, hidden, j, acc);
-    __syncthreads();  // every thread has read h before it is overwritten
+    const float* h_cur = hs + (s & 1) * kp * R;
+    float* h_next = hs + ((s & 1) ^ 1) * kp * R;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      if (row >= batch) continue;
-      const size_t base = static_cast<size_t>(t) * batch + row;
-      const Gates a = activate(xg + base * G + j, acc, r, bias, hidden);
-      c[r] = __fadd_rn(__fmul_rn(a.f, c[r]), __fmul_rn(a.i, a.g));
-      const float h = __fmul_rn(a.o, tanhf(c[r]));
-      ys[base * hidden + j] = h;
-      cs[base * hidden + j] = c[r];
-      hs[j * kRows + r] = h;
+    for (int it = 0; it < kItems; ++it) {
+      if (warp + it * n_warps >= n_items) break;  // the whole warp leaves together
+      const int j = unit[it];
+      const int jl = unit_ld[it];
+      // 1
+      float xin[P][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int row = row0 + r_own + p;
+        const size_t base = static_cast<size_t>(t) * batch + (row < batch ? row : 0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) xin[p][q] = xg[base * G + q * H + jl];
+      }
+      // 2
+      float acc[4][R];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[q][r] = 0.0f;
+#pragma unroll 4
+      for (int i = 0; i < i_res; ++i) {
+        const int k = i * kFwdSplits + split;
+        const float* wk = ws + k * ldw + jl;
+        const float wq[4] = {wk[0], wk[H], wk[2 * H], wk[3 * H]};
+        tile_fma(wq, reinterpret_cast<const float4*>(h_cur + k * R), acc);
+      }
+#pragma unroll
+      for (int u = 0; u < kTail; ++u) {
+        if (i_res + u < n_iters) {
+          const int k = (i_res + u) * kFwdSplits + split;
+          tile_fma(wt[it][u], reinterpret_cast<const float4*>(h_cur + k * R), acc);
+        }
+      }
+#pragma unroll 2
+      for (int i = i_res + kTail; i < n_iters; ++i) {
+        const int k = i * kFwdSplits + split;
+        const float* wk = w + static_cast<size_t>(k < H ? k : H - 1) * G + jl;
+        float wq[4] = {__ldg(wk), __ldg(wk + H), __ldg(wk + 2 * H), __ldg(wk + 3 * H)};
+        if (k >= H) wq[0] = wq[1] = wq[2] = wq[3] = 0.0f;
+        tile_fma(wq, reinterpret_cast<const float4*>(h_cur + k * R), acc);
+      }
+      // 3: splits 0|1 and 2|3 swap half the rows, then 0|2 and 1|3 a quarter
+      const bool odd = split & 1;
+      float half[4][R / 2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < R / 2; ++r) {
+          const float keep = odd ? acc[q][r + R / 2] : acc[q][r];
+          const float send = odd ? acc[q][r] : acc[q][r + R / 2];
+          half[q][r] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, kFwdGroup));
+        }
+      const bool upper = split & 2;
+      float pre[P][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const float keep = upper ? half[q][p + P] : half[q][p];
+          const float send = upper ? half[q][p] : half[q][p + P];
+          pre[p][q] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, 2 * kFwdGroup));
+        }
+      // 4
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int r = r_own + p;
+        const int row = row0 + r;
+        float h = 0.0f;
+        if (j < H && row < batch) {
+          const size_t base = static_cast<size_t>(t) * batch + row;
+          const Gates a = activate_values(xin[p], pre[p], bias[it]);
+          c[it][p] = __fadd_rn(__fmul_rn(a.f, c[it][p]), __fmul_rn(a.i, a.g));
+          h = __fmul_rn(a.o, tanhf(c[it][p]));
+          ys[base * H + j] = h;
+          cs[base * H + j] = c[it][p];
+        }
+        if (j < H) h_next[j * R + r] = h;
+      }
     }
-    __syncthreads();
+    __syncthreads();  // h_next is whole, and every warp is done with h_cur
   }
 }
 
@@ -182,7 +370,6 @@ constexpr int kBwdGroup = 8;         // units side by side in the (unit, row) ma
 constexpr int kBwdCols = 4;          // units per dh work item: one float4 of W_hh
 constexpr int kDhSplits = 16;        // splits of n in the dh products
 constexpr int kBwdPairCap = kBwdRows / 2;  // (unit, row) pairs a thread holds at H = 256
-constexpr int kSmemLimit = 232448;   // the most shared memory a Hopper block can have
 static_assert(kBwdRows % 4 == 0, "rows are read and written as float4");
 
 // Shared memory of the recurrence, in floats: the dh partials (split, row,
@@ -242,14 +429,6 @@ __device__ __forceinline__ void tile_products(LoadW w, const float4* v, int lo, 
       for (int r = 0; r < kBwdRows; ++r) acc[c][r] = fmaf(x[r], wc[c], acc[c][r]);
   }
 }
-
-// Asynchronous 16-byte copy from device to shared memory (cp.async, which
-// bypasses the registers); copy_async_wait() waits for this thread's copies.
-__device__ __forceinline__ void copy_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // What the pointwise part of one step reads from device memory for one
 // (unit, row): prefetched during the previous step's dh products.
@@ -520,8 +699,8 @@ __device__ __forceinline__ const float* h_prev_row(int d, int m, int t_len, int 
 
 // Grid (ceil(4H / kGemmTileN), ceil(T B / kGemmTileA), 2): pre[d][m][n] =
 // sum over k, in k order, of h_prev[d][m][k] W_hh^T[d][k][n] (the forward's
-// sums in the forward's order, so the gates come back bit for bit), written
-// into the dxg buffers.
+// products up to float32 rounding: it sums k in four splits), written into
+// the dxg buffers.
 __global__ void __launch_bounds__(kGemmThreads) lstm_gate_products_kernel(
     const float* __restrict__ h0, const float* __restrict__ ysf,
     const float* __restrict__ ysb, const float* __restrict__ w_hhT,
@@ -702,15 +881,32 @@ bool bad_shape(int t_len, int batch, int hidden) {
 }  // namespace
 
 // xgf, xgb: (T, B, 4H); w_hhT: (2, H, 4H); b_hh: (2, 4H); h0, c0: (2, B, H);
-// ysf, ysb, csf, csb: (T, B, H). float32, contiguous. Returns
-// cudaGetLastError().
+// ysf, ysb, csf, csb: (T, B, H). float32, contiguous. The launch geometry
+// comes from the wrapper (`forward_geometry` in ops/cuda_lstm.py): `rows`
+// must be kRows, `threads` a multiple of 32 up to kFwdMaxThreads whose warps
+// cover the ceil(H / kFwdGroup) warp items at two a warp, and `smem_bytes`
+// must be fwd_smem_bytes(hidden). Returns the first CUDA error that is not 0.
 extern "C" int dicl_lstm_fwd(const void* xgf, const void* xgb, const void* w_hhT,
                              const void* b_hh, const void* h0, const void* c0,
                              void* ysf, void* ysb, void* csf, void* csb, int t_len,
-                             int batch, int hidden, void* stream) {
+                             int batch, int hidden, int rows, int threads,
+                             int smem_bytes, void* stream) {
   if (bad_shape(t_len, batch, hidden)) return cudaErrorInvalidValue;
+  const int n_items = (hidden + kFwdGroup - 1) / kFwdGroup;
+  if (rows != kRows || threads < 32 || threads > kFwdMaxThreads || threads % 32 != 0 ||
+      threads / 32 * 2 < n_items || smem_bytes != fwd_smem_bytes(hidden) ||
+      smem_bytes > kSmemLimit) {
+    return cudaErrorInvalidValue;
+  }
+  // one warp item a warp keeps the first rows of W past the resident ones
+  // in registers; two items a warp (H > 128) leave no registers for that
+  const auto kernel = threads / 32 >= n_items ? lstm_fwd_kernel<1, kFwdTailIters>
+                                              : lstm_fwd_kernel<2, 0>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((batch + kRows - 1) / kRows, 2);
-  lstm_fwd_kernel<<<grid, hidden, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xgf), static_cast<const float*>(xgb),
       static_cast<const float*>(w_hhT), static_cast<const float*>(b_hh),
       static_cast<const float*>(h0), static_cast<const float*>(c0),

@@ -12,9 +12,13 @@ The interface is the JAX `bilstm_recurrence_pallas`'s: pre-projected gates
 
 The plain forward is the step loop of the port's `ops/lstm.py`; the plain
 backward is PyTorch autograd of it. `LSTMRecurrence` holds the kernel pair
-in one `torch.autograd.Function`. B7 is four launches (the gates' products,
-the reverse walk, the dW partials and their ordered sum; csrc/lstm.cu), with
-the geometry of `backward_geometry`.
+in one `torch.autograd.Function`. B6 is one launch with the geometry of
+`forward_geometry`: 4H threads, the first rows of W_hh^T resident in shared
+memory, the k sum in four splits added in a fixed order by warp shuffles.
+B7 is four launches (the gates' products, the reverse walk, the dW partials
+and their ordered sum; csrc/lstm.cu), with the geometry of
+`backward_geometry`. B7's products are one sum over k, so its recomputed
+gates differ from B6's by float32 rounding.
 """
 
 from __future__ import annotations
@@ -25,7 +29,14 @@ import torch
 
 from . import _cuda_build as cb
 
-MAX_HIDDEN = 256  # one thread per hidden unit in the forward (csrc/lstm.cu)
+MAX_HIDDEN = 256  # kMaxHidden: the widest recurrence the kernels take (csrc/lstm.cu)
+
+# The forward's launch geometry; the constants are csrc/lstm.cu's.
+FWD_ROWS = 8  # kRows: batch rows per block
+FWD_MAX_THREADS = 512  # kFwdMaxThreads, the block's __launch_bounds__
+FWD_GROUP = 8  # kFwdGroup: hidden units per warp item
+FWD_SPLITS = 4  # kFwdSplits: splits of the k sum, added in a fixed order
+FWD_TAIL_ITERS = 6  # kFwdTailIters: k iterations past the resident rows kept in registers
 
 # The backward's launch geometry; the constants are csrc/lstm.cu's.
 BWD_ROWS = 8  # kBwdRows: batch rows per block of the recurrence
@@ -93,14 +104,48 @@ def _check_forward(name, xgf, xgb, w_hhT, b_hh, h0, c0):
     return t_len, b, hidden
 
 
+class ForwardGeometry(NamedTuple):
+    rows: int  # batch rows per block
+    threads: int  # threads per block: one warp per warp item, at most two items a warp
+    blocks: int  # tiles x 2 directions
+    smem_bytes: int  # dynamic shared memory per block
+    resident_rows: int  # rows of W_hh^T kept in shared memory (zero rows past H included)
+    register_rows: int  # rows past those whose W the threads keep in registers
+    l2_rows: int  # rows read from L2 at every step
+
+
+def forward_geometry(b: int, hidden: int, rows: int = FWD_ROWS) -> ForwardGeometry:
+    """Launch geometry of B6, as csrc/lstm.cu computes and checks it. A warp
+    item is FWD_GROUP hidden units x FWD_SPLITS splits of k; a block has one
+    warp per item up to FWD_MAX_THREADS threads (two items a warp above
+    H = 128). Its shared memory holds the tile's h twice ((k, row), k padded
+    to the splits) and then as many rows of W_hh^T as fit, a multiple of the
+    splits, at a stride of 8 mod 32 words. With one item a warp, the threads
+    keep the next FWD_TAIL_ITERS * FWD_SPLITS rows in registers."""
+    items = -(-hidden // FWD_GROUP)
+    threads = min(FWD_MAX_THREADS, 32 * items)
+    k_rows = -(-hidden // FWD_SPLITS) * FWD_SPLITS
+    h_floats = 2 * k_rows * rows
+    w_stride = -(-4 * hidden // 32) * 32 + 8
+    fit = (SMEM_PER_BLOCK // 4 - h_floats) // w_stride // FWD_SPLITS * FWD_SPLITS
+    resident = min(fit, k_rows)
+    in_registers = FWD_TAIL_ITERS * FWD_SPLITS if threads // 32 >= items else 0
+    register_rows = max(0, min(hidden - resident, in_registers))
+    return ForwardGeometry(rows, threads, 2 * -(-b // rows),
+                           4 * (h_floats + resident * w_stride), resident, register_rows,
+                           max(0, hidden - resident - register_rows))
+
+
 def _forward_launch(xgf, xgb, w_hhT, b_hh, h0, c0):
     t_len, b, hidden = _check_forward("lstm_forward", xgf, xgb, w_hhT, b_hh, h0, c0)
     outs = [torch.empty((t_len, b, hidden), dtype=xgf.dtype, device=xgf.device)
             for _ in range(4)]
-    fn = cb.c_function("lstm", "dicl_lstm_fwd", 10, 3)
+    geo = forward_geometry(b, hidden)
+    fn = cb.c_function("lstm", "dicl_lstm_fwd", 10, 6)
     cb.raise_on_error("lstm_forward", fn(
         cb.ptr(xgf), cb.ptr(xgb), cb.ptr(w_hhT), cb.ptr(b_hh), cb.ptr(h0), cb.ptr(c0),
-        *(cb.ptr(o) for o in outs), t_len, b, hidden, cb.stream_of(xgf),
+        *(cb.ptr(o) for o in outs), t_len, b, hidden, geo.rows, geo.threads,
+        geo.smem_bytes, cb.stream_of(xgf),
     ))
     return tuple(outs)
 

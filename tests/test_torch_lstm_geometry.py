@@ -1,8 +1,13 @@
-"""The launch geometry of the biLSTM backward kernel B7
-(`ops/cuda_lstm.py::backward_geometry`), checked on the CPU: the kernels
-themselves run only on the card (tests/test_torch_kernels_gpu.py), but what
-they are launched with is plain integer arithmetic.
+"""The launch geometry of the biLSTM kernels B6
+(`ops/cuda_lstm.py::forward_geometry`) and B7 (`backward_geometry`), checked
+on the CPU: the kernels themselves run only on the card
+(tests/test_torch_kernels_gpu.py), but what they are launched with is plain
+integer arithmetic.
 
+- the forward's block fits Hopper's limits at every H the wrapper takes,
+  its warps cover every hidden unit, every row of W_hh^T is resident, in
+  registers or read from L2, and at the main path's H=128 none is read from
+  L2;
 - the dW_hh^T / db_hh partials: the chunks of the T*B (t, row) pairs cover
   every pair exactly once, in increasing order, each non-empty, as the
   ordered sum of the partials needs;
@@ -76,7 +81,56 @@ def test_recurrence_block_fits_hopper(h):
         assert geo.smem_bytes <= cl.SMEM_PER_BLOCK and geo.resident_rows > 0
 
 
+def test_forward_block_fits_hopper_at_every_width():
+    for h in range(1, cl.MAX_HIDDEN + 1):
+        geo = cl.forward_geometry(512, h)
+        assert geo.smem_bytes <= cl.SMEM_PER_BLOCK, h
+        assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024, h
+        assert geo.resident_rows > 0, h
+
+
+@pytest.mark.parametrize("h", [1, 3, 16, 33, 100, 104, 105, 128, 129, 200, 256])
+def test_forward_block_covers_units_and_rows(h):
+    for b in (1, 13, 512):
+        geo = cl.forward_geometry(b, h)
+        assert geo.threads % 32 == 0 and 32 <= geo.threads <= cl.FWD_MAX_THREADS <= 1024
+        items = -(-h // cl.FWD_GROUP)  # warp items: FWD_GROUP units x FWD_SPLITS splits
+        assert cl.FWD_GROUP * cl.FWD_SPLITS == 32
+        assert geo.threads // 32 * 2 >= items  # at most two items a warp
+        assert geo.blocks == 2 * -(-b // geo.rows)
+        assert geo.smem_bytes <= cl.SMEM_PER_BLOCK
+        assert geo.smem_bytes % 16 == 0  # W_hh^T rows start on a float4
+        # the resident rows are whole k iterations (zero rows past H included)
+        assert geo.resident_rows % cl.FWD_SPLITS == 0 and geo.resident_rows > 0
+        on_chip = min(h, geo.resident_rows)
+        assert on_chip + geo.register_rows + geo.l2_rows == h
+        assert geo.register_rows <= cl.FWD_TAIL_ITERS * cl.FWD_SPLITS
+        if geo.threads // 32 < items:  # two items a warp: no registers for W
+            assert geo.register_rows == 0
+        # the 32 lanes of a warp item read 32 banks: a stride of 8 mod 32 words
+        stride = (geo.smem_bytes // 4 - 2 * -(-h // 4) * 4 * geo.rows) // geo.resident_rows
+        assert stride % 32 == 8 and stride >= 4 * h
+
+
+def test_forward_keeps_w_on_chip_at_the_main_path_width():
+    for b in (256, 512):  # the decoder's and the encoder's batch
+        geo = cl.forward_geometry(b, 128)
+        assert geo.threads == 512 and geo.rows == cl.FWD_ROWS
+        assert geo.resident_rows >= 100
+        assert geo.l2_rows == 0
+        assert geo.blocks <= H100_SMS  # one wave at one block per SM
+    for rows in (4, 8, 16):  # the rows-per-block sweep's range
+        geo = cl.forward_geometry(512, 128, rows)
+        assert geo.smem_bytes <= cl.SMEM_PER_BLOCK and geo.resident_rows >= 100
+    assert cl.forward_geometry(512, 256).l2_rows > 0  # 1 MB of W_hh^T a direction
+
+
 def test_wrapper_constants_are_the_sources():
+    assert cl.FWD_ROWS == _cuda_constant("kRows")
+    assert cl.FWD_MAX_THREADS == _cuda_constant("kFwdMaxThreads")
+    assert cl.FWD_GROUP == _cuda_constant("kFwdGroup")
+    assert cl.FWD_SPLITS == _cuda_constant("kFwdSplits")
+    assert cl.FWD_TAIL_ITERS == _cuda_constant("kFwdTailIters")
     assert cl.BWD_ROWS == _cuda_constant("kBwdRows")
     assert cl.BWD_MAX_THREADS == _cuda_constant("kBwdMaxThreads")
     assert cl.BWD_PAIR_CAP == cl.BWD_ROWS // 2  # kBwdRows / 2
