@@ -10,8 +10,9 @@ not 0):
   3. kernels - each kernel against its plain PyTorch version at the p1
                step's shapes (B=256, C=6, T=354, R=6; the biLSTMs at R=6,
                H=128, the encoder's B=512 and the decoder's B=256 with
-               h0/c0; the packed select at the scaled B=4096, T=48), timed
-               with CUDA events beside a PyTorch library call
+               h0/c0; the packed select and the SCI backward at the scaled
+               B=4096, T=48), timed with CUDA events beside a PyTorch library
+               call; the biLSTM kernels must repeat bit for bit
   4. main    - the p1 trainer at the default Config width takes 8 steps and
                one eval forward on a synthetic T=354 cohort; the kernels'
                launch counters must show the path went through them
@@ -282,6 +283,27 @@ def main() -> None:
                              f"{int((got != want).sum())} slots")
     if not torch.equal(got.sum(1).to(torch.int32), k_s):
         raise AssertionError("fake_select_packed did not take exactly k per row")
+    # B4 at the scaled shape too (a warp a row there, a block a row at T=354)
+    sarrays = {k: torch.as_tensor(v, device=dev) for k, v in sdata.arrays().items()}
+    sfirst = gather_batch(sarrays, torch.arange(SCALED_B, device=dev))
+    x_s = (sfirst["ob"] * sfirst["padding_mask"]).reshape(rows_s, SCALED_T).contiguous()
+    t_s = sfirst["timestamp"].reshape(rows_s, SCALED_T).contiguous()
+    # a generator of its own: the phases below keep the draws they had
+    g_s = torch.randn((SCALED_B, R, 3 * C), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    got = ci.sci_bwd(x_s, t_s, m_s, alpha, ref_t, g_s, True)
+    want = ci._sci_bwd_plain(x_s, t_s, m_s, alpha, ref_t, g_s, True)
+    obs_s = m_s > 0
+    some = obs_s.any(1)  # a row without observations: 0 from the kernel, NaN from the plain version
+    for name, a, b_ in zip(("dx", "dt", "dm", "dalpha"), got, want):
+        a, b_ = (a[obs_s], b_[obs_s]) if name == "dm" else (a[some], b_[some])
+        rel = float((a - b_).abs().max()) / max(float(b_.abs().max()), 1e-30)
+        if not rel <= 1e-4:
+            raise AssertionError(f"sci_backward (scaled) {name}: {rel:.2e} of max|{name}|")
+    report["sci_backward"]["scaled_ms"] = time_ms(
+        lambda: ci.sci_bwd(x_s, t_s, m_s, alpha, ref_t, g_s, False))
+    del sfirst, got, want
+
     report["fake_select_packed"] = dict(
         max_abs_err=0.0, tolerance="bit-identical", shape=[rows_s, SCALED_T],
         ms=time_ms(lambda: cs.fake_select_packed(bits_s, nv_s, k_s)),
@@ -396,7 +418,7 @@ def main() -> None:
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
             library_ms=None if r["library_ms"] is None else f"{r['library_ms']:.4f}",
-            **{k: f"{r[k]:.4f}" for k in ("k1_ms", "decoder_ms") if k in r})
+            **{k: f"{r[k]:.4f}" for k in ("k1_ms", "decoder_ms", "scaled_ms") if k in r})
 
     # ------------------------------------------------------------ 4. main path
     trainer = Trainer(cfg, {"training": datasets["training"],
@@ -493,7 +515,6 @@ def main() -> None:
                                                       step_draws(B, T))
     # the masked tail step at the scaled configuration: the 368 real rows
     # repeated to B=4096, sample_mask 1 on them
-    sarrays = {k: torch.as_tensor(v, device=dev) for k, v in sdata.arrays().items()}
     n_tail = SCALED_TRAIN % SCALED_B
     tail = np.resize(np.arange(SCALED_TRAIN - n_tail, SCALED_TRAIN), SCALED_B)
     sbatch = gather_batch(sarrays, torch.as_tensor(tail, device=dev))
@@ -517,7 +538,8 @@ def main() -> None:
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("k1_ms", "decoder_ms", "shape", "library") if k in r},
+            **{k: r[k] for k in ("k1_ms", "decoder_ms", "scaled_ms", "shape", "library")
+               if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

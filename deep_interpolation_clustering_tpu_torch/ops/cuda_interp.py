@@ -30,6 +30,11 @@ from .rbf import RBF_NORM_EPS
 
 _MAX_REF_POINTS = 8  # the kernels unroll R up to this
 
+# K3's layout; the constants are csrc/sci.cu's.
+SCI_BWD_THREADS = 128  # kBwdThreads: threads per block
+SCI_BWD_WARP_SLOTS = 2  # kBwdWarpSlots: a warp takes a row of up to 32 x this slots
+SCI_BWD_BLOCK_SLOTS = 3  # kBwdBlockSlots: a block holds a row of up to 128 x this slots
+
 
 # ------------------------------------------------------------ plain versions
 def _split_cotangent(g: torch.Tensor, n_chan: int):
@@ -145,6 +150,20 @@ def _sci_fwd_launch(x, t, mask, alpha, ref_t):
     return out
 
 
+def sci_backward_layout(t_len: int) -> Tuple[int, int]:
+    """K3's layout for rows of `t_len` slots, as csrc/sci.cu chooses and
+    checks it -> (warps a row, slots a thread keeps in registers). A warp
+    takes a short row (four rows a block); a block of SCI_BWD_THREADS
+    threads takes a longer one; each thread holds its slots' x, t, mask and
+    exponentials in registers. 0 slots: the row is too long for that, and
+    the block loops over it and recomputes the exponentials."""
+    if t_len <= 32 * SCI_BWD_WARP_SLOTS:
+        return 1, -(-t_len // 32)
+    if t_len <= SCI_BWD_THREADS * SCI_BWD_BLOCK_SLOTS:
+        return SCI_BWD_THREADS // 32, -(-t_len // SCI_BWD_THREADS)
+    return SCI_BWD_THREADS // 32, 0
+
+
 def _sci_bwd_launch(x, t, mask, alpha, ref_t, g, need_planes: bool):
     n_chan = alpha.shape[0]
     rows, t_len, r = _check_rows("sci_bwd", x, n_chan, ref_t, t, mask)
@@ -154,11 +173,12 @@ def _sci_bwd_launch(x, t, mask, alpha, ref_t, g, need_planes: bool):
     dx = dt = dm = None
     if need_planes:
         dx, dt, dm = (torch.empty_like(x) for _ in range(3))
-    fn = cb.c_function("sci", "dicl_sci_bwd", 10, 4)
+    warps, slots = sci_backward_layout(t_len)
+    fn = cb.c_function("sci", "dicl_sci_bwd", 10, 6)
     cb.raise_on_error("sci_bwd", fn(
         cb.ptr(x), cb.ptr(t), cb.ptr(mask), cb.ptr(alpha), cb.ptr(ref_t),
         cb.ptr(g), cb.ptr(dx), cb.ptr(dt), cb.ptr(dm), cb.ptr(dalpha),
-        rows, n_chan, t_len, r, cb.stream_of(x),
+        rows, n_chan, t_len, r, warps, slots, cb.stream_of(x),
     ))
     return dx, dt, dm, dalpha
 

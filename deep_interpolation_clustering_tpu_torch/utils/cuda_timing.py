@@ -1,4 +1,4 @@
-"""Device time of one call on the card, as `chip_smoke.py` and the B7
+"""Device time of one call on the card, as `chip_smoke.py` and the biLSTM
 rows-per-block sweep (`utils/lstm_rows_sweep.py`) read it."""
 
 from __future__ import annotations

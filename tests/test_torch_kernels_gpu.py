@@ -167,7 +167,12 @@ def test_bilstm_gradient_kernels_match_plain(dev):
         assert _rel_err(a, w) <= 1e-4
 
 
-@pytest.mark.parametrize("rows,t,r", [(15, 7, 1), (18, 354, 6), (1536, 354, 6), (6, 40, 8)])
+# T crosses the backward's layouts: a warp a row with 1 or 2 slots a lane (T <=
+# 32, <= 64), a block a row with 1 to 3 slots a thread (<= 128, 256, 384), the loop
+@pytest.mark.parametrize("rows,t,r", [
+    (15, 7, 1), (18, 354, 6), (1536, 354, 6), (6, 40, 8), (15, 1, 2), (9, 32, 6), (9, 33, 6),
+    (600, 48, 6), (13 * 3, 64, 6), (12, 65, 3), (6, 128, 6), (6, 129, 6), (6, 256, 8),
+    (6, 257, 6), (6, 384, 6), (6, 385, 6), (6, 1024, 6)])
 def test_sci_forward_and_backward(dev, rows, t, r):
     c = 3 if rows % 6 else 6
     x, ts, mask = _planes(rows + t + r, rows, t, dev)
@@ -188,6 +193,31 @@ def test_sci_forward_and_backward(dev, rows, t, r):
     only = ci.sci_bwd(x, ts, mask, alpha, ref_t, g, False)
     assert only[:3] == (None, None, None)
     assert torch.equal(only[3], got[3])  # the same sums in the same order
+
+
+@pytest.mark.parametrize("t", [48, 354, 1024])
+def test_sci_backward_fully_padded_row(dev, t):
+    """A row with no observation: its dalpha and plane cotangents are 0 (the
+    plain version's are NaN there), and the other rows do not see it."""
+    rows, c, r, pad = 12, 6, 6, 7
+    x, ts, mask = _planes(t, rows, t, dev)
+    for a in (x, ts, mask):
+        a[pad] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    alpha = torch.rand(c, generator=gen, device=dev) + 0.5
+    ref_t = reference_times(r, 6.0, device=dev)
+    g = torch.randn((rows // c, r, 3 * c), generator=gen, device=dev)
+    got = ci.sci_bwd(x, ts, mask, alpha, ref_t, g, True)
+    want = ci._sci_bwd_plain(x, ts, mask, alpha, ref_t, g, True)
+    keep = torch.arange(rows, device=dev) != pad
+    obs = mask[keep] > 0
+    for name, a, b in zip(("dx", "dt", "dm", "dalpha"), got, want):
+        assert torch.all(a[pad] == 0), name
+        a, b = a[keep], b[keep]
+        if name == "dm":
+            a, b = a[obs], b[obs]
+        assert _rel_err(a, b) <= 1e-4, name
+    assert torch.equal(ci.sci_bwd(x, ts, mask, alpha, ref_t, g, False)[3], got[3])
 
 
 def test_sci_function_gradient_matches_plain_autograd(dev):

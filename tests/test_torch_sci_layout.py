@@ -1,0 +1,63 @@
+"""The layout of the SCI backward kernel B4 (`ops/cuda_interp.py::
+sci_backward_layout`), checked on the CPU: the kernel itself runs only on
+the card (tests/test_torch_kernels_gpu.py), but which of its layouts a row
+length gets is plain integer arithmetic that the C entry checks again.
+
+- a row of up to 64 slots gets a warp, a longer one a block of 128 threads;
+- the slots a thread holds in registers cover the row, and a row too long
+  for three slots a thread gets the looping layout;
+- the main path's T=354 gets a block with three slots a thread, the scaled
+  path's T=48 a warp with two;
+- the wrapper's constants are the CUDA source's, and the source
+  instantiates every layout the rule can choose.
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from deep_interpolation_clustering_tpu_torch.ops import cuda_interp as ci
+
+SOURCE = Path(ci.__file__).resolve().parent.parent / "csrc" / "sci.cu"
+
+
+def _cuda_constant(name):
+    m = re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text())
+    assert m, f"csrc/sci.cu defines no {name}"
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("t,want", [
+    (1, (1, 1)), (32, (1, 1)), (33, (1, 2)), (48, (1, 2)), (64, (1, 2)), (65, (4, 1)),
+    (128, (4, 1)), (129, (4, 2)), (256, (4, 2)), (257, (4, 3)), (354, (4, 3)), (384, (4, 3)),
+    (385, (4, 0)), (1024, (4, 0))])
+def test_layout_at_the_boundaries(t, want):
+    assert ci.sci_backward_layout(t) == want
+
+
+def test_held_slots_cover_every_row_length():
+    for t in range(1, 2049):
+        warps, slots = ci.sci_backward_layout(t)
+        assert warps in (1, ci.SCI_BWD_THREADS // 32)
+        team = 32 * warps
+        if slots:
+            assert team * (slots - 1) < t <= team * slots  # no idle slot index, none missing
+            assert slots <= (ci.SCI_BWD_WARP_SLOTS if warps == 1 else ci.SCI_BWD_BLOCK_SLOTS)
+        else:
+            assert t > ci.SCI_BWD_THREADS * ci.SCI_BWD_BLOCK_SLOTS
+
+
+def test_wrapper_constants_are_the_sources():
+    assert ci.SCI_BWD_THREADS == _cuda_constant("kBwdThreads")
+    assert ci.SCI_BWD_WARP_SLOTS == _cuda_constant("kBwdWarpSlots")
+    assert ci.SCI_BWD_BLOCK_SLOTS == _cuda_constant("kBwdBlockSlots")
+    assert ci.SCI_BWD_THREADS % 32 == 0
+
+
+def test_source_instantiates_every_layout():
+    text = SOURCE.read_text()
+    layouts = {ci.sci_backward_layout(t) for t in range(1, 2049)}
+    assert layouts == {(1, 1), (1, 2), (4, 1), (4, 2), (4, 3), (4, 0)}
+    for warps, slots in layouts:
+        assert f"launch_bwd<R, {warps}, {slots}>" in text, (warps, slots)
