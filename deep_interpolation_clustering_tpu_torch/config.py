@@ -38,9 +38,8 @@ _IGNORED = (
     "evaluate_interpolation", "feat_dump", "cluster_number", "dec_alpha",
     "init_cluster_center", "stopping_delta", "stopping_mode", "stopping_count",
     "stopping_patience", "update_interval", "pipeline_delta", "kmeans_n_init",
-    "kmeans_impl", "dbscan_impl", "max_epochs", "min_lr", "lr_decay_mode",
-    "lr_decay_step_or_patience", "lr_decay_rate", "warmup_multiplier",
-    "warmup_epochs", "early_stopping", "eval_interval", "k_max",
+    "kmeans_impl", "dbscan_impl", "max_epochs", "early_stopping",
+    "eval_interval", "k_max",
     "select_opt_k", "n_init", "gap_b", "gap_subsample", "opt_eps",
     "internal_metrics", "overwrite", "cluster_method", "num_clusters",
     "dl_cluster_label_type", "base_path", "results_path",
@@ -92,6 +91,12 @@ class Config:
     )
     optimizer: str = "adam"  # adam (amsgrad) | sgd | rmsprop
     init_lr: float = 3e-3
+    min_lr: float = 1e-6
+    lr_decay_mode: str = "step"  # step | plateau | warmup
+    lr_decay_step_or_patience: int = 20
+    lr_decay_rate: float = 0.2
+    warmup_multiplier: float = 8.0
+    warmup_epochs: int = 10
     grad_clip: float = 15.0
     weight_decay_rate: float = 4e-4
     # bit width of the fake-select keys and noise draws; only 32 is ported
@@ -121,6 +126,7 @@ class Config:
 
     _CHOICES = {
         "optimizer": ("adam", "sgd", "rmsprop"),
+        "lr_decay_mode": ("step", "plateau", "warmup"),
         "rng_draw_bits": (32, 16),
     }
     _MIN_ONE = ("batch_size", "num_timestamps")

@@ -3,13 +3,13 @@
 The JAX package emulates torch's `Adam(amsgrad=True)` with L2 weight decay
 folded into the gradient (`scale_by_torch_amsgrad`, after
 `clip_by_global_norm`); the port uses torch's optimizer itself. Only
-'adam' is ported; the learning rate stays at `init_lr` (LR schedules come
-with the full trainer).
+'adam' is ported. `LRSchedule` is the JAX package's epoch-level rate
+controller; the trainer writes its rate into the optimizer's param groups.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -37,3 +37,79 @@ def clip_grad_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm * max_norm))
     return norm
+
+
+def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
+class LRSchedule:
+    """Epoch-level learning-rate controller (the JAX `LRSchedule`, equal to
+    the float). `step(valid_loss)` is called once per completed epoch; `lr`
+    is the rate for the next epoch, already clamped to `min_lr`.
+
+      step     init_lr * rate^(e // step)
+      warmup   a linear ramp to `warmup_multiplier` x init_lr over
+               `warmup_epochs`, then back to init_lr (the measured behaviour
+               of the reference's warm-up scheduler handing off to StepLR:
+               the hand-off writes the stale pre-warm-up rate, and StepLR's
+               epoch counter starts there), decaying at
+               e = warmup_epochs + 1 + k * step
+      plateau  torch's ReduceLROnPlateau defaults (mode min, relative
+               threshold 1e-4): x rate once more than `patience` epochs in a
+               row fail to improve; needs the validation loss
+    """
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.lr = cfg.init_lr
+        self.num_steps = 0
+        self._best = float("inf")
+        self._num_bad = 0
+
+    def step(self, valid_loss: Optional[float] = None) -> float:
+        cfg = self.cfg
+        mode = cfg.lr_decay_mode
+        if mode == "plateau" and valid_loss is None:
+            raise ValueError("lr_decay_mode='plateau' steps on a validation loss: "
+                             "pass valid_loss")
+        self.num_steps += 1
+        e = self.num_steps  # completed epochs
+        if mode == "step":
+            k = e // cfg.lr_decay_step_or_patience
+            self.lr = cfg.init_lr * cfg.lr_decay_rate**k
+        elif mode == "warmup":
+            m, total = cfg.warmup_multiplier, cfg.warmup_epochs
+            if e <= total:
+                self.lr = cfg.init_lr * (1.0 + (m - 1.0) * e / total)
+            else:
+                k = (e - total - 1) // cfg.lr_decay_step_or_patience
+                self.lr = cfg.init_lr * cfg.lr_decay_rate**k
+        elif mode == "plateau":
+            if valid_loss < self._best * (1.0 - 1e-4):
+                self._best = valid_loss
+                self._num_bad = 0
+            else:
+                self._num_bad += 1
+            if self._num_bad > cfg.lr_decay_step_or_patience:
+                self.lr = self.lr * cfg.lr_decay_rate
+                self._num_bad = 0
+        else:
+            raise ValueError(f"unknown lr_decay_mode {mode!r}")
+        if self.lr < cfg.min_lr:
+            self.lr = cfg.min_lr
+        return self.lr
+
+    def state_dict(self) -> dict:
+        """Checkpointable state, under the JAX package's keys: 'step' and
+        'warmup' recompute the rate from `num_steps`, 'plateau' needs its
+        best loss and bad-epoch count."""
+        return {"lr": self.lr, "num_steps": self.num_steps, "best": self._best,
+                "num_bad": self._num_bad}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.lr = float(d["lr"])
+        self.num_steps = int(d["num_steps"])
+        self._best = float(d["best"])
+        self._num_bad = int(d["num_bad"])

@@ -5,8 +5,9 @@ runs the shuffled batches through `steps.train_step`. Every encounter trains
 once per epoch: a short final batch is padded to the full batch by
 repeating its real rows and trained as one masked step (`sample_mask` 1 on
 the real rows), as the JAX `_tail_train_step` does; the reference has no
-`drop_last`. Checkpoints, dumps, early stop and LR schedules come with the
-full trainer (ROADMAP.md, queue A).
+`drop_last`. The learning rate follows `optim.LRSchedule`, stepped whenever
+an epoch ends. Checkpoints, dumps and early stop come with the full trainer
+(ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..config import Config
 from ..data.loader import ArrayDataset
 from ..models.net import Net
 from ..utils.device import resolve_device
-from .optim import make_optimizer
+from .optim import LRSchedule, make_optimizer, set_learning_rate
 from .steps import eval_step, gather_batch, train_step
 
 log = logging.getLogger("dicl.torch")
@@ -39,6 +40,7 @@ class Trainer:
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.net = Net(cfg, generator=init_gen).to(self.device)
         self.opt = make_optimizer(cfg, self.net.parameters())
+        self.lr_schedule = LRSchedule(cfg)
         # batch draws (fake select bits and noise, permutation, dropout)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._cohorts: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -83,10 +85,16 @@ class Trainer:
         return train_step(self.net, self.opt, self.cfg, batch, self.generator,
                           self.cfg.denoise)
 
+    def _end_epoch(self, valid_loss: Optional[float] = None) -> None:
+        """Advance the epoch and give the optimizer the schedule's next rate
+        ('plateau' raises without a validation loss)."""
+        set_learning_rate(self.opt, self.lr_schedule.step(valid_loss))
+        self.epoch += 1
+
     def _stream(self) -> Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
         while True:
             yield from self._epoch_batches(self.epoch)
-            self.epoch += 1
+            self._end_epoch()
 
     def train_steps(self, n: int) -> List[Dict[str, torch.Tensor]]:
         """Take `n` steps over the shuffled epochs; the losses stay on the
@@ -94,11 +102,15 @@ class Trainer:
         stream = self._stream()
         return [self.step(*next(stream)) for _ in range(n)]
 
-    def train_one_epoch(self) -> Dict[str, float]:
+    def train_one_epoch(self, valid_loss: Optional[float] = None) -> Dict[str, float]:
         """One epoch over every training encounter; returns the mean losses
-        over its batches (the masked tail counts as one, as in JAX)."""
+        over its batches (the masked tail counts as one, as in JAX). Then
+        the learning-rate schedule steps; `valid_loss` is the validation
+        loss that the 'plateau' mode steps on (the caller computes it)."""
+        if self.cfg.lr_decay_mode == "plateau" and valid_loss is None:
+            raise ValueError("lr_decay_mode='plateau' needs train_one_epoch(valid_loss=...)")
         losses = [self.step(*b) for b in self._epoch_batches(self.epoch)]
-        self.epoch += 1
+        self._end_epoch(valid_loss)
         return {k: float(torch.stack([l[k] for l in losses]).mean()) for k in losses[0]}
 
     def eval_batch(self, cohort: str = "validation",
