@@ -10,9 +10,12 @@ not 0):
   3. kernels - each kernel against its plain PyTorch version at the p1
                step's shapes (B=256, C=6, T=354, R=6; the biLSTMs at R=6,
                H=128, the encoder's B=512 and the decoder's B=256 with
-               h0/c0; the packed select and the SCI backward at the scaled
-               B=4096, T=48), timed with CUDA events beside a PyTorch library
-               call; the biLSTM kernels must repeat bit for bit
+               h0/c0; the packed select, the SCI forward and the SCI
+               backward at the scaled B=4096, T=48 too), timed with CUDA
+               events beside a PyTorch library call; the packed select also
+               at T = 16, 96 and 192 beside K1 on the same rows (the routing
+               between the two is read off these); the SCI forward and the
+               biLSTM kernels must repeat bit for bit
   4. main    - the p1 trainer at the default Config width takes 8 steps and
                one eval forward on a synthetic T=354 cohort; the kernels'
                launch counters must show the path went through them
@@ -58,6 +61,9 @@ H = 128  # Config().lstm_hidden
 # that the 100k cohort's training split leaves (70,000 mod 4,096)
 SCALED_B, SCALED_T = 4096, 48
 SCALED_TRAIN = 3 * SCALED_B + 368
+# row lengths at which the packed select is held against K1 and timed beside
+# it, each on enough rows for 2^20 slots
+SELECT_T = (16, 48, 96, 192)
 
 
 def say(phase: str, **kw) -> None:
@@ -89,6 +95,12 @@ def lstm_work(t_len: int, b: int, hidden: int, backward: bool):
     # xg, w, h0/c0, ys/cs and their cotangents in; dxg, dW, db, dh0/dc0 out
     n_bytes = f32 * (gates + weights + states + 4 * seqs + 4 * seqs + gates + weights + states)
     return n_bytes, 3 * 2 * fma + 30 * units, 6 * units
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (NaN of a row without observations included)."""
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def params_agree(net_k, net_p, lr):
@@ -207,9 +219,14 @@ def main() -> None:
     err = float((got - want).abs().max())
     if not err <= 1e-5:
         raise AssertionError(f"sci_forward max abs err {err} > 1e-5")
+    if not same_bits(got, ci.sci_fwd(x2, t2, m2, alpha, ref_t)):
+        raise AssertionError("sci_forward differs between two runs")
     report["sci_forward"] = dict(
-        max_abs_err=err, tolerance=1e-5,
+        max_abs_err=err, tolerance="1e-5; two runs bit-identical",
         ms=time_ms(lambda: ci.sci_fwd(x2, t2, m2, alpha, ref_t)),
+        # one encounter's 6 rows: the launch and one row's chain of cold
+        # loads, three reductions and 36 expf a thread, which no layout hides
+        few_rows_ms=time_ms(lambda: ci.sci_fwd(x2[:C], t2[:C], m2[:C], alpha, ref_t)),
         plain_ms=time_ms(lambda: ci._sci_fwd_plain(x2, t2, m2, alpha, ref_t)),
         library_ms=None,
         # per observed slot and r: ~12 float32 operations and 2 expf
@@ -303,6 +320,19 @@ def main() -> None:
             raise AssertionError(f"sci_backward (scaled) {name}: {rel:.2e} of max|{name}|")
     report["sci_backward"]["scaled_ms"] = time_ms(
         lambda: ci.sci_bwd(x_s, t_s, m_s, alpha, ref_t, g_s, False))
+    # B3 at the scaled shape (a warp a row there too); a row without
+    # observations is NaN in both versions and left out
+    got = ci.sci_fwd(x_s, t_s, m_s, alpha, ref_t)
+    want = ci._sci_fwd_plain(x_s, t_s, m_s, alpha, ref_t)
+    seen = some.reshape(SCALED_B, 1, C).repeat(1, R, 3)  # (B, R, 3C) [y | w | yt]
+    err_s = float((got - want)[seen].abs().max())
+    if not err_s <= 1e-5:
+        raise AssertionError(f"sci_forward (scaled) max abs err {err_s} > 1e-5")
+    if not same_bits(got, ci.sci_fwd(x_s, t_s, m_s, alpha, ref_t)):
+        raise AssertionError("sci_forward (scaled) differs between two runs")
+    report["sci_forward"]["max_abs_err"] = max(report["sci_forward"]["max_abs_err"], err_s)
+    report["sci_forward"]["scaled_ms"] = time_ms(
+        lambda: ci.sci_fwd(x_s, t_s, m_s, alpha, ref_t))
     del sfirst, got, want
 
     report["fake_select_packed"] = dict(
@@ -312,8 +342,33 @@ def main() -> None:
         library_ms=time_ms(lambda: torch.sort(bits_s, dim=-1)),
         # K1 on the same rows: the time the packed kernel has to beat
         k1_ms=time_ms(lambda: cs.fake_select(bits_s, nv_s, k_s)),
+        # one block's 8 rows: the launch and one row's chain
+        few_rows_ms=time_ms(lambda: cs.fake_select_packed(bits_s[:8], nv_s[:8], k_s[:8])),
         bytes=rows_s * SCALED_T * (4 + 1) + rows_s * 8, flop=0, expf=0,
     )
+    # B2 beside K1 over the row lengths it is routed at, bit-identical to the
+    # sort oracle and to K1; draws from a generator of its own
+    sel_gen = torch.Generator(device=dev).manual_seed(2)
+    by_t = {}
+    for t_sel in SELECT_T:
+        rows_t = C * -(-2**20 // (C * t_sel))
+        nv_t = torch.randint(0, t_sel + 1, (rows_t,), generator=sel_gen, device=dev,
+                             dtype=torch.int32)
+        k_t = torch.where(nv_t > 0, torch.clamp(nv_t // 2, min=1), torch.zeros_like(nv_t))
+        bits_t = draw_bits((rows_t, t_sel), sel_gen, dev)
+        got = cs.fake_select_packed(bits_t, nv_t, k_t)
+        for name, want in (("the sort oracle", cs._select_sort(bits_t, nv_t, k_t)),
+                           ("K1", cs.fake_select(bits_t, nv_t, k_t))):
+            if not torch.equal(got, want):
+                raise AssertionError(f"fake_select_packed at T={t_sel} differs from {name} at "
+                                     f"{int((got != want).sum())} slots")
+        by_t[t_sel] = dict(
+            rows=rows_t, ms=time_ms(lambda: cs.fake_select_packed(bits_t, nv_t, k_t)),
+            k1_ms=time_ms(lambda: cs.fake_select(bits_t, nv_t, k_t)))
+        say("select", T=t_sel, rows=rows_t, packed_ms=f"{by_t[t_sel]['ms']:.4f}",
+            k1_ms=f"{by_t[t_sel]['k1_ms']:.4f}")
+    report["fake_select_packed"]["by_t"] = by_t
+    del got, want, bits_t, nv_t, k_t
 
     # B6/B7 at the encoder's shape (real+fake batched, B = 2 x 256, no
     # state) and the decoder's (B = 256, seeded with h0/c0)
@@ -419,7 +474,8 @@ def main() -> None:
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
             library_ms=None if r["library_ms"] is None else f"{r['library_ms']:.4f}",
-            **{k: f"{r[k]:.4f}" for k in ("k1_ms", "decoder_ms", "scaled_ms") if k in r})
+            **{k: f"{r[k]:.4f}" for k in ("k1_ms", "decoder_ms", "scaled_ms", "few_rows_ms")
+               if k in r})
 
     # ------------------------------------------------------------ 4. main path
     trainer = Trainer(cfg, {"training": datasets["training"],
@@ -539,7 +595,8 @@ def main() -> None:
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("k1_ms", "decoder_ms", "scaled_ms", "shape", "library")
+            **{k: r[k] for k in ("k1_ms", "by_t", "few_rows_ms", "decoder_ms", "scaled_ms", "shape",
+                                 "library")
                if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

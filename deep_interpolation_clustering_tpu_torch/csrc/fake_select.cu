@@ -27,16 +27,21 @@
 // The packed entry `dicl_fake_select_packed` replaces `_select_kernel_packed`
 // (called by `_select_pallas_packed`), the TPU kernel for T <= 192. There
 // `g = 384 // T` rows share one 128-lane row and 0/1 matmuls count per
-// segment: layout devices of the TPU. Here one block of g*T <= 384 threads
-// holds the g rows as contiguous segments of threads, so a short row does
-// not leave most of a block idle (at T=48 one 64-thread block per row would
-// run 16 idle threads of 64 and 8x the blocks). Its bound is the same:
-// memory. Each radix pass is one warp `__ballot_sync` per warp, stored in
-// shared memory; after one `__syncthreads` every thread counts its own
-// segment's bits over the few warps that segment spans, each ballot masked
-// to the segment's lanes first (a warp straddles segments whenever T is not
-// a multiple of 32). The ties are filled in position order within each
-// segment the same way. No atomics; the mask is bit-identical to K1's.
+// segment: layout devices of the TPU. What carries over is only that a short
+// row must not cost a block of its own. Its bound is the same: memory.
+//
+// Design: a warp owns a row, eight rows a block. Lane l holds the random
+// parts of slots l, l + 32, ... in registers (S = ceil(T / 32) <= 6 of them,
+// a template parameter; the loads coalesce), so a radix pass is S
+// `__ballot_sync` + `__popc` and one compare: no barrier, no shared memory,
+// and the count is taken once, not by every thread. At the scaled
+// configuration (24,576 rows of T = 48) that is 24,576 independent warps.
+// Since no other row waits on it, a warp also stops as soon as a pass counts
+// exactly k slots at or below its threshold: those slots are the answer, and
+// with random keys that happens after about log2(n_valid) + 2 of the 30 - p
+// passes. Otherwise (ties in the random part at the k-th key) it runs every
+// pass and fills the ties in position order: chunk by chunk, then the lanes
+// below. No atomics; the mask is bit-identical to K1's.
 
 #include <climits>
 #include <cstdint>
@@ -92,101 +97,102 @@ __global__ void fake_select_kernel(const uint32_t* __restrict__ bits,
   }
 }
 
-constexpr int kPackSlots = 384;  // g * T <= 384 threads per block
+constexpr int kPackWarps = 8;     // rows a block of the packed select, a warp each
+constexpr int kPackMaxSlots = 6;  // slots a lane holds at most: T <= 32 * this
 
-// The lanes of warp `warp` that hold slots of segment `seg` (threads
-// [seg*T, seg*T + T) of the block).
-__device__ __forceinline__ unsigned segment_lanes(int warp, int seg, int t_len) {
-  const int lo = max(seg * t_len, warp * 32) - warp * 32;
-  const int hi = min(seg * t_len + t_len, warp * 32 + 32) - warp * 32;
-  if (hi <= lo) return 0u;
-  const unsigned below_hi = hi >= 32 ? 0xffffffffu : ((1u << hi) - 1u);
-  return below_hi & ~((1u << lo) - 1u);
-}
-
-// A segment's place among the block's warps: its first and last warp and
-// their lanes in it; the warps between hold only its slots.
-struct SegmentSpan {
-  int w_first, w_last;
-  unsigned m_first, m_last;
-};
-
-__device__ __forceinline__ SegmentSpan segment_span(int seg, int t_len) {
-  const int w_first = (seg * t_len) >> 5;
-  const int w_last = (seg * t_len + t_len - 1) >> 5;
-  return {w_first, w_last, segment_lanes(w_first, seg, t_len),
-          segment_lanes(w_last, seg, t_len)};
-}
-
-// Set bits of the per-warp ballots `wb` in the segment, over its warps up to
-// `w_end` (inclusive).
-__device__ __forceinline__ int segment_count(const unsigned* wb, const SegmentSpan& sp,
-                                             int w_end) {
-  if (w_end < sp.w_first) return 0;
-  int n = __popc(wb[sp.w_first] & sp.m_first);
-  for (int w = sp.w_first + 1; w <= w_end; ++w) {
-    n += __popc(wb[w] & (w == sp.w_last ? sp.m_last : 0xffffffffu));
-  }
+// Set bits of the S ballots of `pred(i)`, i < S: a count over the warp's row.
+template <int S, class Pred>
+__device__ __forceinline__ int row_count(Pred pred) {
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) n += __popc(__ballot_sync(0xffffffffu, pred(i)));
   return n;
 }
 
-__global__ void fake_select_packed_kernel(const uint32_t* __restrict__ bits,
-                                          const int32_t* __restrict__ n_valid,
-                                          const int32_t* __restrict__ k_sel,
-                                          bool* __restrict__ out, int rows,
-                                          int t_len, int g, int pos_bits) {
-  __shared__ unsigned wb[2][kPackSlots / 32];  // double-buffered pass ballots
-  __shared__ unsigned wb_eq[kPackSlots / 32];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int seg = tid / t_len;  // g for the block's padding threads
-  const int pos = tid - seg * t_len;
-  const int row = blockIdx.x * g + seg;
-  const bool live = seg < g && row < rows;
-  const int nv = live ? n_valid[row] : 0;
-  const int k = live ? k_sel[row] : 0;
+// A warp a row; lane l holds slots l + 32 i, i < S, with 32 S >= t_len.
+template <int S>
+__global__ void __launch_bounds__(32 * kPackWarps) fake_select_packed_kernel(
+    const uint32_t* __restrict__ bits, const int32_t* __restrict__ n_valid,
+    const int32_t* __restrict__ k_sel, bool* __restrict__ out, int rows, int t_len,
+    int pos_bits) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kPackWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  const int nv = n_valid[row];
+  const int k = k_sel[row];
   const int nbits = kKeyBits - pos_bits;
-  const SegmentSpan span = segment_span(seg, t_len);
-  // row * T + pos for a live thread: the block's rows are contiguous
-  const size_t idx = static_cast<size_t>(blockIdx.x) * g * t_len + tid;
+  const size_t base = static_cast<size_t>(row) * t_len;
 
-  int rand = INT_MAX;
-  if (live && pos < nv) {
-    rand = static_cast<int>(bits[idx] >> (32 - kKeyBits + pos_bits));
+  // invalid and out-of-row slots get INT_MAX, above every random part
+  int rand[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int pos = lane + 32 * i;
+    rand[i] = INT_MAX;
+    if (pos < t_len && pos < nv) {
+      rand[i] = static_cast<int>(bits[base + pos] >> (32 - kKeyBits + pos_bits));
+    }
   }
 
-  // per segment: smallest v with count(rand <= v) >= k, one bit per pass
+  // smallest v with count(rand <= v) >= k, one answer bit per pass; a pass
+  // that counts exactly k has found the k smallest and ends the search
   int prefix = 0;
-  int buf = 0;
-  for (int b = nbits - 1; b >= 0; --b) {
-    const int bit = 1 << b;
-    const unsigned bal = __ballot_sync(0xffffffffu, rand <= prefix + (bit - 1));
-    if (lane == 0) wb[buf][warp] = bal;
-    __syncthreads();
-    if (live && segment_count(wb[buf], span, span.w_last) < k) prefix += bit;
-    buf ^= 1;  // the other buffer was last read before this pass's barrier
+  bool exact = k == 0;  // nothing to take: rand <= -1 selects nothing
+  if (exact) prefix = -1;
+  for (int b = nbits - 1; b >= 0 && !exact; --b) {
+    const int thr = prefix + ((1 << b) - 1);
+    const int c0 = row_count<S>([&](int i) { return rand[i] <= thr; });
+    if (c0 == k) {
+      prefix = thr;
+      exact = true;
+    } else if (c0 < k) {
+      prefix = thr + 1;
+    }
   }
-  const bool lt = rand < prefix;
-  const bool eq = rand == prefix;
-  const unsigned lt_bal = __ballot_sync(0xffffffffu, lt);
-  const unsigned eq_bal = __ballot_sync(0xffffffffu, eq);
-  if (lane == 0) {
-    wb[buf][warp] = lt_bal;
-    wb_eq[warp] = eq_bal;
+
+  bool sel[S];
+  if (exact) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) sel[i] = rand[i] <= prefix;
+  } else {
+    // all below the k-th key, and its ties in position order
+    const int need = k - row_count<S>([&](int i) { return rand[i] < prefix; });
+    const unsigned upto_lane = 0xffffffffu >> (31 - lane);
+    int before = 0;  // ties in the chunks before this one
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const bool eq = rand[i] == prefix;
+      const unsigned ties = __ballot_sync(0xffffffffu, eq);
+      sel[i] = rand[i] < prefix || (eq && before + __popc(ties & upto_lane) <= need);
+      before += __popc(ties);
+    }
   }
-  __syncthreads();
-  if (!live) return;
-  const int need = k - segment_count(wb[buf], span, span.w_last);
-  // inclusive count of ties in this segment up to this slot: the earlier
-  // warps' ballots, then this warp's lanes up to this one
-  int csum = segment_count(wb_eq, span, warp - 1);
-  const unsigned my_lanes = warp == span.w_first ? span.m_first
-                            : warp == span.w_last ? span.m_last : 0xffffffffu;
-  const unsigned upto_lane = lane == 31 ? 0xffffffffu : ((2u << lane) - 1u);
-  csum += __popc(eq_bal & my_lanes & upto_lane);
-  out[idx] = k > 0 && (lt || (eq && csum <= need));
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const int pos = lane + 32 * i;
+    if (pos < t_len) out[base + pos] = sel[i];
+  }
 }
+
+template <int S, class... Args>
+inline void launch_packed(int rows, cudaStream_t s, Args... args) {
+  fake_select_packed_kernel<S><<<(rows + kPackWarps - 1) / kPackWarps, 32 * kPackWarps, 0, s>>>(
+      args...);
+}
+
+// The kernel that holds `slots` slots a lane.
+template <class... Args>
+inline void launch_packed_slots(int slots, Args... args) {
+  switch (slots) {
+    case 1: launch_packed<1>(args...); break;
+    case 2: launch_packed<2>(args...); break;
+    case 3: launch_packed<3>(args...); break;
+    case 4: launch_packed<4>(args...); break;
+    case 5: launch_packed<5>(args...); break;
+    default: launch_packed<6>(args...); break;
+  }
+}
+static_assert(kPackMaxSlots == 6, "launch_packed_slots names every slot count the entry takes");
 
 }  // namespace
 
@@ -203,18 +209,18 @@ extern "C" int dicl_fake_select(const void* bits, const void* n_valid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The packed select for 1 <= t_len <= 192: `g` rows per block, g * t_len <=
-// 384. Same arguments and result as dicl_fake_select.
+// The packed select for 1 <= t_len <= 192: a warp a row, `warps` rows a
+// block, `slots` slots a lane. Both are the wrapper's layout (`packed_layout`
+// in ops/cuda_select.py) and must be this file's for t_len. Same arguments
+// and result as dicl_fake_select otherwise.
 extern "C" int dicl_fake_select_packed(const void* bits, const void* n_valid,
                                        const void* k, void* out, int rows, int t_len,
-                                       int g, int pos_bits, void* stream) {
-  if (t_len < 1 || t_len > 192 || g < 1 || g * t_len > kPackSlots || rows < 1) {
-    return cudaErrorInvalidValue;
-  }
-  const int threads = (g * t_len + 31) / 32 * 32;
-  const int blocks = (rows + g - 1) / g;
-  fake_select_packed_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(n_valid),
-      static_cast<const int32_t*>(k), static_cast<bool*>(out), rows, t_len, g, pos_bits);
+                                       int slots, int warps, int pos_bits, void* stream) {
+  if (t_len < 1 || t_len > 32 * kPackMaxSlots || rows < 1) return cudaErrorInvalidValue;
+  if (slots != (t_len + 31) / 32 || warps != kPackWarps) return cudaErrorInvalidValue;
+  launch_packed_slots(slots, rows, static_cast<cudaStream_t>(stream),
+                      static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(n_valid),
+                      static_cast<const int32_t*>(k), static_cast<bool*>(out), rows, t_len,
+                      pos_bits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[str, Callable] = {}
-build_log: Dict[str, str] = {}  # nvcc's stderr per source (ptxas register use)
+build_log: Dict[str, str] = {}  # nvcc's output per source (ptxas register use), kept beside the .so
 build_seconds: Optional[float] = None
 
 
@@ -82,12 +82,16 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}{err}")
         else:
+            so.with_suffix(".log").write_text(build_log[name])
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     build_seconds = time.perf_counter() - t0
     for name in SOURCES:
         stem = Path(name).stem
+        log = out_dir / (stem + ".log")
+        if name not in build_log and log.exists():  # built by an earlier process
+            build_log[name] = log.read_text()
         _libs[stem] = ctypes.CDLL(str(out_dir / (stem + ".so")))
     return _libs
 

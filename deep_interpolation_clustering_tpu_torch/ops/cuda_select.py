@@ -3,11 +3,11 @@
 For each (encounter, channel) row it takes exactly k of the first `n_valid`
 slots: the k smallest 30-bit keys, a key being the random high bits of the
 slot's 32-bit draw above the slot position. On a CUDA tensor this is a
-hand-written kernel in `csrc/fake_select.cu`, routed by T as the JAX
-`_select_local` routes on the TPU: for T <= 192 the packed kernel
-(`fake_select_packed`, `pack_factor(T)` rows per block), above it K1
-(`fake_select`, one row per block). The plain version of both is the sort
-oracle `_select_sort`, the JAX `_select_xla`. All three are bit-identical.
+hand-written kernel in `csrc/fake_select.cu`, routed by T: up to
+`PACKED_ROUTE_MAX_T` the packed kernel (`fake_select_packed`: a warp a row,
+several rows a block, `packed_layout(T)`), above it K1 (`fake_select`, one
+row per block). The plain version of both is the sort oracle
+`_select_sort`, the JAX `_select_xla`. All three are bit-identical.
 
 Bits travel as int32 tensors holding the uint32 bit patterns (torch's
 uint32 has few operations); every shift of them is logical.
@@ -15,13 +15,22 @@ uint32 has few operations); every shift of them is logical.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import _cuda_build as cb
 
 _KEY_BITS = 30
 _INVALID = 0x7FFFFFFF  # int32 max: sorts after every valid key
-_PACK_SLOTS = 384  # slots per block of the packed kernel
+
+# The packed kernel's layout; the constants are csrc/fake_select.cu's.
+PACKED_WARPS = 8  # kPackWarps: rows a block, a warp each
+PACKED_MAX_SLOTS = 6  # kPackMaxSlots: slots a lane holds at most
+PACKED_MAX_T = 32 * PACKED_MAX_SLOTS  # the longest row the packed kernel takes
+# Rows up to this length go to the packed kernel, longer ones to K1: the
+# crossover measured on the H100 (PERF.md).
+PACKED_ROUTE_MAX_T = 192
 
 
 def pos_bits(t: int) -> int:
@@ -29,10 +38,14 @@ def pos_bits(t: int) -> int:
     return max(1, (t - 1).bit_length())
 
 
-def pack_factor(t: int) -> int:
-    """Rows per block of the packed select (the JAX `_pack_factor`); 1 means
-    the row-per-block K1."""
-    return max(1, _PACK_SLOTS // t)
+def packed_layout(t: int) -> Tuple[int, int]:
+    """The packed kernel's layout for rows of `t` slots, as
+    csrc/fake_select.cu chooses and checks it -> (slots a lane holds in
+    registers, rows a block). A warp owns a row; lane l holds slots l,
+    l + 32, ..."""
+    if not 1 <= t <= PACKED_MAX_T:
+        raise ValueError(f"fake_select_packed: takes 1 <= T <= {PACKED_MAX_T}, got {t}")
+    return -(-t // 32), PACKED_WARPS
 
 
 def _select_sort(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -71,18 +84,17 @@ def _launch(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch
 
 def _launch_packed(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     rows, t_len = bits.shape
-    if not (rows >= 1 and 1 <= t_len <= _PACK_SLOTS // 2):
-        raise ValueError(f"fake_select_packed: takes 1 <= T <= {_PACK_SLOTS // 2} and "
-                         f">= 1 row, got ({rows}, {t_len})")
-    g = pack_factor(t_len)
+    if rows < 1:
+        raise ValueError(f"fake_select_packed: takes >= 1 row, got ({rows}, {t_len})")
+    slots, warps = packed_layout(t_len)
     cb.check("fake_select_packed bits", bits, torch.int32)
     cb.check("fake_select_packed n_valid", n_valid, torch.int32, (rows,))
     cb.check("fake_select_packed k", k, torch.int32, (rows,))
     out = torch.empty((rows, t_len), dtype=torch.bool, device=bits.device)
-    fn = cb.c_function("fake_select", "dicl_fake_select_packed", 4, 4)
+    fn = cb.c_function("fake_select", "dicl_fake_select_packed", 4, 5)
     cb.raise_on_error("fake_select_packed", fn(
         cb.ptr(bits), cb.ptr(n_valid), cb.ptr(k), cb.ptr(out),
-        rows, t_len, g, pos_bits(t_len), cb.stream_of(bits),
+        rows, t_len, slots, warps, pos_bits(t_len), cb.stream_of(bits),
     ))
     return out
 
@@ -105,6 +117,6 @@ def fake_select_mask(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor,
     b, c, t = bits.shape
     fn = _select_sort
     if use_kernel:
-        fn = fake_select_packed if pack_factor(t) >= 2 else fake_select
+        fn = fake_select_packed if t <= PACKED_ROUTE_MAX_T else fake_select
     sel = fn(bits.reshape(b * c, t), n_valid.reshape(b * c), k.reshape(b * c))
     return sel.reshape(b, c, t)

@@ -13,8 +13,10 @@ cohort, and prints one JSON object with:
     (union of its kernel and copy intervals), its idle share in that window
     and against `step_ms` (the profiler slows the host), the kernels
     launched per step, the kernels that take the most device time, and
-    every kernel of B6/B7 (`csrc/lstm.cu`), for the split of the backward
-    between its recurrence and its dW kernels.
+    every hand-written kernel of `csrc/` (the selects, the SCI forward and
+    backward, the RBF push, and each kernel of B6/B7, for the split of the
+    biLSTM backward between its recurrence and its dW kernels), whatever
+    its rank.
 It needs a CUDA card and raises without one.
 """
 
@@ -27,6 +29,10 @@ from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+
+
+# substrings of the names of the kernels in csrc/*.cu
+HAND_KERNELS = ("fake_select", "sci_", "rbf_", "lstm_")
 
 
 def _sync_ms(fn: Callable) -> float:
@@ -62,7 +68,7 @@ def phase_times(trainer, n: int) -> Dict[str, float]:
 def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
     """Profile `n` calls of `step`: device busy time and idle share over the
     window, kernels per step, the `top` kernels by device time and every
-    kernel of csrc/lstm.cu."""
+    hand-written kernel of csrc/."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -97,7 +103,8 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
         "device_idle_share": 1.0 - busy / wall_us if events else None,
         "device_events_per_step": len(events) / n,
         "top_kernels": [per_step(name, t) for name, t in ranked[:top]],
-        "lstm_kernels": [per_step(name, t) for name, t in ranked if "lstm_" in name],
+        "hand_kernels": [per_step(name, t) for name, t in ranked
+                         if any(k in name for k in HAND_KERNELS)],
     }
 
 

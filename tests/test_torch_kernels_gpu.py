@@ -6,7 +6,8 @@ directory's conftest, so they run on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
 Shapes cover the ragged edges the kernels mask themselves: rows that do not
-fill a block (or a pack of rows), T below and across a warp, R from 1 to 8,
+fill a block (or a block's eight rows of the packed select), T below and
+across a warp, R from 1 to 8,
 rows with k = 0, LSTM batches that do not fill a tile and hidden widths
 whose 4H gate columns do not fill a warp or take two columns a thread. Tolerances: the
 selects are bit-identical; forward values 1e-5 (abs and relative, float32);
@@ -72,16 +73,31 @@ def test_fake_select_bit_identical(dev, t):
     assert torch.equal(got.sum(1).to(torch.int32), args[2])
 
 
-@pytest.mark.parametrize("t", [1, 2, 16, 37, 48, 100, 192])
-def test_fake_select_packed_bit_identical(dev, t):
-    rng = np.random.RandomState(1000 + t)
-    g = cs.pack_factor(t)
-    rows = 3 * g + 1  # the last block holds one row
+# T crosses the packed select's slots a lane (1 to 6 at T <= 32, ..., 192);
+# rows below, at and far above the 8 rows of a block
+@pytest.mark.parametrize("case", ["ragged", "k_zero", "k_all", "no_valid", "all_ties"])
+@pytest.mark.parametrize("rows", [1, 7, 24576])
+@pytest.mark.parametrize("t", [1, 2, 16, 31, 32, 33, 37, 48, 64, 65, 100, 128, 191, 192])
+def test_fake_select_packed_bit_identical(dev, t, rows, case):
+    """Against the sort oracle and K1. `k_all` takes every valid slot,
+    `all_ties` makes every random part equal, so the whole choice is the
+    position-ordered tie fill and no pass ends the search early."""
+    rng = np.random.RandomState(1000 * t + rows)
     n_valid = rng.randint(0, t + 1, size=rows).astype(np.int32)
-    n_valid[:2] = (0, t)  # an empty row and a full row
+    n_valid[:2] = (0, t)[:rows]  # an empty row and a full row
     k = np.where(n_valid > 0, np.maximum(1, n_valid // 2), 0).astype(np.int32)
     bits = rng.randint(0, 2**32, size=(rows, t), dtype=np.uint64).astype(np.uint32)
-    bits[2:5] &= np.uint32(0xC0000000)  # rows of ties in the random part
+    if case == "ragged":
+        bits[2:5] &= np.uint32(0xC0000000)  # rows of ties in the random part
+    elif case == "k_zero":
+        k[:] = 0
+    elif case == "k_all":
+        k = n_valid.copy()
+    elif case == "no_valid":
+        n_valid[:] = 0
+        k[:] = 0
+    else:
+        bits &= np.uint32(0x3)  # below the key's 30 bits: all random parts are 0
     args = [torch.from_numpy(a).to(dev) for a in (bits.view(np.int32), n_valid, k)]
     got = cs.fake_select_packed(*args)
     assert torch.equal(got, cs._select_sort(*args))
@@ -193,6 +209,52 @@ def test_sci_forward_and_backward(dev, rows, t, r):
     only = ci.sci_bwd(x, ts, mask, alpha, ref_t, g, False)
     assert only[:3] == (None, None, None)
     assert torch.equal(only[3], got[3])  # the same sums in the same order
+
+
+def _forward_rows(out, c):
+    """(B, R, 3C) [y | w | yt] -> (rows, 3, R) with row = b*C + c."""
+    b, r, _ = out.shape
+    return out.reshape(b, r, 3, c).permute(0, 3, 2, 1).reshape(b * c, 3, r)
+
+
+# T crosses the layouts of both SCI kernels (a warp a row up to 64, a block a
+# row up to 384, the loop above)
+@pytest.mark.parametrize("r", [1, 6, 8])
+@pytest.mark.parametrize("t", [1, 32, 33, 48, 64, 65, 128, 129, 354, 384, 385, 1024])
+def test_sci_forward_rows(dev, t, r):
+    """Ragged rows, a row with one observed slot and a fully padded row (NaN
+    in both versions, and unseen by the other rows): within 1e-5 of the
+    plain version, and two runs give the same bits."""
+    rows, c, pad, single = 18, 6, 7, 11
+    x, ts, mask = _planes(7 * t + r, rows, t, dev)
+    for a in (x, ts, mask):
+        a[pad] = 0.0
+        a[single, 1:] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    alpha = torch.rand(c, generator=gen, device=dev) + 0.5
+    ref_t = reference_times(r, 6.0, device=dev)
+    got = _forward_rows(ci.sci_fwd(x, ts, mask, alpha, ref_t), c)
+    want = _forward_rows(ci._sci_fwd_plain(x, ts, mask, alpha, ref_t), c)
+    keep = torch.arange(rows, device=dev) != pad
+    torch.testing.assert_close(got[keep], want[keep], rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(got[keep]).all()
+    # one observed slot: both softmaxes put all weight on it
+    torch.testing.assert_close(got[single, 0], x[single, 0].expand(r), rtol=0, atol=0)
+    torch.testing.assert_close(got[single, 2], x[single, 0].expand(r), rtol=0, atol=0)
+    again = _forward_rows(ci.sci_fwd(x, ts, mask, alpha, ref_t), c)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,t", [(1536, 354), (24576, 48)])
+def test_sci_forward_repeats_bit_for_bit(dev, rows, t):
+    x, ts, mask = _planes(t, rows, t, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    alpha = torch.rand(6, generator=gen, device=dev) + 0.5
+    ref_t = reference_times(6, 6.0, device=dev)
+    first = ci.sci_fwd(x, ts, mask, alpha, ref_t)
+    torch.testing.assert_close(first, ci._sci_fwd_plain(x, ts, mask, alpha, ref_t),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(first, ci.sci_fwd(x, ts, mask, alpha, ref_t))
 
 
 @pytest.mark.parametrize("t", [48, 354, 1024])

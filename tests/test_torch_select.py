@@ -6,6 +6,8 @@ and `_select_pallas_packed` (interpreter mode), given the same uint32 bits.
 """
 
 import functools
+import re
+from pathlib import Path
 from unittest import mock
 
 import jax
@@ -71,7 +73,7 @@ def test_select_bit_identical_to_packed_pallas_interpret(rows, t):
     interpret mode, rows not a multiple of the pack factor included."""
     rng = np.random.RandomState(rows * 1000 + t)
     g = ps._pack_factor(t)
-    assert g >= 2 and cuda_select.pack_factor(t) == g
+    assert g >= 2 and t <= cuda_select.PACKED_ROUTE_MAX_T  # packed on both sides
     nv = rng.randint(0, t + 1, size=rows).astype(np.int32)
     nv[:2] = (0, t)  # an empty row and a full row
     k = np.where(nv > 0, np.maximum(1, nv // 2), 0).astype(np.int32)
@@ -91,8 +93,10 @@ def test_select_bit_identical_to_packed_pallas_interpret(rows, t):
                                       (192, "fake_select_packed"), (193, "fake_select"),
                                       (354, "fake_select")])
 def test_select_routes_by_t(monkeypatch, t, kernel):
-    """T <= 192 goes to the packed kernel, longer rows to K1, as the JAX
-    `_select_local` routes on the TPU; `use_kernel=False` to neither."""
+    """T up to the crossover measured on the card (`PACKED_ROUTE_MAX_T`: the
+    packed kernel is the faster one at every row length it takes) goes to the
+    packed kernel, longer rows to K1; `use_kernel=False` to neither."""
+    assert cuda_select.PACKED_ROUTE_MAX_T == 192
     called = []
     for name in ("fake_select", "fake_select_packed"):
         wrapper = getattr(cuda_select, name)
@@ -103,6 +107,46 @@ def test_select_routes_by_t(monkeypatch, t, kernel):
     fake_select_mask(bits, n, n // 2)
     fake_select_mask(bits, n, n // 2, use_kernel=False)
     assert called == [kernel]
+
+
+def _cuda_constant(name):
+    source = Path(cuda_select.__file__).resolve().parent.parent / "csrc" / "fake_select.cu"
+    m = re.search(rf"constexpr int {name} = (\d+);", source.read_text())
+    assert m, f"csrc/fake_select.cu defines no {name}"
+    return int(m.group(1)), source.read_text()
+
+
+@pytest.mark.parametrize("t,slots", [(1, 1), (16, 1), (32, 1), (33, 2), (48, 2), (64, 2),
+                                     (65, 3), (96, 3), (128, 4), (129, 5), (160, 5),
+                                     (161, 6), (192, 6)])
+def test_packed_layout_at_the_boundaries(t, slots):
+    assert cuda_select.packed_layout(t) == (slots, cuda_select.PACKED_WARPS)
+
+
+def test_packed_layout_covers_every_routed_row_length():
+    """Every T that is routed to the packed kernel gets a layout whose held
+    slots cover the row with no idle chunk; longer rows are refused."""
+    assert cuda_select.PACKED_ROUTE_MAX_T <= cuda_select.PACKED_MAX_T
+    for t in range(1, cuda_select.PACKED_MAX_T + 1):
+        slots, warps = cuda_select.packed_layout(t)
+        assert 32 * (slots - 1) < t <= 32 * slots
+        assert 1 <= slots <= cuda_select.PACKED_MAX_SLOTS and warps == cuda_select.PACKED_WARPS
+    for t in (0, cuda_select.PACKED_MAX_T + 1):
+        with pytest.raises(ValueError, match="fake_select_packed"):
+            cuda_select.packed_layout(t)
+
+
+def test_packed_constants_are_the_sources():
+    """The wrapper's constants equal the CUDA source's, and the source
+    instantiates the kernel for every slot count the layout can choose."""
+    warps, text = _cuda_constant("kPackWarps")
+    max_slots, _ = _cuda_constant("kPackMaxSlots")
+    assert (cuda_select.PACKED_WARPS, cuda_select.PACKED_MAX_SLOTS) == (warps, max_slots)
+    assert cuda_select.PACKED_MAX_T == 32 * max_slots
+    chosen = {cuda_select.packed_layout(t)[0] for t in range(1, cuda_select.PACKED_MAX_T + 1)}
+    assert chosen == set(range(1, max_slots + 1))
+    for slots in chosen:
+        assert f"launch_packed<{slots}>" in text, slots
 
 
 @pytest.mark.parametrize("t", [24, 48, 354])
