@@ -28,17 +28,22 @@
 // planes. Each observed slot costs 2R accurate expf, about a third of the
 // time the planes take to read at full bandwidth.
 //
-// Forward design: one warp per row, so every reduction over T is a warp
-// shuffle and a row's sums need no atomics and no second kernel: results do
-// not depend on the run. Lanes stride the row, so loads coalesce. Pass 1
-// takes the per-r maxima (no exp), pass 2 the sums; pass 2 re-reads the row
-// from L1/L2, not device memory.
+// Forward design: the backward's layout and its first two phases (below),
+// without the cotangent pass. A row's team (a warp for T <= 64, a block of
+// 128 threads for T <= 384, a looping block above) reads x, t and mask once
+// into registers, takes the per-r maxima, then computes each logit and each
+// exponential once and adds the four sums of each r; the team's first R
+// threads add the warps' sums in warp order and write the 3R outputs. Every
+// reduction has a fixed order and there are no atomics: two runs give the
+// same bits. (The first port's layout, a warp a row whose lanes stride the
+// row, walked 12 slots of a T = 354 row twice in one serial chain of ~140
+// accurate expf, in too few warps to hide it.)
 //
 // Backward design. What bounds it on the H100 is not the bytes (three
 // planes, 6.5 MB at 1,536 x 354) but a serial chain in too few warps: 2R
 // accurate expf per observed slot and three reductions over the row. So a
 // row gets a team of threads wide enough to hold it in registers, chosen
-// from T by the C entry (`sci_backward_layout` in ops/cuda_interp.py is the
+// from T by the C entry (`sci_row_layout` in ops/cuda_interp.py is the
 // same rule):
 //   T <= 64          one warp a row (4 rows a block), 1 or 2 slots a lane;
 //   64 < T <= 384    one block of 128 threads a row, 1 to 3 slots a thread;
@@ -67,17 +72,6 @@
 namespace {
 
 constexpr float kKappa = 10.0f;
-constexpr int kWarpsPerBlock = 4;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // -alpha (t - ref)^2, rounded step by step as the plain version does:
 // __fmul_rn keeps nvcc from fusing the products into the following add.
@@ -85,93 +79,8 @@ __device__ __forceinline__ float logit(float alpha, float d) {
   return __fmul_rn(-alpha, __fmul_rn(d, d));
 }
 
-// Per-row maxima over observed slots and the four softmax sums of each r.
-template <int R>
-__device__ __forceinline__ void row_sums(const float* __restrict__ xr,
-                                         const float* __restrict__ tr,
-                                         const float* __restrict__ mr, int t_len,
-                                         float alpha, const float (&ref)[R],
-                                         int lane, float (&m)[R], float (&s)[R],
-                                         float (&sx)[R], float (&st)[R],
-                                         float (&stx)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) m[r] = -INFINITY;
-  for (int j = lane; j < t_len; j += 32) {
-    if (mr[j] > 0.0f) {
-      const float tj = tr[j];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float d = tj - ref[r];
-        m[r] = fmaxf(m[r], logit(alpha, d));
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = warp_max(m[r]);
-    s[r] = sx[r] = st[r] = stx[r] = 0.0f;
-  }
-  for (int j = lane; j < t_len; j += 32) {
-    if (mr[j] > 0.0f) {
-      const float tj = tr[j];
-      const float xj = xr[j];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float d = tj - ref[r];
-        const float l = logit(alpha, d);
-        const float e = expf(l - m[r]);
-        const float et = expf(__fmul_rn(kKappa, l) - __fmul_rn(kKappa, m[r]));
-        s[r] += e;
-        sx[r] += e * xj;
-        st[r] += et;
-        stx[r] += et * xj;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    s[r] = warp_sum(s[r]);
-    sx[r] = warp_sum(sx[r]);
-    st[r] = warp_sum(st[r]);
-    stx[r] = warp_sum(stx[r]);
-  }
-}
-
-template <int R>
-__global__ void sci_fwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ t,
-                               const float* __restrict__ mask,
-                               const float* __restrict__ alpha_c,
-                               const float* __restrict__ ref_t,
-                               float* __restrict__ out, int rows, int n_chan,
-                               int t_len) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // the whole warp leaves together
-  const int c = row % n_chan;
-  const int b = row / n_chan;
-  const float alpha = alpha_c[c];
-  float ref[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) ref[r] = ref_t[r];
-  const size_t base = static_cast<size_t>(row) * t_len;
-
-  float m[R], s[R], sx[R], st[R], stx[R];
-  row_sums<R>(x + base, t + base, mask + base, t_len, alpha, ref, lane, m, s,
-              sx, st, stx);
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float* o = out + (static_cast<size_t>(b) * R + r) * 3 * n_chan;
-      o[c] = sx[r] / s[r];
-      o[n_chan + c] = m[r] + logf(s[r]);
-      o[2 * n_chan + c] = stx[r] / st[r];
-    }
-  }
-}
-
-// ------------------------------------------------------------------ backward
-constexpr int kBwdThreads = 128;   // threads per block of the backward
+// --------------------------------------------------- the layout's constants
+constexpr int kBwdThreads = 128;   // threads per block of both kernels
 constexpr int kBwdWarpSlots = 2;   // a warp takes a row of up to 32 * this slots
 constexpr int kBwdBlockSlots = 3;  // a block holds a row of up to kBwdThreads * this slots
 
@@ -231,8 +140,8 @@ __device__ __forceinline__ void team_sync() {
   }
 }
 
-// e = exp(l - m) and et = exp(10 l - 10 m) of one (slot, r), rounded as
-// row_sums rounds them (km = 10 m), added into the four sums of r.
+// e = exp(l - m) and et = exp(10 l - 10 m) of one (slot, r), each product
+// rounded on its own (km = 10 m), added into the four sums of r.
 __device__ __forceinline__ void pair_exp(float alpha, float ref, float tj, float xj, float m,
                                          float km, float& e, float& et, float& s, float& sx,
                                          float& st, float& stx) {
@@ -245,6 +154,140 @@ __device__ __forceinline__ void pair_exp(float alpha, float ref, float tj, float
   stx = fmaf(et, xj, stx);
 }
 
+// ------------------------------------------------------------------- forward
+// W = 1: grid ceil(rows / 4), a warp a row. W = 4: grid rows, a block a row.
+// S > 0: thread `tl` of the row's team holds slots tl, tl + 32 W, ... (S of
+// them, which must cover t_len) in registers. S = 0: it loops over its slots
+// twice. The maxima live in shared memory; the team's first R threads write
+// y, w and yt of their r. The backward below repeats phases 1 and 2.
+template <int R, int W, int S>
+__global__ void __launch_bounds__(kBwdThreads) sci_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ t, const float* __restrict__ mask,
+    const float* __restrict__ alpha_c, const float* __restrict__ ref_t, float* __restrict__ out,
+    int rows, int n_chan, int t_len) {
+  constexpr int kTeam = 32 * W;
+  constexpr int kTeams = kBwdThreads / kTeam;  // rows a block
+  constexpr int kHeld = S > 0 ? S : 1;
+  constexpr int PM = ceil_pow2(R);
+  constexpr int PS = ceil_pow2(4 * R);
+  __shared__ float red_m[kTeams][W][R];      // each warp's maxima
+  __shared__ float red_s[kTeams][W][4 * R];  // each warp's [s | sx | st | stx]
+  __shared__ float row_m[kTeams][R];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int team = W > 1 ? 0 : warp;
+  const int team_warp = W > 1 ? warp : 0;
+  const int tl = W > 1 ? threadIdx.x : lane;
+  const int row = W > 1 ? blockIdx.x : blockIdx.x * kTeams + warp;
+  if (row >= rows) return;  // W = 1: the whole warp leaves together; W > 1: no block does
+  const int c = row % n_chan;
+  const int b = row / n_chan;
+  const float alpha = alpha_c[c];
+  float ref[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) ref[r] = ref_t[r];
+  const size_t base = static_cast<size_t>(row) * t_len;
+  const float* xr = x + base;
+  const float* tr = t + base;
+  const float* mr = mask + base;
+
+  // the held slots, read once
+  float xs[kHeld], ts[kHeld];
+  bool obs[kHeld];
+  if constexpr (S > 0) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int j = tl + i * kTeam;
+      const bool in = j < t_len;
+      obs[i] = in && mr[j] > 0.0f;
+      xs[i] = in ? xr[j] : 0.0f;
+      ts[i] = in ? tr[j] : 0.0f;
+    }
+  }
+
+  // 1. the per-r maxima over observed slots
+  float m[PM];
+#pragma unroll
+  for (int r = 0; r < PM; ++r) m[r] = -INFINITY;
+  if constexpr (S > 0) {
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      if (obs[i]) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) m[r] = fmaxf(m[r], logit(alpha, ts[i] - ref[r]));
+      }
+    }
+  } else {
+    for (int j = tl; j < t_len; j += kTeam) {
+      if (mr[j] > 0.0f) {
+        const float tj = tr[j];
+#pragma unroll
+        for (int r = 0; r < R; ++r) m[r] = fmaxf(m[r], logit(alpha, tj - ref[r]));
+      }
+    }
+  }
+  warp_reduce_to<PM>(m, R, red_m[team][team_warp], lane,
+                     [](float a, float v) { return fmaxf(a, v); });
+  team_sync<W>();
+  if (tl < R) {
+    float a = red_m[team][0][tl];
+#pragma unroll
+    for (int w = 1; w < W; ++w) a = fmaxf(a, red_m[team][w][tl]);
+    row_m[team][tl] = a;
+  }
+  team_sync<W>();
+
+  // 2. each exponential once, and the four sums of each r
+  float sums[PS];  // [s | sx | st | stx], each R wide
+#pragma unroll
+  for (int i = 0; i < PS; ++i) sums[i] = 0.0f;
+  float e, et;  // not kept: the forward has no third pass
+  if constexpr (S > 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float m_r = row_m[team][r];
+      const float km_r = __fmul_rn(kKappa, m_r);
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        if (obs[i]) {
+          pair_exp(alpha, ref[r], ts[i], xs[i], m_r, km_r, e, et, sums[r], sums[R + r],
+                   sums[2 * R + r], sums[3 * R + r]);
+        }
+      }
+    }
+  } else {
+    for (int j = tl; j < t_len; j += kTeam) {
+      if (mr[j] > 0.0f) {
+        const float tj = tr[j];
+        const float xj = xr[j];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float m_r = row_m[team][r];
+          pair_exp(alpha, ref[r], tj, xj, m_r, __fmul_rn(kKappa, m_r), e, et, sums[r],
+                   sums[R + r], sums[2 * R + r], sums[3 * R + r]);
+        }
+      }
+    }
+  }
+  warp_reduce_to<PS>(sums, 4 * R, red_s[team][team_warp], lane,
+                     [](float a, float v) { return a + v; });
+  team_sync<W>();
+  if (tl < R) {
+    float tot[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      tot[q] = red_s[team][0][q * R + tl];
+#pragma unroll
+      for (int w = 1; w < W; ++w) tot[q] += red_s[team][w][q * R + tl];
+    }
+    float* o = out + (static_cast<size_t>(b) * R + tl) * 3 * n_chan;
+    o[c] = tot[1] / tot[0];
+    o[n_chan + c] = row_m[team][tl] + logf(tot[0]);
+    o[2 * n_chan + c] = tot[3] / tot[2];
+  }
+}
+
+// ------------------------------------------------------------------ backward
 // What the cotangent pass knows of the row for one r: the reciprocals of
 // the two softmax sums, y, yt and the output cotangent.
 struct RefTerms {
@@ -483,9 +526,9 @@ __global__ void __launch_bounds__(kBwdThreads) sci_bwd_kernel(
   }
 }
 
-// The layout of the backward for rows of t_len slots: warps a row and slots
+// The layout of both kernels for rows of t_len slots: warps a row and slots
 // a thread holds in registers (0: it loops).
-inline void bwd_layout(int t_len, int& warps, int& slots) {
+inline void row_layout(int t_len, int& warps, int& slots) {
   if (t_len <= 32 * kBwdWarpSlots) {
     warps = 1;
     slots = (t_len + 31) / 32;
@@ -502,7 +545,7 @@ inline void launch_bwd(int rows, cudaStream_t s, Args... args) {
       args...);
 }
 
-// The kernel of the layout (warps, slots), as bwd_layout chose it.
+// The kernel of the layout (warps, slots), as row_layout chose it.
 template <int R, class... Args>
 inline void launch_bwd_layout(int warps, int slots, Args... args) {
   if (warps == 1) {
@@ -518,10 +561,28 @@ inline void launch_bwd_layout(int warps, int slots, Args... args) {
   }
 }
 static_assert(kBwdThreads == 4 * 32 && kBwdWarpSlots == 2 && kBwdBlockSlots == 3,
-              "launch_bwd_layout names every layout bwd_layout can choose");
+              "launch_bwd_layout and launch_fwd_layout name every layout row_layout can choose");
 
-inline dim3 grid_for(int rows) {
-  return dim3((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+template <int R, int W, int S, class... Args>
+inline void launch_fwd(int rows, cudaStream_t s, Args... args) {
+  const int rows_per_block = kBwdThreads / (32 * W);
+  sci_fwd_kernel<R, W, S><<<(rows + rows_per_block - 1) / rows_per_block, kBwdThreads, 0, s>>>(
+      args...);
+}
+
+template <int R, class... Args>
+inline void launch_fwd_layout(int warps, int slots, Args... args) {
+  if (warps == 1) {
+    if (slots == 1) launch_fwd<R, 1, 1>(args...); else launch_fwd<R, 1, 2>(args...);
+  } else if (slots == 1) {
+    launch_fwd<R, 4, 1>(args...);
+  } else if (slots == 2) {
+    launch_fwd<R, 4, 2>(args...);
+  } else if (slots == 3) {
+    launch_fwd<R, 4, 3>(args...);
+  } else {
+    launch_fwd<R, 4, 0>(args...);
+  }
 }
 
 }  // namespace
@@ -540,25 +601,29 @@ inline dim3 grid_for(int rows) {
   }
 
 // x, t, mask: (rows, t_len) float32; alpha: (n_chan,); ref_t: (R,);
-// out: (rows / n_chan, R, 3 n_chan). Returns cudaGetLastError().
+// out: (rows / n_chan, R, 3 n_chan). `warps` and `slots` are the wrapper's
+// layout (`sci_row_layout` in ops/cuda_interp.py) and must be this file's for
+// t_len. Returns cudaGetLastError().
 extern "C" int dicl_sci_fwd(const void* x, const void* t, const void* mask,
                             const void* alpha, const void* ref_t, void* out,
                             int rows, int n_chan, int t_len, int ref_points,
-                            void* stream) {
+                            int warps, int slots, void* stream) {
   if (rows < 1 || n_chan < 1 || t_len < 1) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
+  int want_warps, want_slots;
+  row_layout(t_len, want_warps, want_slots);
+  if (warps != want_warps || slots != want_slots) return cudaErrorInvalidValue;
   DICL_SWITCH_R(ref_points,
-    sci_fwd_kernel<R><<<grid_for(rows), 32 * kWarpsPerBlock, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(t),
-        static_cast<const float*>(mask), static_cast<const float*>(alpha),
-        static_cast<const float*>(ref_t), static_cast<float*>(out), rows,
-        n_chan, t_len))
+    launch_fwd_layout<R>(
+        warps, slots, rows, static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
+        static_cast<const float*>(t), static_cast<const float*>(mask),
+        static_cast<const float*>(alpha), static_cast<const float*>(ref_t),
+        static_cast<float*>(out), rows, n_chan, t_len))
   return static_cast<int>(cudaGetLastError());
 }
 
 // As dicl_sci_fwd plus g: (rows / n_chan, R, 3 n_chan) cotangent. dx, dt, dm
 // ((rows, t_len)) may all be null, then only dalpha ((rows,)) is written.
-// `warps` and `slots` are the wrapper's layout (`sci_backward_layout` in
+// `warps` and `slots` are the wrapper's layout (`sci_row_layout` in
 // ops/cuda_interp.py) and must be this file's for t_len.
 extern "C" int dicl_sci_bwd(const void* x, const void* t, const void* mask,
                             const void* alpha, const void* ref_t, const void* g,
@@ -570,7 +635,7 @@ extern "C" int dicl_sci_bwd(const void* x, const void* t, const void* mask,
     return cudaErrorInvalidValue;
   }
   int want_warps, want_slots;
-  bwd_layout(t_len, want_warps, want_slots);
+  row_layout(t_len, want_warps, want_slots);
   if (warps != want_warps || slots != want_slots) return cudaErrorInvalidValue;
   DICL_SWITCH_R(ref_points,
     launch_bwd_layout<R>(

@@ -30,7 +30,7 @@ from .rbf import RBF_NORM_EPS
 
 _MAX_REF_POINTS = 8  # the kernels unroll R up to this
 
-# K3's layout; the constants are csrc/sci.cu's.
+# The layout of K2 and K3; the constants are csrc/sci.cu's.
 SCI_BWD_THREADS = 128  # kBwdThreads: threads per block
 SCI_BWD_WARP_SLOTS = 2  # kBwdWarpSlots: a warp takes a row of up to 32 x this slots
 SCI_BWD_BLOCK_SLOTS = 3  # kBwdBlockSlots: a block holds a row of up to 128 x this slots
@@ -142,26 +142,31 @@ def _sci_fwd_launch(x, t, mask, alpha, ref_t):
     rows, t_len, r = _check_rows("sci_fwd", x, n_chan, ref_t, t, mask)
     cb.check("sci_fwd alpha", alpha, torch.float32, (n_chan,))
     out = torch.empty((rows // n_chan, r, 3 * n_chan), dtype=x.dtype, device=x.device)
-    fn = cb.c_function("sci", "dicl_sci_fwd", 6, 4)
+    warps, slots = sci_row_layout(t_len)
+    fn = cb.c_function("sci", "dicl_sci_fwd", 6, 6)
     cb.raise_on_error("sci_fwd", fn(
         cb.ptr(x), cb.ptr(t), cb.ptr(mask), cb.ptr(alpha), cb.ptr(ref_t),
-        cb.ptr(out), rows, n_chan, t_len, r, cb.stream_of(x),
+        cb.ptr(out), rows, n_chan, t_len, r, warps, slots, cb.stream_of(x),
     ))
     return out
 
 
-def sci_backward_layout(t_len: int) -> Tuple[int, int]:
-    """K3's layout for rows of `t_len` slots, as csrc/sci.cu chooses and
-    checks it -> (warps a row, slots a thread keeps in registers). A warp
-    takes a short row (four rows a block); a block of SCI_BWD_THREADS
-    threads takes a longer one; each thread holds its slots' x, t, mask and
-    exponentials in registers. 0 slots: the row is too long for that, and
-    the block loops over it and recomputes the exponentials."""
+def sci_row_layout(t_len: int) -> Tuple[int, int]:
+    """The layout of K2 and K3 for rows of `t_len` slots, as csrc/sci.cu
+    chooses and checks it -> (warps a row, slots a thread keeps in
+    registers). A warp takes a short row (four rows a block); a block of
+    SCI_BWD_THREADS threads takes a longer one; each thread holds its slots'
+    x, t and mask (K3: and exponentials) in registers. 0 slots: the row is
+    too long for that, and the block loops over it (K3 recomputes the
+    exponentials)."""
     if t_len <= 32 * SCI_BWD_WARP_SLOTS:
         return 1, -(-t_len // 32)
     if t_len <= SCI_BWD_THREADS * SCI_BWD_BLOCK_SLOTS:
         return SCI_BWD_THREADS // 32, -(-t_len // SCI_BWD_THREADS)
     return SCI_BWD_THREADS // 32, 0
+
+
+sci_forward_layout = sci_backward_layout = sci_row_layout  # one rule for both kernels
 
 
 def _sci_bwd_launch(x, t, mask, alpha, ref_t, g, need_planes: bool):
@@ -173,7 +178,7 @@ def _sci_bwd_launch(x, t, mask, alpha, ref_t, g, need_planes: bool):
     dx = dt = dm = None
     if need_planes:
         dx, dt, dm = (torch.empty_like(x) for _ in range(3))
-    warps, slots = sci_backward_layout(t_len)
+    warps, slots = sci_row_layout(t_len)
     fn = cb.c_function("sci", "dicl_sci_bwd", 10, 6)
     cb.raise_on_error("sci_bwd", fn(
         cb.ptr(x), cb.ptr(t), cb.ptr(mask), cb.ptr(alpha), cb.ptr(ref_t),

@@ -1,7 +1,8 @@
-"""The layout of the SCI backward kernel B4 (`ops/cuda_interp.py::
-sci_backward_layout`), checked on the CPU: the kernel itself runs only on
-the card (tests/test_torch_kernels_gpu.py), but which of its layouts a row
-length gets is plain integer arithmetic that the C entry checks again.
+"""The layout of the SCI kernels B3 and B4 (`ops/cuda_interp.py::
+sci_row_layout`, one rule for the forward and the backward), checked on the
+CPU: the kernels themselves run only on the card
+(tests/test_torch_kernels_gpu.py), but which of their layouts a row length
+gets is plain integer arithmetic that the C entries check again.
 
 - a row of up to 64 slots gets a warp, a longer one a block of 128 threads;
 - the slots a thread holds in registers cover the row, and a row too long
@@ -9,7 +10,7 @@ length gets is plain integer arithmetic that the C entry checks again.
 - the main path's T=354 gets a block with three slots a thread, the scaled
   path's T=48 a warp with two;
 - the wrapper's constants are the CUDA source's, and the source
-  instantiates every layout the rule can choose.
+  instantiates every layout the rule can choose, for both kernels.
 """
 
 import re
@@ -61,3 +62,22 @@ def test_source_instantiates_every_layout():
     assert layouts == {(1, 1), (1, 2), (4, 1), (4, 2), (4, 3), (4, 0)}
     for warps, slots in layouts:
         assert f"launch_bwd<R, {warps}, {slots}>" in text, (warps, slots)
+
+
+@pytest.mark.parametrize("t,want", [
+    (1, (1, 1)), (32, (1, 1)), (33, (1, 2)), (64, (1, 2)), (65, (4, 1)), (128, (4, 1)),
+    (129, (4, 2)), (384, (4, 3)), (385, (4, 0)), (1024, (4, 0))])
+def test_forward_layout_at_the_boundaries(t, want):
+    assert ci.sci_forward_layout(t) == want
+
+
+def test_forward_and_backward_share_one_rule():
+    assert ci.sci_forward_layout is ci.sci_row_layout is ci.sci_backward_layout
+
+
+def test_source_instantiates_every_forward_layout():
+    text = SOURCE.read_text()
+    for warps, slots in {ci.sci_forward_layout(t) for t in range(1, 2049)}:
+        assert f"launch_fwd<R, {warps}, {slots}>" in text, (warps, slots)
+    # both C entries check the wrapper's layout against the source's rule
+    assert text.count("row_layout(t_len, want_warps, want_slots);") == 2
