@@ -28,37 +28,32 @@
 // planes. Each observed slot costs 2R accurate expf, about a third of the
 // time the planes take to read at full bandwidth.
 //
-// Forward design: the backward's layout and its first two phases (below),
-// without the cotangent pass. A row's team (a warp for T <= 64, a block of
-// 128 threads for T <= 384, a looping block above) reads x, t and mask once
-// into registers, takes the per-r maxima, then computes each logit and each
-// exponential once and adds the four sums of each r; the team's first R
-// threads add the warps' sums in warp order and write the 3R outputs. Every
-// reduction has a fixed order and there are no atomics: two runs give the
-// same bits. (The first port's layout, a warp a row whose lanes stride the
-// row, walked 12 slots of a T = 354 row twice in one serial chain of ~140
-// accurate expf, in too few warps to hide it.)
-//
-// Backward design. What bounds it on the H100 is not the bytes (three
-// planes, 6.5 MB at 1,536 x 354) but a serial chain in too few warps: 2R
-// accurate expf per observed slot and three reductions over the row. So a
+// Design of both kernels. What bounds them on the H100 is not the bytes
+// (three planes, 6.5 MB at 1,536 x 354) but a serial chain in too few warps:
+// 2R accurate expf per observed slot and the reductions over the row. So a
 // row gets a team of threads wide enough to hold it in registers, chosen
-// from T by the C entry (`sci_row_layout` in ops/cuda_interp.py is the
+// from T by the C entries (`sci_row_layout` in ops/cuda_interp.py is the
 // same rule):
 //   T <= 64          one warp a row (4 rows a block), 1 or 2 slots a lane;
 //   64 < T <= 384    one block of 128 threads a row, 1 to 3 slots a thread;
-//   T > 384          one block a row that loops over the row and recomputes.
+//   T > 384          one block a row that loops over the row.
 // Each thread reads its slots' x, t and mask once from device memory and
-// keeps them; after the maxima it computes e = exp(l - m) and et = exp(10 l
-// - 10 m) once per (slot, r) and keeps them for the cotangent pass, where p
+// keeps them. Phase 1 takes the per-r maxima; phase 2 computes e = exp(l - m)
+// and et = exp(10 l - 10 m) once per (slot, r) and adds the four sums of
+// each r. The maxima and the 4R sums are reduced over a warp by shuffles
+// that halve the values a lane carries at each level (31 shuffles for 24
+// sums, not 120), then over a block's four warps in warp order by the
+// team's first R threads. Every reduction has a fixed order and there are no
+// atomics: two runs give the same bits.
+//
+// The forward ends there: the first R threads write y, w and yt of their r.
+//
+// The backward keeps e and et for a third phase, the cotangents, where p
 // and q are e and et times one reciprocal of the row's sums per r (the loop
-// layout recomputes them instead). The maxima, the 4R sums and dalpha are
-// reduced over a warp by shuffles that halve the values a lane carries at
-// each level (31 shuffles for 24 sums, not 120), then over a block's four
-// warps in warp order by the team's first R threads, which leave what the
-// whole row shares (maxima, reciprocals, y, yt, the output cotangent) in
-// shared memory and not in every thread's registers. No atomics: two runs
-// give the same bits, and the dalpha of a call that also writes the planes
+// layout recomputes them instead), and reduces dalpha the same way. What the
+// whole row shares (maxima, reciprocals, y, yt, the output cotangent) lives
+// in shared memory, written by the team's first R threads, and not in every
+// thread's registers. The dalpha of a call that also writes the planes
 // equals that of a call that does not (the same instructions, rounded
 // explicitly).
 // Accurate expf/logf and the logits' step-by-step rounding: the port's 1e-5

@@ -166,9 +166,6 @@ def sci_row_layout(t_len: int) -> Tuple[int, int]:
     return SCI_BWD_THREADS // 32, 0
 
 
-sci_forward_layout = sci_backward_layout = sci_row_layout  # one rule for both kernels
-
-
 def _sci_bwd_launch(x, t, mask, alpha, ref_t, g, need_planes: bool):
     n_chan = alpha.shape[0]
     rows, t_len, r = _check_rows("sci_bwd", x, n_chan, ref_t, t, mask)

@@ -4,7 +4,7 @@ For each (encounter, channel) row it takes exactly k of the first `n_valid`
 slots: the k smallest 30-bit keys, a key being the random high bits of the
 slot's 32-bit draw above the slot position. On a CUDA tensor this is a
 hand-written kernel in `csrc/fake_select.cu`, routed by T: up to
-`PACKED_ROUTE_MAX_T` the packed kernel (`fake_select_packed`: a warp a row,
+`PACKED_MAX_T` the packed kernel (`fake_select_packed`: a warp a row,
 several rows a block, `packed_layout(T)`), above it K1 (`fake_select`, one
 row per block). The plain version of both is the sort oracle
 `_select_sort`, the JAX `_select_xla`. All three are bit-identical.
@@ -27,10 +27,10 @@ _INVALID = 0x7FFFFFFF  # int32 max: sorts after every valid key
 # The packed kernel's layout; the constants are csrc/fake_select.cu's.
 PACKED_WARPS = 8  # kPackWarps: rows a block, a warp each
 PACKED_MAX_SLOTS = 6  # kPackMaxSlots: slots a lane holds at most
-PACKED_MAX_T = 32 * PACKED_MAX_SLOTS  # the longest row the packed kernel takes
-# Rows up to this length go to the packed kernel, longer ones to K1: the
-# crossover measured on the H100 (PERF.md).
-PACKED_ROUTE_MAX_T = 192
+# The longest row the packed kernel takes. Every row it takes is routed to
+# it: measured on an H100 at T = 16, 48, 96 and 192 it is more than twice as
+# fast as K1 on the same rows (PERF.md), so no crossover lies below this.
+PACKED_MAX_T = 32 * PACKED_MAX_SLOTS
 
 
 def pos_bits(t: int) -> int:
@@ -117,6 +117,6 @@ def fake_select_mask(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor,
     b, c, t = bits.shape
     fn = _select_sort
     if use_kernel:
-        fn = fake_select_packed if t <= PACKED_ROUTE_MAX_T else fake_select
+        fn = fake_select_packed if t <= PACKED_MAX_T else fake_select
     sel = fn(bits.reshape(b * c, t), n_valid.reshape(b * c), k.reshape(b * c))
     return sel.reshape(b, c, t)

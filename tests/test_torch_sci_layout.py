@@ -34,12 +34,12 @@ def _cuda_constant(name):
     (128, (4, 1)), (129, (4, 2)), (256, (4, 2)), (257, (4, 3)), (354, (4, 3)), (384, (4, 3)),
     (385, (4, 0)), (1024, (4, 0))])
 def test_layout_at_the_boundaries(t, want):
-    assert ci.sci_backward_layout(t) == want
+    assert ci.sci_row_layout(t) == want
 
 
 def test_held_slots_cover_every_row_length():
     for t in range(1, 2049):
-        warps, slots = ci.sci_backward_layout(t)
+        warps, slots = ci.sci_row_layout(t)
         assert warps in (1, ci.SCI_BWD_THREADS // 32)
         team = 32 * warps
         if slots:
@@ -58,7 +58,7 @@ def test_wrapper_constants_are_the_sources():
 
 def test_source_instantiates_every_layout():
     text = SOURCE.read_text()
-    layouts = {ci.sci_backward_layout(t) for t in range(1, 2049)}
+    layouts = {ci.sci_row_layout(t) for t in range(1, 2049)}
     assert layouts == {(1, 1), (1, 2), (4, 1), (4, 2), (4, 3), (4, 0)}
     for warps, slots in layouts:
         assert f"launch_bwd<R, {warps}, {slots}>" in text, (warps, slots)
@@ -68,16 +68,12 @@ def test_source_instantiates_every_layout():
     (1, (1, 1)), (32, (1, 1)), (33, (1, 2)), (64, (1, 2)), (65, (4, 1)), (128, (4, 1)),
     (129, (4, 2)), (384, (4, 3)), (385, (4, 0)), (1024, (4, 0))])
 def test_forward_layout_at_the_boundaries(t, want):
-    assert ci.sci_forward_layout(t) == want
-
-
-def test_forward_and_backward_share_one_rule():
-    assert ci.sci_forward_layout is ci.sci_row_layout is ci.sci_backward_layout
+    assert ci.sci_row_layout(t) == want
 
 
 def test_source_instantiates_every_forward_layout():
     text = SOURCE.read_text()
-    for warps, slots in {ci.sci_forward_layout(t) for t in range(1, 2049)}:
+    for warps, slots in {ci.sci_row_layout(t) for t in range(1, 2049)}:
         assert f"launch_fwd<R, {warps}, {slots}>" in text, (warps, slots)
     # both C entries check the wrapper's layout against the source's rule
     assert text.count("row_layout(t_len, want_warps, want_slots);") == 2

@@ -73,7 +73,7 @@ def test_select_bit_identical_to_packed_pallas_interpret(rows, t):
     interpret mode, rows not a multiple of the pack factor included."""
     rng = np.random.RandomState(rows * 1000 + t)
     g = ps._pack_factor(t)
-    assert g >= 2 and t <= cuda_select.PACKED_ROUTE_MAX_T  # packed on both sides
+    assert g >= 2 and t <= cuda_select.PACKED_MAX_T  # packed on both sides
     nv = rng.randint(0, t + 1, size=rows).astype(np.int32)
     nv[:2] = (0, t)  # an empty row and a full row
     k = np.where(nv > 0, np.maximum(1, nv // 2), 0).astype(np.int32)
@@ -93,10 +93,10 @@ def test_select_bit_identical_to_packed_pallas_interpret(rows, t):
                                       (192, "fake_select_packed"), (193, "fake_select"),
                                       (354, "fake_select")])
 def test_select_routes_by_t(monkeypatch, t, kernel):
-    """T up to the crossover measured on the card (`PACKED_ROUTE_MAX_T`: the
-    packed kernel is the faster one at every row length it takes) goes to the
-    packed kernel, longer rows to K1; `use_kernel=False` to neither."""
-    assert cuda_select.PACKED_ROUTE_MAX_T == 192
+    """As measured on the card, the packed kernel is the faster one at every
+    row length it takes (`PACKED_MAX_T`), so all of those go to it and
+    longer rows to K1; `use_kernel=False` to neither."""
+    assert cuda_select.PACKED_MAX_T == 192
     called = []
     for name in ("fake_select", "fake_select_packed"):
         wrapper = getattr(cuda_select, name)
@@ -126,7 +126,6 @@ def test_packed_layout_at_the_boundaries(t, slots):
 def test_packed_layout_covers_every_routed_row_length():
     """Every T that is routed to the packed kernel gets a layout whose held
     slots cover the row with no idle chunk; longer rows are refused."""
-    assert cuda_select.PACKED_ROUTE_MAX_T <= cuda_select.PACKED_MAX_T
     for t in range(1, cuda_select.PACKED_MAX_T + 1):
         slots, warps = cuda_select.packed_layout(t)
         assert 32 * (slots - 1) < t <= 32 * slots
