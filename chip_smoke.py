@@ -10,12 +10,14 @@ not 0):
   3. kernels - each kernel against its plain PyTorch version at the p1
                step's shapes (B=256, C=6, T=354, R=6; the biLSTMs at R=6,
                H=128, the encoder's B=512 and the decoder's B=256 with
-               h0/c0; the packed select, the SCI forward and the SCI
-               backward at the scaled B=4096, T=48 too), timed with CUDA
-               events beside a PyTorch library call; the packed select also
-               at T = 16, 96 and 192 beside K1 on the same rows (the routing
-               between the two is read off these); the SCI forward and the
-               biLSTM kernels must repeat bit for bit
+               h0/c0; the packed select, the SCI forward and backward and
+               the RBF push at the scaled B=4096, T=48 too), timed with CUDA
+               events beside a PyTorch library call; the select also at
+               T = 256, 354, 512 and 1024 and the packed select at T = 16,
+               96 and 192 (`by_t`, the select's layouts are read off these);
+               the selects, the SCI forward and the RBF push also on one
+               encounter's rows (`few_rows_ms`, a call's fixed cost); the
+               SCI forward and the biLSTM kernels must repeat bit for bit
   4. main    - the p1 trainer at the default Config width takes 8 steps and
                one eval forward on a synthetic T=354 cohort; the kernels'
                launch counters must show the path went through them
@@ -61,9 +63,10 @@ H = 128  # Config().lstm_hidden
 # that the 100k cohort's training split leaves (70,000 mod 4,096)
 SCALED_B, SCALED_T = 4096, 48
 SCALED_TRAIN = 3 * SCALED_B + 368
-# row lengths at which the packed select is held against K1 and timed beside
-# it, each on enough rows for 2^20 slots
-SELECT_T = (16, 48, 96, 192)
+# row lengths at which the packed select (T <= 192) and the select are held
+# against the sort oracle and timed, each on enough rows for 2^20 slots
+PACKED_T = (16, 48, 96, 192)
+SELECT_T = (256, 354, 512, 1024)
 
 
 def say(phase: str, **kw) -> None:
@@ -196,7 +199,7 @@ def main() -> None:
     f32 = 4
     report = {}
 
-    # K1: bit-identical
+    # B1: bit-identical
     got, want = cs.fake_select(bits, n_valid, k_sel), cs._select_sort(bits, n_valid, k_sel)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
@@ -207,6 +210,8 @@ def main() -> None:
     report["fake_select"] = dict(
         max_abs_err=0.0, tolerance="bit-identical",
         ms=time_ms(lambda: cs.fake_select(bits, n_valid, k_sel)),
+        # one encounter's 6 rows: the launch and one row's chain
+        few_rows_ms=time_ms(lambda: cs.fake_select(bits[:C], n_valid[:C], k_sel[:C])),
         plain_ms=time_ms(lambda: cs._select_sort(bits, n_valid, k_sel)),
         library_ms=time_ms(lambda: torch.sort(bits, dim=-1)),
         # integer work only: the bits in, n_valid and k in, the mask out
@@ -270,6 +275,8 @@ def main() -> None:
     report["rbf_push"] = dict(
         max_abs_err=err, tolerance=1e-5,
         ms=time_ms(lambda: ci.rbf_push_k(t2, m2, proj, beta, ref_t)),
+        # one encounter's 6 rows: the launch and one row's cold loads
+        few_rows_ms=time_ms(lambda: ci.rbf_push_k(t2[:C], m2[:C], proj[:C], beta, ref_t)),
         plain_ms=time_ms(lambda: ci._rbf_plain(t2, m2, proj, beta, ref_t)),
         library_ms=None,
         # per observed slot and r: ~7 float32 operations and 1 expf
@@ -333,42 +340,56 @@ def main() -> None:
     report["sci_forward"]["max_abs_err"] = max(report["sci_forward"]["max_abs_err"], err_s)
     report["sci_forward"]["scaled_ms"] = time_ms(
         lambda: ci.sci_fwd(x_s, t_s, m_s, alpha, ref_t))
-    del sfirst, got, want
+    # B5 at the scaled shape (a warp a row there, a block a row at T=354),
+    # with grid values from a generator of its own
+    proj_s = torch.randn((rows_s, R), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    got = ci.rbf_push_k(t_s, m_s, proj_s, beta, ref_t)
+    err_s = float((got - ci._rbf_plain(t_s, m_s, proj_s, beta, ref_t)).abs().max())
+    if not err_s <= 1e-5:
+        raise AssertionError(f"rbf_push (scaled) max abs err {err_s} > 1e-5")
+    report["rbf_push"]["max_abs_err"] = max(report["rbf_push"]["max_abs_err"], err_s)
+    report["rbf_push"]["scaled_ms"] = time_ms(
+        lambda: ci.rbf_push_k(t_s, m_s, proj_s, beta, ref_t))
+    del sfirst, got, want, proj_s
 
     report["fake_select_packed"] = dict(
         max_abs_err=0.0, tolerance="bit-identical", shape=[rows_s, SCALED_T],
         ms=time_ms(lambda: cs.fake_select_packed(bits_s, nv_s, k_s)),
         plain_ms=time_ms(lambda: cs._select_sort(bits_s, nv_s, k_s)),
         library_ms=time_ms(lambda: torch.sort(bits_s, dim=-1)),
-        # K1 on the same rows: the time the packed kernel has to beat
-        k1_ms=time_ms(lambda: cs.fake_select(bits_s, nv_s, k_s)),
         # one block's 8 rows: the launch and one row's chain
         few_rows_ms=time_ms(lambda: cs.fake_select_packed(bits_s[:8], nv_s[:8], k_s[:8])),
         bytes=rows_s * SCALED_T * (4 + 1) + rows_s * 8, flop=0, expf=0,
     )
-    # B2 beside K1 over the row lengths it is routed at, bit-identical to the
-    # sort oracle and to K1; draws from a generator of its own
+    # both selects over the row lengths they are routed at, bit-identical to
+    # the sort oracle (and the packed one to the other select on its rows);
+    # draws from a generator of its own
     sel_gen = torch.Generator(device=dev).manual_seed(2)
-    by_t = {}
-    for t_sel in SELECT_T:
-        rows_t = C * -(-2**20 // (C * t_sel))
-        nv_t = torch.randint(0, t_sel + 1, (rows_t,), generator=sel_gen, device=dev,
-                             dtype=torch.int32)
-        k_t = torch.where(nv_t > 0, torch.clamp(nv_t // 2, min=1), torch.zeros_like(nv_t))
-        bits_t = draw_bits((rows_t, t_sel), sel_gen, dev)
-        got = cs.fake_select_packed(bits_t, nv_t, k_t)
-        for name, want in (("the sort oracle", cs._select_sort(bits_t, nv_t, k_t)),
-                           ("K1", cs.fake_select(bits_t, nv_t, k_t))):
-            if not torch.equal(got, want):
-                raise AssertionError(f"fake_select_packed at T={t_sel} differs from {name} at "
-                                     f"{int((got != want).sum())} slots")
-        by_t[t_sel] = dict(
-            rows=rows_t, ms=time_ms(lambda: cs.fake_select_packed(bits_t, nv_t, k_t)),
-            k1_ms=time_ms(lambda: cs.fake_select(bits_t, nv_t, k_t)))
-        say("select", T=t_sel, rows=rows_t, packed_ms=f"{by_t[t_sel]['ms']:.4f}",
-            k1_ms=f"{by_t[t_sel]['k1_ms']:.4f}")
-    report["fake_select_packed"]["by_t"] = by_t
-    del got, want, bits_t, nv_t, k_t
+    for name, lengths in (("fake_select_packed", PACKED_T), ("fake_select", SELECT_T)):
+        by_t = {}
+        for t_sel in lengths:
+            rows_t = C * -(-2**20 // (C * t_sel))
+            nv_t = torch.randint(0, t_sel + 1, (rows_t,), generator=sel_gen, device=dev,
+                                 dtype=torch.int32)
+            k_t = torch.where(nv_t > 0, torch.clamp(nv_t // 2, min=1), torch.zeros_like(nv_t))
+            bits_t = draw_bits((rows_t, t_sel), sel_gen, dev)
+            fn = getattr(cs, name)
+            got = fn(bits_t, nv_t, k_t)
+            wants = [("the sort oracle", cs._select_sort(bits_t, nv_t, k_t))]
+            if name == "fake_select_packed":
+                wants.append(("fake_select", cs.fake_select(bits_t, nv_t, k_t)))
+            for other, want in wants:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} at T={t_sel} differs from {other} at "
+                                         f"{int((got != want).sum())} slots")
+            by_t[t_sel] = dict(
+                rows=rows_t, ms=time_ms(lambda: fn(bits_t, nv_t, k_t)),
+                bound_ms=bound(rows_t * t_sel * (4 + 1) + rows_t * 8, 0, 0)[0])
+            say("select", kernel=name, T=t_sel, rows=rows_t, ms=f"{by_t[t_sel]['ms']:.4f}",
+                bound_ms=f"{by_t[t_sel]['bound_ms']:.4f}")
+        report[name]["by_t"] = by_t
+    del got, want, wants, bits_t, nv_t, k_t
 
     # B6/B7 at the encoder's shape (real+fake batched, B = 2 x 256, no
     # state) and the decoder's (B = 256, seeded with h0/c0)
@@ -474,7 +495,7 @@ def main() -> None:
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
             library_ms=None if r["library_ms"] is None else f"{r['library_ms']:.4f}",
-            **{k: f"{r[k]:.4f}" for k in ("k1_ms", "decoder_ms", "scaled_ms", "few_rows_ms")
+            **{k: f"{r[k]:.4f}" for k in ("decoder_ms", "scaled_ms", "few_rows_ms")
                if k in r})
 
     # ------------------------------------------------------------ 4. main path
@@ -595,7 +616,7 @@ def main() -> None:
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("k1_ms", "by_t", "few_rows_ms", "decoder_ms", "scaled_ms", "shape",
+            **{k: r[k] for k in ("by_t", "few_rows_ms", "decoder_ms", "scaled_ms", "shape",
                                  "library")
                if k in r},
         })

@@ -1,50 +1,49 @@
 // Exact-k fake-sample select for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `_select_kernel` (called by `_select_pallas`)
-// in deep_interpolation_clustering_tpu/ops/pallas_select.py. For each
-// (encounter, channel) row it marks the k slots with the smallest 30-bit keys
-// among the first n_valid slots, where a key is the random high bits of
-// `bits` above the slot position. The mask is bit-identical to the sort
-// oracle `_select_xla` (and to the port's plain version, cuda_select.py).
+// Replaces the Pallas TPU kernels `_select_kernel` (called by `_select_pallas`)
+// and `_select_kernel_packed` (called by `_select_pallas_packed`, T <= 192) in
+// deep_interpolation_clustering_tpu/ops/pallas_select.py. Both are instances
+// of the one template below; ops/cuda_select.py wraps them as `fake_select`
+// and `fake_select_packed`, each with its own launch count. For each
+// (encounter, channel) row the kernel marks the k slots with the smallest
+// 30-bit keys among the first n_valid slots, where a key is the random high
+// bits of `bits` above the slot position. The mask is bit-identical to the
+// sort oracle `_select_xla` (and to the port's plain version, cuda_select.py).
 //
-// Bound on the H100: memory. Per row it reads T 32-bit words and writes T
-// bytes; the 21 radix passes at T=354 are block-wide counts on values held
-// in registers, a few hundred integer operations per slot, far below the
-// card's integer rate.
+// Bound on the H100: memory. A row is T 32-bit words in and T bytes out; the
+// radix passes are integer work on values held in registers, far below the
+// card's integer rate. The first kernel (one block a row, a thread a slot)
+// was held back by the passes, not the bytes: each of the 30 - p passes (21 at
+// T = 354) was a block-wide `__syncthreads_count`, and all of them ran. The
+// TPU kernels' layout devices (rows packed into 128 lanes, 0/1 matmuls that
+// count segments, a triangular matmul for the tie fill) do not carry over.
 //
-// Design: one block per row, one thread per slot (T <= 1024, blockDim is T
-// rounded up to a warp). The random part of each slot's key stays in a
-// register for the whole select, so the row is read from memory once.
-//   1. A one-bit-per-pass MSD radix select over the 30-p random bits finds
-//      v*, the k-th smallest random part; each pass is one
-//      `__syncthreads_count`.
-//   2. Every slot with rand < v* is taken; the `k - count(rand < v*)` ties
-//      at v* are filled in position order with a block prefix count (warp
-//      `__ballot_sync`/`__popc` plus per-warp totals in shared memory).
-// Position-ordered tie fill equals (rand, pos)-lexicographic order, which is
-// what thresholding the packed keys does. Rows with k = 0 select nothing.
-//
-// The packed entry `dicl_fake_select_packed` replaces `_select_kernel_packed`
-// (called by `_select_pallas_packed`), the TPU kernel for T <= 192. There
-// `g = 384 // T` rows share one 128-lane row and 0/1 matmuls count per
-// segment: layout devices of the TPU. What carries over is only that a short
-// row must not cost a block of its own. Its bound is the same: memory.
-//
-// Design: a warp owns a row, eight rows a block. Lane l holds the random
-// parts of slots l, l + 32, ... in registers (S = ceil(T / 32) <= 6 of them,
-// a template parameter; the loads coalesce), so a radix pass is S
-// `__ballot_sync` + `__popc` and one compare: no barrier, no shared memory,
-// and the count is taken once, not by every thread. At the scaled
-// configuration (24,576 rows of T = 48) that is 24,576 independent warps.
-// Since no other row waits on it, a warp also stops as soon as a pass counts
-// exactly k slots at or below its threshold: those slots are the answer, and
-// with random keys that happens after about log2(n_valid) + 2 of the 30 - p
-// passes. Otherwise (ties in the random part at the k-th key) it runs every
-// pass and fills the ties in position order: chunk by chunk, then the lanes
-// below. No atomics; the mask is bit-identical to K1's.
+// Design: a row belongs to a team of W warps, the fewest of 1, 2 or 4 that
+// keep a lane to kLaneSlots = 6 slots, chosen from T by the C entry
+// (`select_layout` in ops/cuda_select.py is the same rule):
+//   T <= 192          a warp a row, kWarpRows = 8 rows a block, 1-6 slots a lane;
+//   192 < T <= 384    2 warps a row, one row a block, 4-6 slots a lane;
+//   384 < T <= 1024   4 warps a row, one row a block, 4-8 slots a lane.
+// Measured on the H100 (PERF.md), a warp a row with up to 32 slots a lane
+// loses to these teams at every T above 192: a pass costs a barrier in a
+// team, but S ballots in a row's one warp, and a long row gives few warps.
+// Warp w of the team holds the S x 32 consecutive slots from 32 S w on, lane
+// l the slots 32 S w + l + 32 i, i < S (S = ceil(T / 32 W), a template
+// parameter): read once, coalesced, and kept in registers. A radix pass
+// counts the slots at or below a threshold: S `__ballot_sync` + `__popc` in
+// each warp and, with W > 1, the warps' counts added through shared memory
+// behind one barrier (the two halves of the count buffer alternate, so the
+// next pass can write before anyone reads again). Every warp of a team reads
+// the same total and takes the same branch. A row stops at the first pass
+// that counts exactly k slots at or below its threshold: those are the k
+// smallest whatever the ties, and with random keys that happens after about
+// log2(n_valid) + 2 of the 30 - p passes. Otherwise (ties in the random part
+// at the k-th key) it runs every pass and fills the ties in position order:
+// the warps below, the chunks below, then the lanes below. No atomics.
 
 #include <climits>
 #include <cstdint>
+#include <utility>
 
 #include <cuda_runtime.h>
 
@@ -52,85 +51,80 @@ namespace {
 
 constexpr int kKeyBits = 30;
 
-__global__ void fake_select_kernel(const uint32_t* __restrict__ bits,
-                                   const int32_t* __restrict__ n_valid,
-                                   const int32_t* __restrict__ k_sel,
-                                   bool* __restrict__ out, int t_len,
-                                   int pos_bits) {
-  __shared__ int warp_ties[32];
-  const int row = blockIdx.x;
-  const int pos = threadIdx.x;
-  const int nv = n_valid[row];
-  const int k = k_sel[row];
-  const int nbits = kKeyBits - pos_bits;
-  const size_t base = static_cast<size_t>(row) * t_len;
+// --------------------------------------------------- the layout's constants
+constexpr int kMaxT = 1024;    // the longest row the kernel takes
+constexpr int kLaneSlots = 6;  // a row takes the fewest warps that keep a lane to this many slots
+constexpr int kMaxWarps = 4;   // ... but no more warps than this (one row a block above 1)
+constexpr int kWarpRows = 8;   // rows a block when a warp owns a row
+// slots a lane at most with the most warps
+constexpr int kTopSlots = (kMaxT + 32 * kMaxWarps - 1) / (32 * kMaxWarps);
 
-  // logical shift of the uint32 pattern; invalid and out-of-row slots get
-  // INT_MAX, above every random part (< 2^nbits)
-  int rand = INT_MAX;
-  if (pos < t_len && pos < nv) {
-    rand = static_cast<int>(bits[base + pos] >> (32 - kKeyBits + pos_bits));
-  }
-
-  // smallest v with count(rand <= v) >= k, one answer bit per pass
-  int prefix = 0;
-  for (int b = nbits - 1; b >= 0; --b) {
-    const int bit = 1 << b;
-    const int c0 = __syncthreads_count(rand <= prefix + (bit - 1));
-    if (c0 < k) prefix += bit;
-  }
-  const bool lt = rand < prefix;
-  const bool eq = rand == prefix;
-  const int need = k - __syncthreads_count(lt);
-
-  // inclusive count of ties up to this slot, in position order
-  const int lane = pos & 31;
-  const int warp = pos >> 5;
-  const unsigned ties = __ballot_sync(0xffffffffu, eq);
-  if (lane == 0) warp_ties[warp] = __popc(ties);
+// The team's warps add one count each through shared memory: one barrier,
+// and `half` alternates so that a warp running ahead writes the half no
+// warp still reads. Returns the sum over the warps below `warp`; `total`
+// gets the sum over all of them.
+template <int W>
+__device__ __forceinline__ int team_add(int n, int (&buf)[2][W], int& half, int lane, int warp,
+                                        int& total) {
+  if (lane == 0) buf[half][warp] = n;
   __syncthreads();
-  int csum = __popc(ties & (0xffffffffu >> (31 - lane)));
-  for (int w = 0; w < warp; ++w) csum += warp_ties[w];
-
-  if (pos < t_len) {
-    out[base + pos] = k > 0 && (lt || (eq && csum <= need));
+  int below = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int c = buf[half][w];
+    total += c;
+    below += w < warp ? c : 0;
   }
+  half ^= 1;
+  return below;
 }
 
-constexpr int kPackWarps = 8;     // rows a block of the packed select, a warp each
-constexpr int kPackMaxSlots = 6;  // slots a lane holds at most: T <= 32 * this
-
-// Set bits of the S ballots of `pred(i)`, i < S: a count over the warp's row.
+// Set bits of the S ballots of `pred(i)`, i < S, over the warp's slots.
 template <int S, class Pred>
-__device__ __forceinline__ int row_count(Pred pred) {
+__device__ __forceinline__ int warp_count(Pred pred) {
   int n = 0;
 #pragma unroll
   for (int i = 0; i < S; ++i) n += __popc(__ballot_sync(0xffffffffu, pred(i)));
   return n;
 }
 
-// A warp a row; lane l holds slots l + 32 i, i < S, with 32 S >= t_len.
-template <int S>
-__global__ void __launch_bounds__(32 * kPackWarps) fake_select_packed_kernel(
+// The count of `pred` over the row: the warp's, then the team's.
+template <int S, int W, class Pred>
+__device__ __forceinline__ int row_count(Pred pred, int (&buf)[2][W], int& half, int lane,
+                                         int warp) {
+  int n = warp_count<S>(pred);
+  if constexpr (W > 1) team_add<W>(n, buf, half, lane, warp, n);
+  return n;
+}
+
+// S slots a lane, W warps a row, ROWS rows a block (ROWS = 1 when W > 1).
+template <int S, int W, int ROWS>
+__global__ void __launch_bounds__(32 * W * ROWS) fake_select_kernel(
     const uint32_t* __restrict__ bits, const int32_t* __restrict__ n_valid,
     const int32_t* __restrict__ k_sel, bool* __restrict__ out, int rows, int t_len,
     int pos_bits) {
+  static_assert(W == 1 || ROWS == 1, "a team of warps owns its block");
+  __shared__ int buf[2][W];  // W > 1: each warp's count of a pass
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kPackWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
+  const int warp = W > 1 ? threadIdx.x >> 5 : 0;  // the warp's place in the team
+  const int row = W > 1 ? blockIdx.x : blockIdx.x * ROWS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // W = 1: the whole warp leaves together; W > 1: never
+  int half = 0;
   const int nv = n_valid[row];
   const int k = k_sel[row];
   const int nbits = kKeyBits - pos_bits;
-  const size_t base = static_cast<size_t>(row) * t_len;
+  const size_t base = static_cast<size_t>(row) * t_len + 32 * S * warp + lane;
+  const int first = 32 * S * warp + lane;  // this lane's first slot
 
   // invalid and out-of-row slots get INT_MAX, above every random part
   int rand[S];
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const int pos = lane + 32 * i;
+    const int pos = first + 32 * i;
     rand[i] = INT_MAX;
     if (pos < t_len && pos < nv) {
-      rand[i] = static_cast<int>(bits[base + pos] >> (32 - kKeyBits + pos_bits));
+      rand[i] = static_cast<int>(bits[base + 32 * i] >> (32 - kKeyBits + pos_bits));
     }
   }
 
@@ -141,7 +135,7 @@ __global__ void __launch_bounds__(32 * kPackWarps) fake_select_packed_kernel(
   if (exact) prefix = -1;
   for (int b = nbits - 1; b >= 0 && !exact; --b) {
     const int thr = prefix + ((1 << b) - 1);
-    const int c0 = row_count<S>([&](int i) { return rand[i] <= thr; });
+    const int c0 = row_count<S, W>([&](int i) { return rand[i] <= thr; }, buf, half, lane, warp);
     if (c0 == k) {
       prefix = thr;
       exact = true;
@@ -156,9 +150,15 @@ __global__ void __launch_bounds__(32 * kPackWarps) fake_select_packed_kernel(
     for (int i = 0; i < S; ++i) sel[i] = rand[i] <= prefix;
   } else {
     // all below the k-th key, and its ties in position order
-    const int need = k - row_count<S>([&](int i) { return rand[i] < prefix; });
+    const int need =
+        k - row_count<S, W>([&](int i) { return rand[i] < prefix; }, buf, half, lane, warp);
+    int before = 0;  // ties in the warps below, then in the chunks below
+    if constexpr (W > 1) {
+      int all;
+      before = team_add<W>(warp_count<S>([&](int i) { return rand[i] == prefix; }), buf, half,
+                           lane, warp, all);
+    }
     const unsigned upto_lane = 0xffffffffu >> (31 - lane);
-    int before = 0;  // ties in the chunks before this one
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       const bool eq = rand[i] == prefix;
@@ -169,58 +169,63 @@ __global__ void __launch_bounds__(32 * kPackWarps) fake_select_packed_kernel(
   }
 #pragma unroll
   for (int i = 0; i < S; ++i) {
-    const int pos = lane + 32 * i;
-    if (pos < t_len) out[base + pos] = sel[i];
+    if (first + 32 * i < t_len) out[base + 32 * i] = sel[i];
   }
 }
 
-template <int S, class... Args>
-inline void launch_packed(int rows, cudaStream_t s, Args... args) {
-  fake_select_packed_kernel<S><<<(rows + kPackWarps - 1) / kPackWarps, 32 * kPackWarps, 0, s>>>(
-      args...);
+// The layout for rows of t_len slots: warps a row, slots a lane, rows a block.
+inline void layout(int t_len, int& warps, int& slots, int& block_rows) {
+  warps = 1;
+  while (warps < kMaxWarps && t_len > 32 * warps * kLaneSlots) warps *= 2;
+  slots = (t_len + 32 * warps - 1) / (32 * warps);
+  block_rows = warps == 1 ? kWarpRows : 1;
 }
 
-// The kernel that holds `slots` slots a lane.
-template <class... Args>
-inline void launch_packed_slots(int slots, Args... args) {
-  switch (slots) {
-    case 1: launch_packed<1>(args...); break;
-    case 2: launch_packed<2>(args...); break;
-    case 3: launch_packed<3>(args...); break;
-    case 4: launch_packed<4>(args...); break;
-    case 5: launch_packed<5>(args...); break;
-    default: launch_packed<6>(args...); break;
-  }
+template <int S, int W, int ROWS, class... Args>
+inline bool launch(int rows, cudaStream_t s, Args... args) {
+  fake_select_kernel<S, W, ROWS><<<(rows + ROWS - 1) / ROWS, 32 * W * ROWS, 0, s>>>(args...);
+  return true;
 }
-static_assert(kPackMaxSlots == 6, "launch_packed_slots names every slot count the entry takes");
+
+// Launches the instance that holds `slots` slots a lane: every count from 1
+// to sizeof...(S) has one.
+template <int W, int ROWS, int... S, class... Args>
+inline void launch_slots(int slots, std::integer_sequence<int, S...>, int rows, cudaStream_t s,
+                         Args... args) {
+  (void)((slots == S + 1 && launch<S + 1, W, ROWS>(rows, s, args...)) || ...);
+}
+
+static_assert(kMaxWarps == 4, "dicl_fake_select names every team size layout can choose");
 
 }  // namespace
 
 // bits: (rows, t_len) uint32 bit patterns; n_valid, k: (rows,) int32;
-// out: (rows, t_len) bool. Launches on `stream`; returns cudaGetLastError().
-extern "C" int dicl_fake_select(const void* bits, const void* n_valid,
-                                const void* k, void* out, int rows, int t_len,
+// out: (rows, t_len) bool. `warps`, `slots` and `block_rows` are the
+// wrapper's layout (`select_layout` in ops/cuda_select.py) and must be this
+// file's for t_len. Launches on `stream`; returns cudaGetLastError().
+extern "C" int dicl_fake_select(const void* bits, const void* n_valid, const void* k, void* out,
+                                int rows, int t_len, int warps, int slots, int block_rows,
                                 int pos_bits, void* stream) {
-  if (t_len < 1 || t_len > 1024 || rows < 1) return cudaErrorInvalidValue;
-  const int threads = (t_len + 31) / 32 * 32;
-  fake_select_kernel<<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(n_valid),
-      static_cast<const int32_t*>(k), static_cast<bool*>(out), t_len, pos_bits);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The packed select for 1 <= t_len <= 192: a warp a row, `warps` rows a
-// block, `slots` slots a lane. Both are the wrapper's layout (`packed_layout`
-// in ops/cuda_select.py) and must be this file's for t_len. Same arguments
-// and result as dicl_fake_select otherwise.
-extern "C" int dicl_fake_select_packed(const void* bits, const void* n_valid,
-                                       const void* k, void* out, int rows, int t_len,
-                                       int slots, int warps, int pos_bits, void* stream) {
-  if (t_len < 1 || t_len > 32 * kPackMaxSlots || rows < 1) return cudaErrorInvalidValue;
-  if (slots != (t_len + 31) / 32 || warps != kPackWarps) return cudaErrorInvalidValue;
-  launch_packed_slots(slots, rows, static_cast<cudaStream_t>(stream),
-                      static_cast<const uint32_t*>(bits), static_cast<const int32_t*>(n_valid),
-                      static_cast<const int32_t*>(k), static_cast<bool*>(out), rows, t_len,
-                      pos_bits);
+  if (t_len < 1 || t_len > kMaxT || rows < 1) return cudaErrorInvalidValue;
+  int want_warps, want_slots, want_rows;
+  layout(t_len, want_warps, want_slots, want_rows);
+  if (warps != want_warps || slots != want_slots || block_rows != want_rows) {
+    return cudaErrorInvalidValue;
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* b = static_cast<const uint32_t*>(bits);
+  const auto* nv = static_cast<const int32_t*>(n_valid);
+  const auto* kp = static_cast<const int32_t*>(k);
+  auto* o = static_cast<bool*>(out);
+  if (warps == 1) {
+    launch_slots<1, kWarpRows>(slots, std::make_integer_sequence<int, kLaneSlots>{}, rows, s, b,
+                               nv, kp, o, rows, t_len, pos_bits);
+  } else if (warps == 2) {
+    launch_slots<2, 1>(slots, std::make_integer_sequence<int, kLaneSlots>{}, rows, s, b, nv, kp,
+                       o, rows, t_len, pos_bits);
+  } else {
+    launch_slots<4, 1>(slots, std::make_integer_sequence<int, kTopSlots>{}, rows, s, b, nv, kp,
+                       o, rows, t_len, pos_bits);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,12 +2,14 @@
 
 For each (encounter, channel) row it takes exactly k of the first `n_valid`
 slots: the k smallest 30-bit keys, a key being the random high bits of the
-slot's 32-bit draw above the slot position. On a CUDA tensor this is a
-hand-written kernel in `csrc/fake_select.cu`, routed by T: up to
-`PACKED_MAX_T` the packed kernel (`fake_select_packed`: a warp a row,
-several rows a block, `packed_layout(T)`), above it K1 (`fake_select`, one
-row per block). The plain version of both is the sort oracle
-`_select_sort`, the JAX `_select_xla`. All three are bit-identical.
+slot's 32-bit draw above the slot position. On a CUDA tensor this is the
+hand-written kernel of `csrc/fake_select.cu`, a warp or a team of warps a
+row with the row's keys in registers (`select_layout(T)`), behind two wrappers with a
+launch count each: `fake_select_packed` for the rows of the JAX packed
+kernel (T <= `PACKED_MAX_T`) and `fake_select` for the rows of its unpacked
+one; `fake_select_mask` routes by T between them. The plain version of both
+is the sort oracle `_select_sort`, the JAX `_select_xla`. All are
+bit-identical.
 
 Bits travel as int32 tensors holding the uint32 bit patterns (torch's
 uint32 has few operations); every shift of them is logical.
@@ -24,13 +26,14 @@ from . import _cuda_build as cb
 _KEY_BITS = 30
 _INVALID = 0x7FFFFFFF  # int32 max: sorts after every valid key
 
-# The packed kernel's layout; the constants are csrc/fake_select.cu's.
-PACKED_WARPS = 8  # kPackWarps: rows a block, a warp each
-PACKED_MAX_SLOTS = 6  # kPackMaxSlots: slots a lane holds at most
-# The longest row the packed kernel takes. Every row it takes is routed to
-# it: measured on an H100 at T = 16, 48, 96 and 192 it is more than twice as
-# fast as K1 on the same rows (PERF.md), so no crossover lies below this.
-PACKED_MAX_T = 32 * PACKED_MAX_SLOTS
+# The kernel's layout; the constants are csrc/fake_select.cu's.
+SELECT_MAX_T = 1024  # kMaxT: the longest row the kernel takes
+LANE_SLOTS = 6  # kLaneSlots: a row takes the fewest warps that keep a lane to this many slots
+MAX_WARPS = 4  # kMaxWarps: ... but no more warps than this (one row a block above 1)
+WARP_ROWS = 8  # kWarpRows: rows a block when a warp owns a row
+# The rows `fake_select_mask` counts as the packed kernel's: those the JAX
+# package packs two or more to a 384-lane row (`_pack_factor(T) >= 2`).
+PACKED_MAX_T = 192
 
 
 def pos_bits(t: int) -> int:
@@ -38,14 +41,21 @@ def pos_bits(t: int) -> int:
     return max(1, (t - 1).bit_length())
 
 
-def packed_layout(t: int) -> Tuple[int, int]:
-    """The packed kernel's layout for rows of `t` slots, as
-    csrc/fake_select.cu chooses and checks it -> (slots a lane holds in
-    registers, rows a block). A warp owns a row; lane l holds slots l,
-    l + 32, ..."""
-    if not 1 <= t <= PACKED_MAX_T:
-        raise ValueError(f"fake_select_packed: takes 1 <= T <= {PACKED_MAX_T}, got {t}")
-    return -(-t // 32), PACKED_WARPS
+def select_layout(t: int) -> Tuple[int, int, int]:
+    """The kernel's layout for rows of `t` slots, as csrc/fake_select.cu
+    chooses and checks it -> (warps a row, slots a lane holds in registers,
+    rows a block): the fewest of 1, 2 or 4 warps that keep a lane to
+    LANE_SLOTS slots (a warp a row up to T=192, two up to 384, four above),
+    WARP_ROWS rows a block for a warp a row and one row a block for a team.
+    Warp w of a row's team holds the 32 x slots consecutive slots from
+    32 x slots x w on, lane l the slots l, l + 32, ... of them."""
+    if not 1 <= t <= SELECT_MAX_T:
+        raise ValueError(f"fake_select: takes 1 <= T <= {SELECT_MAX_T} (the longest row the "
+                         f"kernel holds in registers; the JAX package sorts longer rows), got {t}")
+    warps = 1
+    while warps < MAX_WARPS and t > 32 * warps * LANE_SLOTS:
+        warps *= 2
+    return warps, -(-t // (32 * warps)), WARP_ROWS if warps == 1 else 1
 
 
 def _select_sort(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -65,47 +75,37 @@ def _select_sort(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> 
     return (combined <= kth) & (k[:, None] > 0)
 
 
-def _launch(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    rows, t_len = bits.shape
-    if not (rows >= 1 and 1 <= t_len <= 1024):
-        raise ValueError(f"fake_select: takes 1 <= T <= 1024 and >= 1 row, "
-                         f"got ({rows}, {t_len})")
-    cb.check("fake_select bits", bits, torch.int32)
-    cb.check("fake_select n_valid", n_valid, torch.int32, (rows,))
-    cb.check("fake_select k", k, torch.int32, (rows,))
-    out = torch.empty((rows, t_len), dtype=torch.bool, device=bits.device)
-    fn = cb.c_function("fake_select", "dicl_fake_select", 4, 3)
-    cb.raise_on_error("fake_select", fn(
-        cb.ptr(bits), cb.ptr(n_valid), cb.ptr(k), cb.ptr(out),
-        rows, t_len, pos_bits(t_len), cb.stream_of(bits),
-    ))
-    return out
-
-
-def _launch_packed(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    rows, t_len = bits.shape
-    if rows < 1:
-        raise ValueError(f"fake_select_packed: takes >= 1 row, got ({rows}, {t_len})")
-    slots, warps = packed_layout(t_len)
-    cb.check("fake_select_packed bits", bits, torch.int32)
-    cb.check("fake_select_packed n_valid", n_valid, torch.int32, (rows,))
-    cb.check("fake_select_packed k", k, torch.int32, (rows,))
-    out = torch.empty((rows, t_len), dtype=torch.bool, device=bits.device)
-    fn = cb.c_function("fake_select", "dicl_fake_select_packed", 4, 5)
-    cb.raise_on_error("fake_select_packed", fn(
-        cb.ptr(bits), cb.ptr(n_valid), cb.ptr(k), cb.ptr(out),
-        rows, t_len, slots, warps, pos_bits(t_len), cb.stream_of(bits),
-    ))
-    return out
+def _launcher(name: str, max_t: int):
+    """The launch of the select kernel for the wrapper `name`, which takes
+    rows of up to `max_t` slots."""
+    def launch(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        rows, t_len = bits.shape
+        if not (rows >= 1 and 1 <= t_len <= max_t):
+            raise ValueError(f"{name}: takes 1 <= T <= {max_t} and >= 1 row, "
+                             f"got ({rows}, {t_len})")
+        warps, slots, block_rows = select_layout(t_len)
+        cb.check(f"{name} bits", bits, torch.int32)
+        cb.check(f"{name} n_valid", n_valid, torch.int32, (rows,))
+        cb.check(f"{name} k", k, torch.int32, (rows,))
+        out = torch.empty((rows, t_len), dtype=torch.bool, device=bits.device)
+        fn = cb.c_function("fake_select", "dicl_fake_select", 4, 6)
+        cb.raise_on_error(name, fn(
+            cb.ptr(bits), cb.ptr(n_valid), cb.ptr(k), cb.ptr(out),
+            rows, t_len, warps, slots, block_rows, pos_bits(t_len), cb.stream_of(bits),
+        ))
+        return out
+    return launch
 
 
 _SOURCE = "deep_interpolation_clustering_tpu_torch/csrc/fake_select.cu"
 _PALLAS_SELECT = "deep_interpolation_clustering_tpu/ops/pallas_select.py"
 
 fake_select = cb.register(cb.KernelWrapper(
-    "fake_select", _SOURCE, f"{_PALLAS_SELECT}:122", _select_sort, _launch))
+    "fake_select", _SOURCE, f"{_PALLAS_SELECT}:122", _select_sort,
+    _launcher("fake_select", SELECT_MAX_T)))
 fake_select_packed = cb.register(cb.KernelWrapper(
-    "fake_select_packed", _SOURCE, f"{_PALLAS_SELECT}:202", _select_sort, _launch_packed))
+    "fake_select_packed", _SOURCE, f"{_PALLAS_SELECT}:202", _select_sort,
+    _launcher("fake_select_packed", PACKED_MAX_T)))
 
 
 def fake_select_mask(bits: torch.Tensor, n_valid: torch.Tensor, k: torch.Tensor,

@@ -6,8 +6,8 @@ directory's conftest, so they run on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 
 Shapes cover the ragged edges the kernels mask themselves: rows that do not
-fill a block (or a block's eight rows of the packed select), T below and
-across a warp, R from 1 to 8,
+fill a block (or a block's eight rows of a select), T below and across a
+warp and across every layout boundary, R from 1 to 8,
 rows with k = 0, LSTM batches that do not fill a tile and hidden widths
 whose 4H gate columns do not fill a warp or take two columns a thread. Tolerances: the
 selects are bit-identical; forward values 1e-5 (abs and relative, float32);
@@ -59,15 +59,40 @@ def _rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("t", [1, 24, 31, 33, 354, 1024])
-def test_fake_select_bit_identical(dev, t):
-    rng = np.random.RandomState(t)
-    rows = 37
+def _select_inputs(t, rows, case, seed, dev):
+    """Random bits with ragged n_valid, an empty row and a full row, and
+    k = max(1, n_valid // 2), then the case: `ragged` adds rows of ties in
+    the random part, `k_zero` takes nothing, `k_all` every valid slot,
+    `no_valid` has no valid slot, `all_ties` makes every random part equal,
+    so the whole choice is the position-ordered tie fill and no pass ends
+    the search early."""
+    rng = np.random.RandomState(seed)
     n_valid = rng.randint(0, t + 1, size=rows).astype(np.int32)
-    n_valid[:2] = (0, t)  # an empty row and a full row
+    n_valid[:2] = (0, t)[:rows]
     k = np.where(n_valid > 0, np.maximum(1, n_valid // 2), 0).astype(np.int32)
     bits = rng.randint(0, 2**32, size=(rows, t), dtype=np.uint64).astype(np.uint32)
-    args = [torch.from_numpy(a).to(dev) for a in (bits.view(np.int32), n_valid, k)]
+    if case == "ragged":
+        bits[2:5] &= np.uint32(0xC0000000)
+    elif case == "k_zero":
+        k[:] = 0
+    elif case == "k_all":
+        k = n_valid.copy()
+    elif case == "no_valid":
+        n_valid[:] = 0
+        k[:] = 0
+    else:
+        bits &= np.uint32(0x3)  # below the key's 30 bits: all random parts are 0
+    return [torch.from_numpy(a).to(dev) for a in (bits.view(np.int32), n_valid, k)]
+
+
+# T crosses the select's layouts (`cuda_select.select_layout`): the slots a
+# lane holds, a warp a row (T <= 192), 2 warps a row (<= 384) and 4 warps a
+# row; 37 rows do not fill a block of the warp-a-row layout
+@pytest.mark.parametrize("case", ["ragged", "k_zero", "k_all", "no_valid", "all_ties"])
+@pytest.mark.parametrize("t", [1, 24, 31, 33, 193, 256, 352, 353, 354, 384, 385, 512, 768, 769,
+                               1023, 1024])
+def test_fake_select_bit_identical(dev, t, case):
+    args = _select_inputs(t, 37, case, t, dev)
     got = cs.fake_select(*args)
     assert torch.equal(got, cs._select_sort(*args))
     assert torch.equal(got.sum(1).to(torch.int32), args[2])
@@ -79,30 +104,12 @@ def test_fake_select_bit_identical(dev, t):
 @pytest.mark.parametrize("rows", [1, 7, 24576])
 @pytest.mark.parametrize("t", [1, 2, 16, 31, 32, 33, 37, 48, 64, 65, 100, 128, 191, 192])
 def test_fake_select_packed_bit_identical(dev, t, rows, case):
-    """Against the sort oracle and K1. `k_all` takes every valid slot,
-    `all_ties` makes every random part equal, so the whole choice is the
-    position-ordered tie fill and no pass ends the search early."""
-    rng = np.random.RandomState(1000 * t + rows)
-    n_valid = rng.randint(0, t + 1, size=rows).astype(np.int32)
-    n_valid[:2] = (0, t)[:rows]  # an empty row and a full row
-    k = np.where(n_valid > 0, np.maximum(1, n_valid // 2), 0).astype(np.int32)
-    bits = rng.randint(0, 2**32, size=(rows, t), dtype=np.uint64).astype(np.uint32)
-    if case == "ragged":
-        bits[2:5] &= np.uint32(0xC0000000)  # rows of ties in the random part
-    elif case == "k_zero":
-        k[:] = 0
-    elif case == "k_all":
-        k = n_valid.copy()
-    elif case == "no_valid":
-        n_valid[:] = 0
-        k[:] = 0
-    else:
-        bits &= np.uint32(0x3)  # below the key's 30 bits: all random parts are 0
-    args = [torch.from_numpy(a).to(dev) for a in (bits.view(np.int32), n_valid, k)]
+    """Against the sort oracle and the other wrapper of the same kernel."""
+    args = _select_inputs(t, rows, case, 1000 * t + rows, dev)
     got = cs.fake_select_packed(*args)
     assert torch.equal(got, cs._select_sort(*args))
     assert torch.equal(got.sum(1).to(torch.int32), args[2])
-    assert torch.equal(got, cs.fake_select(*args))  # K1 takes T <= 1024 too
+    assert torch.equal(got, cs.fake_select(*args))  # fake_select takes T <= 1024
 
 
 def _lstm_inputs(t, b, h, with_state, dev, seed=0):
@@ -297,17 +304,25 @@ def test_sci_function_gradient_matches_plain_autograd(dev):
     assert _rel_err(k1.grad, k2.grad) <= 1e-4
 
 
-@pytest.mark.parametrize("rows,t,r", [(15, 7, 1), (1536, 354, 6), (6, 40, 8)])
+# T crosses the push's layouts (a warp a row up to 64 slots, a block a row
+# up to 384, the loop above), at R = 1 and 8 with a fully padded row; and the
+# main path's 1,536 x 354 at R = 6
+@pytest.mark.parametrize("rows,t,r", [(15, 7, 1), (1536, 354, 6), (6, 40, 8)] + [
+    (18, t, r) for t in (1, 32, 33, 64, 65, 354, 384, 385, 700) for r in (1, 8)])
 def test_rbf_push_forward_and_backward(dev, rows, t, r):
     c = 3 if rows % 6 else 6
     _, ts, mask = _planes(rows * t, rows, t, dev)
+    if rows == 18:
+        ts[7] = 0.0
+        mask[7] = 0.0  # no observation: the push writes 0 there
     gen = torch.Generator(device=dev).manual_seed(2)
     beta = torch.rand(c, generator=gen, device=dev) + 0.5
     proj = torch.randn((rows, r), generator=gen, device=dev)
     ref_t = reference_times(r, 6.0, device=dev)
-    torch.testing.assert_close(ci.rbf_push_k(ts, mask, proj, beta, ref_t),
-                               ci._rbf_plain(ts, mask, proj, beta, ref_t),
+    got = ci.rbf_push_k(ts, mask, proj, beta, ref_t)
+    torch.testing.assert_close(got, ci._rbf_plain(ts, mask, proj, beta, ref_t),
                                rtol=1e-5, atol=1e-5)
+    assert torch.all(got[mask == 0] == 0)
     b = rows // c
     kernel = torch.rand(c, generator=gen, device=dev)
     p3 = proj.reshape(b, c, r)

@@ -109,43 +109,91 @@ def test_select_routes_by_t(monkeypatch, t, kernel):
     assert called == [kernel]
 
 
+SOURCE = Path(cuda_select.__file__).resolve().parent.parent / "csrc" / "fake_select.cu"
+
+
 def _cuda_constant(name):
-    source = Path(cuda_select.__file__).resolve().parent.parent / "csrc" / "fake_select.cu"
-    m = re.search(rf"constexpr int {name} = (\d+);", source.read_text())
+    m = re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text())
     assert m, f"csrc/fake_select.cu defines no {name}"
-    return int(m.group(1)), source.read_text()
+    return int(m.group(1))
 
 
 @pytest.mark.parametrize("t,slots", [(1, 1), (16, 1), (32, 1), (33, 2), (48, 2), (64, 2),
                                      (65, 3), (96, 3), (128, 4), (129, 5), (160, 5),
                                      (161, 6), (192, 6)])
 def test_packed_layout_at_the_boundaries(t, slots):
-    assert cuda_select.packed_layout(t) == (slots, cuda_select.PACKED_WARPS)
+    """The packed wrapper's rows (T <= 192) get a warp a row with their
+    slots a lane, as B2's kernel did."""
+    assert cuda_select.select_layout(t) == (1, slots, cuda_select.WARP_ROWS)
 
 
 def test_packed_layout_covers_every_routed_row_length():
-    """Every T that is routed to the packed kernel gets a layout whose held
-    slots cover the row with no idle chunk; longer rows are refused."""
+    """Every T that is routed to the packed wrapper gets a warp a row whose
+    held slots cover the row with no idle chunk; the packed wrapper refuses
+    longer rows before it touches the card."""
     for t in range(1, cuda_select.PACKED_MAX_T + 1):
-        slots, warps = cuda_select.packed_layout(t)
+        warps, slots, rows = cuda_select.select_layout(t)
+        assert (warps, rows) == (1, cuda_select.WARP_ROWS)
         assert 32 * (slots - 1) < t <= 32 * slots
-        assert 1 <= slots <= cuda_select.PACKED_MAX_SLOTS and warps == cuda_select.PACKED_WARPS
+    n = torch.ones(2, dtype=torch.int32)
+    launch = cuda_select.fake_select_packed._launch
     for t in (0, cuda_select.PACKED_MAX_T + 1):
-        with pytest.raises(ValueError, match="fake_select_packed"):
-            cuda_select.packed_layout(t)
+        with pytest.raises(ValueError, match="fake_select_packed: takes 1 <= T <= 192"):
+            launch(torch.zeros((2, t), dtype=torch.int32), n, n)
 
 
 def test_packed_constants_are_the_sources():
     """The wrapper's constants equal the CUDA source's, and the source
-    instantiates the kernel for every slot count the layout can choose."""
-    warps, text = _cuda_constant("kPackWarps")
-    max_slots, _ = _cuda_constant("kPackMaxSlots")
-    assert (cuda_select.PACKED_WARPS, cuda_select.PACKED_MAX_SLOTS) == (warps, max_slots)
-    assert cuda_select.PACKED_MAX_T == 32 * max_slots
-    chosen = {cuda_select.packed_layout(t)[0] for t in range(1, cuda_select.PACKED_MAX_T + 1)}
-    assert chosen == set(range(1, max_slots + 1))
-    for slots in chosen:
-        assert f"launch_packed<{slots}>" in text, slots
+    instantiates the kernel for every (warps, slots) the layout can choose."""
+    assert (cuda_select.SELECT_MAX_T, cuda_select.LANE_SLOTS, cuda_select.MAX_WARPS,
+            cuda_select.WARP_ROWS) == tuple(
+        _cuda_constant(n) for n in ("kMaxT", "kLaneSlots", "kMaxWarps", "kWarpRows"))
+    text = SOURCE.read_text()
+    # launch_slots instantiates 1 .. N slots a lane for each team size
+    instantiated = {}
+    for warps, rows, bound in re.findall(
+            r"launch_slots<(\d+), (\w+)>\(slots, std::make_integer_sequence<int, (\w+)>", text):
+        n = {"kLaneSlots": cuda_select.LANE_SLOTS,
+             "kTopSlots": -(-cuda_select.SELECT_MAX_T // (32 * cuda_select.MAX_WARPS))}[bound]
+        instantiated[int(warps)] = (set(range(1, n + 1)),
+                                    cuda_select.WARP_ROWS if rows == "kWarpRows" else int(rows))
+    assert "constexpr int kTopSlots = (kMaxT + 32 * kMaxWarps - 1) / (32 * kMaxWarps);" in text
+    for t in range(1, cuda_select.SELECT_MAX_T + 1):
+        warps, slots, rows = cuda_select.select_layout(t)
+        assert slots in instantiated[warps][0] and rows == instantiated[warps][1], t
+
+
+@pytest.mark.parametrize("t,want", [
+    (1, (1, 1, 8)), (32, (1, 1, 8)), (33, (1, 2, 8)), (192, (1, 6, 8)), (193, (2, 4, 1)),
+    (256, (2, 4, 1)), (257, (2, 5, 1)), (352, (2, 6, 1)), (353, (2, 6, 1)),
+    (354, (2, 6, 1)), (384, (2, 6, 1)), (385, (4, 4, 1)), (512, (4, 4, 1)), (513, (4, 5, 1)),
+    (768, (4, 6, 1)), (769, (4, 7, 1)), (1023, (4, 8, 1)), (1024, (4, 8, 1))])
+def test_select_layout_at_the_boundaries(t, want):
+    assert cuda_select.select_layout(t) == want
+
+
+def test_select_layout_covers_every_row_length():
+    """Every 1 <= T <= 1024 gets a layout whose held slots cover the row
+    with no idle chunk: the fewest of 1, 2 or 4 warps that keep a lane to
+    6 slots, a warp a row taking several rows a block and a team one."""
+    for t in range(1, cuda_select.SELECT_MAX_T + 1):
+        warps, slots, rows = cuda_select.select_layout(t)
+        assert 32 * warps * (slots - 1) < t <= 32 * warps * slots
+        assert warps in (1, 2, 4) and rows == (cuda_select.WARP_ROWS if warps == 1 else 1)
+        assert slots <= cuda_select.LANE_SLOTS or warps == cuda_select.MAX_WARPS
+        if warps > 1:  # half the warps would take more slots a lane
+            assert t > 32 * (warps // 2) * cuda_select.LANE_SLOTS
+
+
+@pytest.mark.parametrize("t", [0, 1025])
+def test_select_layout_refuses_rows_it_cannot_hold(t):
+    """The kernel takes rows of up to 1024 slots and raises beyond, where
+    the JAX package falls back to the sort (ROADMAP §C)."""
+    with pytest.raises(ValueError, match="1 <= T <= 1024"):
+        cuda_select.select_layout(t)
+    n = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="fake_select: takes 1 <= T <= 1024"):
+        cuda_select.fake_select._launch(torch.zeros((2, t), dtype=torch.int32), n, n)
 
 
 @pytest.mark.parametrize("t", [24, 48, 354])
