@@ -29,8 +29,12 @@ from .numerics import softplus
 from .rbf import RBF_NORM_EPS
 
 _MAX_REF_POINTS = 8  # the kernels unroll R up to this
+# The profiler range around RBFFunction's backward, which recomputes the push
+# in plain PyTorch (utils/profiling.py reads its device time)
+RBF_BACKWARD_RANGE = "rbf_push_backward"
 
-# The layout of K2 and K3; the constants are csrc/sci.cu's.
+# The layout of K2, K3 and K4; the constants are csrc/sci.cu's (and
+# csrc/rbf.cu's, which states them again).
 SCI_BWD_THREADS = 128  # kBwdThreads: threads per block
 SCI_BWD_WARP_SLOTS = 2  # kBwdWarpSlots: a warp takes a row of up to 32 x this slots
 SCI_BWD_BLOCK_SLOTS = 3  # kBwdBlockSlots: a block holds a row of up to 128 x this slots
@@ -152,8 +156,8 @@ def _sci_fwd_launch(x, t, mask, alpha, ref_t):
 
 
 def sci_row_layout(t_len: int) -> Tuple[int, int]:
-    """The layout of K2 and K3 for rows of `t_len` slots, as csrc/sci.cu
-    chooses and checks it -> (warps a row, slots a thread keeps in
+    """The layout of K2, K3 and K4 for rows of `t_len` slots, as csrc/sci.cu
+    and csrc/rbf.cu choose and check it -> (warps a row, slots a thread keeps in
     registers). A warp takes a short row (four rows a block); a block of
     SCI_BWD_THREADS threads takes a longer one; each thread holds its slots'
     x, t and mask (K3: and exponentials) in registers. 0 slots: the row is
@@ -191,10 +195,11 @@ def _rbf_launch(t, m, proj, beta, ref_t):
     cb.check("rbf_push proj", proj, torch.float32, (rows, r))
     cb.check("rbf_push beta", beta, torch.float32, (n_chan,))
     out = torch.empty_like(t)
-    fn = cb.c_function("rbf", "dicl_rbf_push", 6, 4)
+    warps, slots = sci_row_layout(t_len)  # K4 takes K2's and K3's layout
+    fn = cb.c_function("rbf", "dicl_rbf_push", 6, 6)
     cb.raise_on_error("rbf_push", fn(
         cb.ptr(t), cb.ptr(m), cb.ptr(proj), cb.ptr(beta), cb.ptr(ref_t),
-        cb.ptr(out), rows, n_chan, t_len, r, cb.stream_of(t),
+        cb.ptr(out), rows, n_chan, t_len, r, warps, slots, cb.stream_of(t),
     ))
     return out
 
@@ -261,7 +266,7 @@ class RBFFunction(torch.autograd.Function):
     def backward(ctx, g):
         kernel, p2, m2, t2, ref_t = ctx.saved_tensors
         need = ctx.needs_input_grad
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(RBF_BACKWARD_RANGE):
             k = kernel.detach().requires_grad_(need[0])
             p = p2.detach().requires_grad_(need[1])
             out = _rbf_plain(t2, m2, p, softplus(k), ref_t)

@@ -16,7 +16,10 @@ cohort, and prints one JSON object with:
     every hand-written kernel of `csrc/` (the selects, the SCI forward and
     backward, the RBF push, and each kernel of B6/B7, for the split of the
     biLSTM backward between its recurrence and its dW kernels), whatever
-    its rank.
+    its rank; and `rbf_backward`, the device time of the kernels launched
+    inside the `rbf_push_backward` range (RBFFunction's backward, which
+    recomputes the push in plain PyTorch and differentiates it), with the
+    span of that range on the device's timeline.
 It needs a CUDA card and raises without one.
 """
 
@@ -67,10 +70,12 @@ def phase_times(trainer, n: int) -> Dict[str, float]:
 
 def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
     """Profile `n` calls of `step`: device busy time and idle share over the
-    window, kernels per step, the `top` kernels by device time and every
-    hand-written kernel of csrc/."""
+    window, kernels per step, the `top` kernels by device time, every
+    hand-written kernel of csrc/ and the RBF backward's range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from ..ops.cuda_interp import RBF_BACKWARD_RANGE
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -95,6 +100,12 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     per_step = lambda name, t: {"name": name[:90], "ms_per_step": sum(t) / 1e3 / n,
                                 "calls_per_step": len(t) / n}
+    # the range on the host (its kernels, children's included) and the span
+    # that the profiler draws for it on the device's timeline
+    host_ranges = [e for e in prof.events() if e.name == RBF_BACKWARD_RANGE
+                   and e.device_type == DeviceType.CPU]
+    device_spans = [e.time_range.elapsed_us() for e in prof.events()
+                    if e.name == RBF_BACKWARD_RANGE and e.device_type == DeviceType.CUDA]
     return {
         "window_steps": n,
         "window_ms": wall_us / 1e3,
@@ -105,6 +116,11 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
         "top_kernels": [per_step(name, t) for name, t in ranked[:top]],
         "hand_kernels": [per_step(name, t) for name, t in ranked
                          if any(k in name for k in HAND_KERNELS)],
+        "rbf_backward": {
+            "kernel_ms_per_step": sum(e.device_time_total for e in host_ranges) / 1e3 / n,
+            "calls_per_step": len(host_ranges) / n,
+            "span_ms_per_step": sum(device_spans) / 1e3 / n,
+        },
     }
 
 

@@ -1,6 +1,6 @@
-"""The layout of the SCI kernels B3 and B4 (`ops/cuda_interp.py::
-sci_row_layout`, one rule for the forward and the backward), checked on the
-CPU: the kernels themselves run only on the card
+"""The layout of the SCI kernels B3 and B4 and of the RBF push B5
+(`ops/cuda_interp.py::sci_row_layout`, one rule for the three), checked on
+the CPU: the kernels themselves run only on the card
 (tests/test_torch_kernels_gpu.py), but which of their layouts a row length
 gets is plain integer arithmetic that the C entries check again.
 
@@ -9,8 +9,9 @@ gets is plain integer arithmetic that the C entries check again.
   for three slots a thread gets the looping layout;
 - the main path's T=354 gets a block with three slots a thread, the scaled
   path's T=48 a warp with two;
-- the wrapper's constants are the CUDA source's, and the source
-  instantiates every layout the rule can choose, for both kernels.
+- the wrapper's constants are the CUDA source's, csrc/rbf.cu states
+  csrc/sci.cu's again, and each source instantiates every layout the rule
+  can choose, for each of its kernels.
 """
 
 import re
@@ -21,11 +22,12 @@ import pytest
 from deep_interpolation_clustering_tpu_torch.ops import cuda_interp as ci
 
 SOURCE = Path(ci.__file__).resolve().parent.parent / "csrc" / "sci.cu"
+RBF_SOURCE = SOURCE.with_name("rbf.cu")
 
 
-def _cuda_constant(name):
-    m = re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text())
-    assert m, f"csrc/sci.cu defines no {name}"
+def _cuda_constant(name, source=SOURCE):
+    m = re.search(rf"constexpr int {name} = (\d+);", source.read_text())
+    assert m, f"csrc/{source.name} defines no {name}"
     return int(m.group(1))
 
 
@@ -77,3 +79,15 @@ def test_source_instantiates_every_forward_layout():
         assert f"launch_fwd<R, {warps}, {slots}>" in text, (warps, slots)
     # both C entries check the wrapper's layout against the source's rule
     assert text.count("row_layout(t_len, want_warps, want_slots);") == 2
+
+
+def test_rbf_source_states_the_sci_layout():
+    """csrc/rbf.cu's layout constants equal csrc/sci.cu's, it instantiates
+    every layout the rule can choose, and its C entry checks the wrapper's."""
+    for rbf_name, sci_name in (("kRowThreads", "kBwdThreads"), ("kWarpSlots", "kBwdWarpSlots"),
+                               ("kBlockSlots", "kBwdBlockSlots")):
+        assert _cuda_constant(rbf_name, RBF_SOURCE) == _cuda_constant(sci_name), rbf_name
+    text = RBF_SOURCE.read_text()
+    for warps, slots in {ci.sci_row_layout(t) for t in range(1, 2049)}:
+        assert f"launch<R, {warps}, {slots}>" in text, (warps, slots)
+    assert text.count("row_layout(t_len, want_warps, want_slots);") == 1
