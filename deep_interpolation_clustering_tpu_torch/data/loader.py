@@ -86,8 +86,8 @@ def make_fake_ob(
     dataloader.py:182-193). Channels without observations select nothing.
 
     `bits` ((B, C, T) int32 bit patterns) and `noise` ((B, C, T) in [0, 1))
-    are drawn from `generator` unless given. The select is kernel K1 on
-    the card (`use_kernel=False`: its plain version).
+    are drawn from `generator` unless given. The select is the kernel of
+    `ops/cuda_select.py` on the card (`use_kernel=False`: its plain version).
     """
     if draw_bits_width != 32:
         raise NotImplementedError("rng_draw_bits=16 is not ported yet")

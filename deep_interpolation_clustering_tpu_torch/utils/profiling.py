@@ -100,10 +100,12 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     per_step = lambda name, t: {"name": name[:90], "ms_per_step": sum(t) / 1e3 / n,
                                 "calls_per_step": len(t) / n}
-    # the range on the host (its kernels, children's included) and the span
-    # that the profiler draws for it on the device's timeline
-    host_ranges = [e for e in prof.events() if e.name == RBF_BACKWARD_RANGE
-                   and e.device_type == DeviceType.CPU]
+    # the kernels launched inside the range on the host (by it or by the
+    # operations under it), and the span the profiler draws for the range on
+    # the device's timeline
+    launched = lambda e: list(e.kernels) + [k for c in e.cpu_children for k in launched(c)]
+    rbf_kernels = [k for e in prof.events() if e.name == RBF_BACKWARD_RANGE
+                   and e.device_type == DeviceType.CPU for k in launched(e)]
     device_spans = [e.time_range.elapsed_us() for e in prof.events()
                     if e.name == RBF_BACKWARD_RANGE and e.device_type == DeviceType.CUDA]
     return {
@@ -117,8 +119,8 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
         "hand_kernels": [per_step(name, t) for name, t in ranked
                          if any(k in name for k in HAND_KERNELS)],
         "rbf_backward": {
-            "kernel_ms_per_step": sum(e.device_time_total for e in host_ranges) / 1e3 / n,
-            "calls_per_step": len(host_ranges) / n,
+            "kernel_ms_per_step": sum(k.duration for k in rbf_kernels) / 1e3 / n,
+            "kernels_per_step": len(rbf_kernels) / n,
             "span_ms_per_step": sum(device_spans) / 1e3 / n,
         },
     }

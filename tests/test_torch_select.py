@@ -93,9 +93,9 @@ def test_select_bit_identical_to_packed_pallas_interpret(rows, t):
                                       (192, "fake_select_packed"), (193, "fake_select"),
                                       (354, "fake_select")])
 def test_select_routes_by_t(monkeypatch, t, kernel):
-    """As measured on the card, the packed kernel is the faster one at every
-    row length it takes (`PACKED_MAX_T`), so all of those go to it and
-    longer rows to K1; `use_kernel=False` to neither."""
+    """The rows the JAX package packs (`PACKED_MAX_T`) count as the packed
+    wrapper's launches, longer rows as `fake_select`'s; `use_kernel=False`
+    takes neither."""
     assert cuda_select.PACKED_MAX_T == 192
     called = []
     for name in ("fake_select", "fake_select_packed"):
