@@ -23,7 +23,9 @@
 // (`select_layout` in ops/cuda_select.py is the same rule):
 //   T <= 192          a warp a row, kWarpRows = 8 rows a block, 1-6 slots a lane;
 //   192 < T <= 384    2 warps a row, one row a block, 4-6 slots a lane;
-//   384 < T <= 1024   4 warps a row, one row a block, 4-8 slots a lane.
+//   384 < T <= 1024   4 warps a row, one row a block, 4-8 slots a lane;
+//   T > 1024          kLoopWarps = 8 warps a row, one row a block, the row
+//                     streamed from memory on every pass (below).
 // Measured on the H100 (PERF.md), a warp a row with up to 32 slots a lane
 // loses to these teams at every T above 192: a pass costs a barrier in a
 // team, but S ballots in a row's one warp, and a long row gives few warps.
@@ -40,6 +42,14 @@
 // log2(n_valid) + 2 of the 30 - p passes. Otherwise (ties in the random part
 // at the k-th key) it runs every pass and fills the ties in position order:
 // the warps below, the chunks below, then the lanes below. No atomics.
+//
+// Rows longer than kMaxT do not fit in registers at 8 slots a lane. There a
+// block of kLoopWarps warps owns the row and warp w walks the same 32 S
+// consecutive slots (S = ceil(T / 32 W), a runtime count), 32 at a time,
+// reading the keys again on every pass: from memory on the first, from L2
+// after it (a 2^20-slot call is 4 MB of keys). Only the slots below n_valid
+// are read; a pass is the walk's ballots and one barrier, the tie fill the
+// same walk twice (the warp's ties, then the fill in position order).
 
 #include <climits>
 #include <cstdint>
@@ -52,7 +62,8 @@ namespace {
 constexpr int kKeyBits = 30;
 
 // --------------------------------------------------- the layout's constants
-constexpr int kMaxT = 1024;    // the longest row the kernel takes
+constexpr int kMaxT = 1024;    // the longest row held in registers
+constexpr int kLoopWarps = 8;  // warps of the block that walks a longer row
 constexpr int kLaneSlots = 6;  // a row takes the fewest warps that keep a lane to this many slots
 constexpr int kMaxWarps = 4;   // ... but no more warps than this (one row a block above 1)
 constexpr int kWarpRows = 8;   // rows a block when a warp owns a row
@@ -173,8 +184,87 @@ __global__ void __launch_bounds__(32 * W * ROWS) fake_select_kernel(
   }
 }
 
+// Rows longer than kMaxT: W warps own the row, warp w the `slots` x 32
+// consecutive slots from 32 x slots x w on, which it walks 32 at a time on
+// every pass; the same search and tie fill as fake_select_kernel.
+template <int W>
+__global__ void __launch_bounds__(32 * W) fake_select_loop_kernel(
+    const uint32_t* __restrict__ bits, const int32_t* __restrict__ n_valid,
+    const int32_t* __restrict__ k_sel, bool* __restrict__ out, int t_len, int slots,
+    int pos_bits) {
+  __shared__ int buf[2][W];  // each warp's count of a pass
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t row = blockIdx.x;
+  int half = 0;
+  const int nv = n_valid[row];
+  const int k = k_sel[row];
+  const int nbits = kKeyBits - pos_bits;
+  const int shift = 32 - kKeyBits + pos_bits;
+  const uint32_t* row_bits = bits + row * t_len;
+  bool* row_out = out + row * t_len;
+  const int first = 32 * slots * warp;                      // the warp's first slot
+  const int stop = min(first + 32 * slots, t_len);          // ... and its end in the row
+  const int keyed = min(stop, nv);                          // ... and the end of its keys
+  // the random part of slot pos; INT_MAX past n_valid, above every random part
+  auto key = [&](int pos) {
+    return pos < keyed ? static_cast<int>(row_bits[pos] >> shift) : INT_MAX;
+  };
+  // the warp's count of `pred` over its keyed slots (a slot past them never
+  // counts: every threshold is below INT_MAX)
+  auto walk_count = [&](auto pred) {
+    int n = 0;
+    for (int base = first; base < keyed; base += 32) {
+      n += __popc(__ballot_sync(0xffffffffu, pred(key(base + lane))));
+    }
+    return n;
+  };
+
+  int prefix = 0;
+  bool exact = k == 0;
+  if (exact) prefix = -1;
+  for (int b = nbits - 1; b >= 0 && !exact; --b) {
+    const int thr = prefix + ((1 << b) - 1);
+    int c0;
+    team_add<W>(walk_count([&](int r) { return r <= thr; }), buf, half, lane, warp, c0);
+    if (c0 == k) {
+      prefix = thr;
+      exact = true;
+    } else if (c0 < k) {
+      prefix = thr + 1;
+    }
+  }
+
+  if (exact) {
+    for (int pos = first + lane; pos < stop; pos += 32) row_out[pos] = key(pos) <= prefix;
+    return;
+  }
+  // all below the k-th key, and its ties in position order
+  int below;
+  team_add<W>(walk_count([&](int r) { return r < prefix; }), buf, half, lane, warp, below);
+  const int need = k - below;
+  int all;
+  int before = team_add<W>(walk_count([&](int r) { return r == prefix; }), buf, half, lane,
+                           warp, all);
+  const unsigned upto_lane = 0xffffffffu >> (31 - lane);
+  for (int base = first; base < stop; base += 32) {
+    const int pos = base + lane;
+    const int r = key(pos);
+    const bool eq = r == prefix;
+    const unsigned ties = __ballot_sync(0xffffffffu, eq);
+    if (pos < stop) row_out[pos] = r < prefix || (eq && before + __popc(ties & upto_lane) <= need);
+    before += __popc(ties);
+  }
+}
+
 // The layout for rows of t_len slots: warps a row, slots a lane, rows a block.
 inline void layout(int t_len, int& warps, int& slots, int& block_rows) {
+  if (t_len > kMaxT) {
+    warps = kLoopWarps;
+    slots = (t_len + 32 * warps - 1) / (32 * warps);
+    block_rows = 1;
+    return;
+  }
   warps = 1;
   while (warps < kMaxWarps && t_len > 32 * warps * kLaneSlots) warps *= 2;
   slots = (t_len + 32 * warps - 1) / (32 * warps);
@@ -206,7 +296,7 @@ static_assert(kMaxWarps == 4, "dicl_fake_select names every team size layout can
 extern "C" int dicl_fake_select(const void* bits, const void* n_valid, const void* k, void* out,
                                 int rows, int t_len, int warps, int slots, int block_rows,
                                 int pos_bits, void* stream) {
-  if (t_len < 1 || t_len > kMaxT || rows < 1) return cudaErrorInvalidValue;
+  if (t_len < 1 || rows < 1) return cudaErrorInvalidValue;
   int want_warps, want_slots, want_rows;
   layout(t_len, want_warps, want_slots, want_rows);
   if (warps != want_warps || slots != want_slots || block_rows != want_rows) {
@@ -217,7 +307,10 @@ extern "C" int dicl_fake_select(const void* bits, const void* n_valid, const voi
   const auto* nv = static_cast<const int32_t*>(n_valid);
   const auto* kp = static_cast<const int32_t*>(k);
   auto* o = static_cast<bool*>(out);
-  if (warps == 1) {
+  if (t_len > kMaxT) {
+    fake_select_loop_kernel<kLoopWarps><<<rows, 32 * kLoopWarps, 0, s>>>(b, nv, kp, o, t_len,
+                                                                       slots, pos_bits);
+  } else if (warps == 1) {
     launch_slots<1, kWarpRows>(slots, std::make_integer_sequence<int, kLaneSlots>{}, rows, s, b,
                                nv, kp, o, rows, t_len, pos_bits);
   } else if (warps == 2) {

@@ -86,16 +86,28 @@ def _select_inputs(t, rows, case, seed, dev):
 
 
 # T crosses the select's layouts (`cuda_select.select_layout`): the slots a
-# lane holds, a warp a row (T <= 192), 2 warps a row (<= 384) and 4 warps a
-# row; 37 rows do not fill a block of the warp-a-row layout
+# lane holds, a warp a row (T <= 192), 2 warps a row (<= 384), 4 warps a
+# row (<= 1024) and the block of 8 warps that walks a longer row; 37 rows
+# do not fill a block of the warp-a-row layout
 @pytest.mark.parametrize("case", ["ragged", "k_zero", "k_all", "no_valid", "all_ties"])
 @pytest.mark.parametrize("t", [1, 24, 31, 33, 193, 256, 352, 353, 354, 384, 385, 512, 768, 769,
-                               1023, 1024])
+                               1023, 1024, 1025, 1536, 2048, 4096])
 def test_fake_select_bit_identical(dev, t, case):
     args = _select_inputs(t, 37, case, t, dev)
     got = cs.fake_select(*args)
     assert torch.equal(got, cs._select_sort(*args))
     assert torch.equal(got.sum(1).to(torch.int32), args[2])
+
+
+@pytest.mark.parametrize("t", [1025, 2048, 4096])
+def test_fake_select_mask_long_rows_launch_the_kernel(dev, t):
+    """`fake_select_mask` on rows longer than 1024 slots launches the
+    select (one count) and answers as the sort oracle."""
+    bits, n_valid, k = _select_inputs(t, 24, "ragged", t + 7, dev)
+    before = cs.fake_select.launches
+    got = cs.fake_select_mask(bits.reshape(4, 6, t), n_valid.reshape(4, 6), k.reshape(4, 6))
+    assert cs.fake_select.launches == before + 1
+    assert torch.equal(got.reshape(24, t), cs._select_sort(bits, n_valid, k))
 
 
 # T crosses the packed select's slots a lane (1 to 6 at T <= 32, ..., 192);
@@ -109,7 +121,7 @@ def test_fake_select_packed_bit_identical(dev, t, rows, case):
     got = cs.fake_select_packed(*args)
     assert torch.equal(got, cs._select_sort(*args))
     assert torch.equal(got.sum(1).to(torch.int32), args[2])
-    assert torch.equal(got, cs.fake_select(*args))  # fake_select takes T <= 1024
+    assert torch.equal(got, cs.fake_select(*args))  # fake_select takes every T
 
 
 def _lstm_inputs(t, b, h, with_state, dev, seed=0):
@@ -366,8 +378,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="R=9"):
         ci.sci_fwd(x, ts, mask, alpha, reference_times(9, 6.0, device=dev))
     n = torch.ones(2, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="T <= 1024"):
-        cs.fake_select(torch.zeros((2, 1025), dtype=torch.int32, device=dev), n, n)
+    with pytest.raises(ValueError, match="T >= 1"):
+        cs.fake_select(torch.zeros((2, 0), dtype=torch.int32, device=dev), n, n)
     with pytest.raises(ValueError, match="T <= 192"):
         cs.fake_select_packed(torch.zeros((2, 193), dtype=torch.int32, device=dev), n, n)
     with pytest.raises(ValueError, match="H <= 256"):

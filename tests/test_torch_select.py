@@ -187,13 +187,44 @@ def test_select_layout_covers_every_row_length():
 
 @pytest.mark.parametrize("t", [0, 1025])
 def test_select_layout_refuses_rows_it_cannot_hold(t):
-    """The kernel takes rows of up to 1024 slots and raises beyond, where
-    the JAX package falls back to the sort (ROADMAP §C)."""
-    with pytest.raises(ValueError, match="1 <= T <= 1024"):
-        cuda_select.select_layout(t)
+    """An empty row is the only one refused. A row of 1025 slots, one past
+    what a lane holds in registers, gets the block of 8 warps that walks
+    it, and the launch goes on to the device check (no sort, no raise on
+    the length)."""
     n = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="fake_select: takes 1 <= T <= 1024"):
-        cuda_select.fake_select._launch(torch.zeros((2, t), dtype=torch.int32), n, n)
+    launch = cuda_select.fake_select._launch
+    if t == 0:
+        with pytest.raises(ValueError, match="T >= 1"):
+            cuda_select.select_layout(t)
+        with pytest.raises(ValueError, match="fake_select: takes T >= 1"):
+            launch(torch.zeros((2, t), dtype=torch.int32), n, n)
+        return
+    assert cuda_select.select_layout(t) == (cuda_select.LOOP_WARPS, 5, 1)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        launch(torch.zeros((2, t), dtype=torch.int32), n, n)
+
+
+@pytest.mark.parametrize("t", [1025, 1280, 1281, 1536, 2048, 4096, 10_000])
+def test_select_loop_layout_above_1024(t):
+    """Above SELECT_MAX_T a block of LOOP_WARPS warps owns the row and each
+    warp walks ceil(T / 256) chunks of 32 slots; the walks cover the row
+    with no idle warp."""
+    warps, slots, rows = cuda_select.select_layout(t)
+    assert (warps, rows) == (cuda_select.LOOP_WARPS, 1) == (8, 1)
+    assert 32 * warps * (slots - 1) < t <= 32 * warps * slots
+    assert cuda_select.LOOP_WARPS == _cuda_constant("kLoopWarps")
+
+
+def test_select_bit_identical_to_jax_at_t_2048(rng):
+    """Rows longer than the register layouts (T=2048): the port's
+    `fake_select_mask` equals the JAX `fake_select_mask` bit for bit."""
+    t = 2048
+    bits, counts, k = _draw(rng, t)
+    want = np.asarray(ps.fake_select_mask(jnp.asarray(bits), jnp.asarray(counts),
+                                          jnp.asarray(k)))
+    got = _port(bits, counts, k)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got.sum(axis=2), k)
 
 
 @pytest.mark.parametrize("t", [24, 48, 354])
