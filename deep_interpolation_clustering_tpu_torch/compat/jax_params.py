@@ -5,11 +5,24 @@ name map in the JAX `compat/torch_import.py`).
 pytrees (nested dicts of arrays) into the port's `Net.state_dict()`, whose
 keys are the reference torch model's names; `jax_from_state_dict` is the
 inverse. Works on NumPy-convertible values, so JAX itself is not needed.
+
+`optimizer_to_jax` and `optimizer_from_jax` carry a torch optimizer's state
+to and from the flat leaves of the JAX optimizer state
+(`train/optim.make_optimizer` there: `inject_hyperparams` around a chain on
+one raveled parameter vector), in the order `tree_leaves` gives them:
+
+    adam     count, learning_rate, inner count, mu, nu, nu_max
+    sgd      count, learning_rate, trace
+    rmsprop  count, learning_rate, nu, trace
+
+The counts are int32 scalars, the rate a float32 scalar, and each vector
+holds every parameter in the order `ravel_pytree` gives the JAX params:
+dict keys sorted at every level.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +107,88 @@ def jax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
         if f"{name}.model.0.weight" in sd:
             params[name], state[name] = head(f"{name}.model", 3)
     return params, state
+
+
+# torch's per-parameter state behind each JAX vector leaf, by optimizer
+OPT_VECTORS = {
+    "Adam": ("exp_avg", "exp_avg_sq", "max_exp_avg_sq"),  # mu, nu, nu_max
+    "SGD": ("momentum_buffer",),  # trace
+    "RMSprop": ("square_avg", "momentum_buffer"),  # nu, trace
+}
+
+
+def _sorted_leaves(tree: Dict) -> List[np.ndarray]:
+    return [leaf for k in sorted(tree) for leaf in (
+        _sorted_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+def _fill_sorted(tree: Dict, vec: np.ndarray, at: List[int]) -> Dict:
+    out = {}
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            out[k] = _fill_sorted(tree[k], vec, at)
+        else:
+            n = tree[k].size
+            out[k] = vec[at[0]: at[0] + n].reshape(tree[k].shape)
+            at[0] += n
+    return out
+
+
+def _vector(net: torch.nn.Module, per_param: Dict[str, torch.Tensor]) -> np.ndarray:
+    """Per-parameter tensors (by name) as one vector in the JAX ravel order."""
+    sd = dict(net.state_dict())
+    sd.update(per_param)
+    params, _ = jax_from_state_dict(sd)
+    return np.concatenate([leaf.ravel() for leaf in _sorted_leaves(params)])
+
+
+def _per_param(net: torch.nn.Module, vec: np.ndarray) -> Dict[str, torch.Tensor]:
+    """Inverse of `_vector`."""
+    params, state = jax_from_state_dict(net.state_dict())
+    at = [0]
+    filled = _fill_sorted(params, np.asarray(vec, np.float32), at)
+    if at[0] != vec.size:
+        raise ValueError(f"optimizer vector of {vec.size} values for {at[0]} parameters")
+    sd = state_dict_from_jax(filled, state)
+    return {name: sd[name] for name, _ in net.named_parameters()}
+
+
+def optimizer_to_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
+                     count: int) -> List[np.ndarray]:
+    """The JAX optimizer state's leaves for `opt`, built over
+    `net.parameters()`; `count` is the number of updates taken. A parameter
+    without state yet (no step taken) gives zeros."""
+    kind = type(opt).__name__
+    named = list(net.named_parameters())
+    leaves = [np.asarray(count, np.int32),
+              np.asarray(opt.param_groups[0]["lr"], np.float32)]
+    if kind == "Adam":
+        steps = [float(opt.state[p]["step"]) for _, p in named if "step" in opt.state[p]]
+        leaves.append(np.asarray(int(max(steps, default=0)), np.int32))
+    for key in OPT_VECTORS[kind]:
+        leaves.append(_vector(net, {
+            n: (opt.state[p][key].detach().cpu() if key in opt.state[p]
+                else torch.zeros_like(p, device="cpu")) for n, p in named}))
+    return leaves
+
+
+def optimizer_from_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
+                       leaves: List[np.ndarray]) -> int:
+    """Load the JAX optimizer state's leaves into `opt` (built over
+    `net.parameters()`): the moments and the step count, not the rate (the
+    trainer writes its schedule's). Returns the update count."""
+    kind = type(opt).__name__
+    vectors = OPT_VECTORS[kind]
+    head = 3 if kind == "Adam" else 2
+    if len(leaves) != head + len(vectors):
+        raise ValueError(f"{kind}: {len(leaves)} optimizer leaves, expected "
+                         f"{head + len(vectors)}")
+    count = int(leaves[0])
+    step = float(leaves[2]) if kind == "Adam" else float(count)
+    moments = [_per_param(net, vec) for vec in leaves[head:]]
+    for name, p in net.named_parameters():
+        st = {key: m[name].to(p.device) for key, m in zip(vectors, moments)}
+        if kind != "SGD":
+            st["step"] = torch.tensor(step, dtype=torch.float32)
+        opt.state[p] = st
+    return count

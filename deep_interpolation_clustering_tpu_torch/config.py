@@ -1,12 +1,13 @@
 """Typed configuration of the port (counterpart of the JAX package's
 `config.py`).
 
-It carries the fields the ported p1 step reads, with the JAX `Config`'s
-defaults, and loads a `config.json` written by the JAX `Config`. Fields of
-the JAX config that only steer the TPU build (Pallas switches, XLA matmul
-precision, scan unrolling, PRNG implementation, mesh layout, compilation
-cache) or belong to stages not ported yet are accepted on load and ignored
-with one log line.
+It carries the fields the ported p1 stage reads (the step, the trainer and
+its CLI), with the JAX `Config`'s defaults, loads a `config.json` written by
+the JAX `Config` and writes one (`save`) that the JAX `Config.load` reads.
+Fields of the JAX config that only steer the TPU build (Pallas switches, XLA
+matmul precision, scan unrolling, PRNG implementation, mesh layout,
+multi-host, compilation cache) or belong to stages not ported yet are
+accepted on load and ignored with one log line.
 
 Matmul precision: the port runs float32 matmuls in full float32 on the
 card (TF32 off, `utils.device.resolve_device`); that is its counterpart of
@@ -19,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 from dataclasses import dataclass, field
 from typing import Dict
 
@@ -33,16 +35,13 @@ _IGNORED = (
     "sci_share_weights", "data_parallel", "num_processes", "process_id",
     "coordinator_address",
     # options and stages the port has not reached yet (ROADMAP.md, queue A)
-    "fused_heads", "compute_dtype", "mode", "restore", "restore_metric",
-    "dc_restore_metric", "log_train_freq", "log_valid_freq",
-    "evaluate_interpolation", "feat_dump", "cluster_number", "dec_alpha",
-    "init_cluster_center", "stopping_delta", "stopping_mode", "stopping_count",
-    "stopping_patience", "update_interval", "pipeline_delta", "kmeans_n_init",
-    "kmeans_impl", "dbscan_impl", "max_epochs", "early_stopping",
-    "eval_interval", "k_max",
+    "fused_heads", "compute_dtype", "dc_restore_metric", "cluster_number",
+    "dec_alpha", "init_cluster_center", "stopping_delta", "stopping_mode",
+    "stopping_count", "stopping_patience", "update_interval", "pipeline_delta",
+    "kmeans_n_init", "kmeans_impl", "dbscan_impl", "k_max",
     "select_opt_k", "n_init", "gap_b", "gap_subsample", "opt_eps",
     "internal_metrics", "overwrite", "cluster_method", "num_clusters",
-    "dl_cluster_label_type", "base_path", "results_path",
+    "dl_cluster_label_type",
 )
 
 
@@ -51,6 +50,12 @@ class Config:
     # ---- general -------------------------------------------------------
     seed: int = 7529
     log_level: str = "INFO"
+    mode: str = "train"  # train | eval
+    restore: bool = False
+    # metric whose best checkpoint a restore reads (reference p1:33-34)
+    restore_metric: str = "ae_mse"
+    log_train_freq: int = 20
+    log_valid_freq: int = 20
 
     # ---- data ----------------------------------------------------------
     hours_from_admission: int = 6
@@ -63,6 +68,10 @@ class Config:
     denoise: bool = False
     num_variables: int = 6
     num_timestamps: int = 354
+    evaluate_interpolation: bool = False
+    # feature-dump payload of eval(generate_feat=True): "full" every
+    # per-encounter output (rec_ob included), "lean" only `hidden`
+    feat_dump: str = "full"
     holdout_frac: float = 0.2
 
     # ---- model ---------------------------------------------------------
@@ -89,6 +98,7 @@ class Config:
     unsup_aux_tasks: Dict[str, float] = field(
         default_factory=lambda: {"fake_detection": 1.0, "triplet": 1.0, "kl": 10.0}
     )
+    max_epochs: int = 10000
     optimizer: str = "adam"  # adam (amsgrad) | sgd | rmsprop
     init_lr: float = 3e-3
     min_lr: float = 1e-6
@@ -99,8 +109,16 @@ class Config:
     warmup_epochs: int = 10
     grad_clip: float = 15.0
     weight_decay_rate: float = 4e-4
+    early_stopping: int = 50
+    # validate, checkpoint and test early stop every k-th epoch and at the
+    # last one; between, "step" and "warmup" still step the rate
+    eval_interval: int = 1
     # bit width of the fake-select keys and noise draws; only 32 is ported
     rng_draw_bits: int = 32
+
+    # ---- paths ---------------------------------------------------------
+    base_path: str = "Data"
+    results_path: str = "Results"
 
     # ------------------------------------------------------------------
     @property
@@ -125,11 +143,13 @@ class Config:
         return frozenset(comps)
 
     _CHOICES = {
+        "mode": ("train", "eval"),
         "optimizer": ("adam", "sgd", "rmsprop"),
         "lr_decay_mode": ("step", "plateau", "warmup"),
         "rng_draw_bits": (32, 16),
+        "feat_dump": ("full", "lean"),
     }
-    _MIN_ONE = ("batch_size", "num_timestamps")
+    _MIN_ONE = ("eval_interval", "batch_size", "num_timestamps", "max_epochs")
 
     def __post_init__(self):
         for name, allowed in self._CHOICES.items():
@@ -158,6 +178,18 @@ class Config:
         kw = {k: v for k, v in d.items() if k in known}
         kw.update(overrides)
         return cls(**kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    def save(self, run_dir: str, name: str = "config") -> str:
+        """Write `{run_dir}/{name}.json`, which the JAX `Config.load` reads
+        (it keeps the fields it knows, and knows every field here)."""
+        os.makedirs(run_dir, exist_ok=True)
+        path = os.path.join(run_dir, f"{name}.json")
+        with open(path, "w") as f:
+            f.write(self.to_json())
+        return path
 
     @classmethod
     def load(cls, path: str, **overrides) -> "Config":

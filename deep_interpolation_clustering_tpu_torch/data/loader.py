@@ -52,6 +52,10 @@ class ArrayDataset:
     def __len__(self) -> int:
         return self.ob.shape[0]
 
+    def num_batches(self, batch_size: int) -> int:
+        """Batches of an epoch, the short last one included."""
+        return -(-len(self) // batch_size)
+
     def arrays(self) -> Dict[str, np.ndarray]:
         """All planes and aux labels, the payload kept on the device."""
         d = {

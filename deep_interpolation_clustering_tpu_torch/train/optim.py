@@ -1,10 +1,16 @@
 """Optimizer and gradient clip (counterpart of the JAX `train/optim.py`).
 
-The JAX package emulates torch's `Adam(amsgrad=True)` with L2 weight decay
-folded into the gradient (`scale_by_torch_amsgrad`, after
-`clip_by_global_norm`); the port uses torch's optimizer itself. Only
-'adam' is ported. `LRSchedule` is the JAX package's epoch-level rate
-controller; the trainer writes its rate into the optimizer's param groups.
+The JAX package emulates torch's optimizers (reference utils.py:77-99) with
+optax: `clip_by_global_norm`, then L2 weight decay folded into the
+gradient, then `Adam(amsgrad=True)` (`scale_by_torch_amsgrad`), SGD
+(`trace(0.9, nesterov=True)`) or RMSprop (`scale_by_rms(0.99, 1e-8,
+eps_in_sqrt=False)` then `trace(0.9)`). The port uses torch's optimizers
+themselves, with `weight_decay` (folded into the gradient after the clip,
+which `steps.update` applies first). torch's momentum buffer starts at the
+first gradient where optax's trace starts at zero; with dampening 0 both
+give that gradient as the first step's momentum. `LRSchedule` is the JAX
+package's epoch-level rate controller; the trainer writes its rate into the
+optimizer's param groups.
 """
 
 from __future__ import annotations
@@ -17,12 +23,17 @@ from ..config import Config
 
 
 def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-    if cfg.optimizer != "adam":
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not ported yet")
-    return torch.optim.Adam(
-        params, lr=cfg.init_lr, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=cfg.weight_decay_rate, amsgrad=True,
-    )
+    wd = cfg.weight_decay_rate
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=cfg.init_lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=wd, amsgrad=True)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=cfg.init_lr, momentum=0.9, nesterov=True,
+                               weight_decay=wd)
+    if cfg.optimizer == "rmsprop":
+        return torch.optim.RMSprop(params, lr=cfg.init_lr, alpha=0.99, eps=1e-8, momentum=0.9,
+                                   weight_decay=wd)
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
 def clip_grad_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:

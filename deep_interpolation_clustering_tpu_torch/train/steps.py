@@ -8,7 +8,7 @@ or from `draws` when the caller supplies them.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -139,11 +139,20 @@ def train_step(net: Net, opt: torch.optim.Optimizer, cfg: Config,
 
 @torch.no_grad()
 def eval_step(net: Net, cfg: Config, batch: Dict[str, torch.Tensor],
-              generator: torch.Generator, denoise: bool = False):
-    """Eval forward (`train=False`): returns (losses, outputs) with the
-    latent `hidden`, `rec_ob` and the per-sample aux predictions."""
+              generator: Optional[torch.Generator], denoise: bool = False,
+              sample_mask: Optional[torch.Tensor] = None,
+              dump_keys: Optional[Tuple[str, ...]] = None):
+    """Eval forward (`train=False`, the JAX `make_eval_step(gather=True,
+    dump_keys=...)`): returns (losses, outputs) with the latent `hidden`,
+    `rec_ob` and the per-sample aux predictions, only `dump_keys` of them
+    when given. `sample_mask` (B,) leaves the padded rows of a short last
+    batch out of the losses."""
+    if sample_mask is not None:
+        batch = dict(batch, sample_mask=sample_mask)
     inputs = build_inputs(cfg, batch, generator, False, denoise)
     net_out, losses = forward_and_losses(net, cfg, inputs, False, None)
     outputs = {"hidden": net_out.hidden, "rec_ob": net_out.rec}
     outputs.update({k: v for k, v in net_out.aux.items() if k != "fake_det"})
+    if dump_keys is not None:
+        outputs = {k: v for k, v in outputs.items() if k in dump_keys}
     return losses, outputs

@@ -1,53 +1,79 @@
-"""A lean p1 trainer (counterpart of the JAX `train/trainer.py`).
+"""The p1 trainer (counterpart of the JAX `train/trainer.py`, reference
+pretrain_trainer.py:17-438), on one device.
 
-It keeps the training cohort on the device, gathers each batch there and
-runs the shuffled batches through `steps.train_step`. Every encounter trains
-once per epoch: a short final batch is padded to the full batch by
-repeating its real rows and trained as one masked step (`sample_mask` 1 on
-the real rows), as the JAX `_tail_train_step` does; the reference has no
-`drop_last`. The learning rate follows `optim.LRSchedule`, stepped whenever
-an epoch ends. Checkpoints, dumps and early stop come with the full trainer
-(ROADMAP.md, queue A).
+`train()` is the reference's epoch loop: a training epoch, then (every
+`eval_interval` epochs and at the last) a validation pass and `aly_pred`
+(the learning-rate schedule, per-metric best checkpoints, the summary row,
+patience early stop). `eval()` restores a metric's best checkpoint and
+dumps per-encounter features as the `{cohort}.npy` dict that p2-p4 of
+either package read. Checkpoints are the JAX npz (`checkpoint.py`).
+
+Each cohort is uploaded to the device once and batches are gathered there.
+Every encounter trains once per epoch: a short final batch is padded to the
+full batch by repeating its real rows and trained as one masked step
+(`sample_mask` 1 on the real rows), as the JAX `_tail_train_step` does. An
+eval pass pads its last batch the same way and masks it out of the losses.
+A step's losses stay on the device until its epoch ends; the host fetches
+them then, and every `log_*_freq` batches for the log, as JAX does.
 """
 
 from __future__ import annotations
 
-import logging
+import os
+from collections import defaultdict
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..compat import jax_from_state_dict, optimizer_from_jax, optimizer_to_jax
+from ..compat import state_dict_from_jax
 from ..config import Config
 from ..data.loader import ArrayDataset
+from ..info import COHORT2SCOPE, METRICS, MIN_MAX_VALUES
 from ..models.net import Net
 from ..utils.device import resolve_device
+from ..utils.logging import logger, timer
+from . import checkpoint as ckpt
 from .optim import LRSchedule, make_optimizer, set_learning_rate
 from .steps import eval_step, gather_batch, train_step
+from .summary import Summary
 
-log = logging.getLogger("dicl.torch")
+Batch = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
 class Trainer:
     """Interpolation-autoencoder pretraining on one device: the card unless
-    `device="cpu"`."""
+    `device="cpu"`. Writes under `exp_path`: `config.json`, `summary/`,
+    `weight/{metric}/checkpoint.npz` and `out_feat/{metric}/{cohort}.npy`."""
 
-    def __init__(self, cfg: Config, datasets: Dict[str, ArrayDataset],
-                 device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, cfg: Config, datasets: Dict[str, ArrayDataset], exp_path: str,
+                 device: Optional[Union[str, torch.device]] = None,
+                 use_tensorboard: bool = True):
         self.cfg = cfg
         self.datasets = datasets
+        self.exp_path = exp_path
         self.device = resolve_device(device)
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.net = Net(cfg, generator=init_gen).to(self.device)
         self.opt = make_optimizer(cfg, self.net.parameters())
+        self.num_updates = 0  # the JAX optimizer state's count
         self.lr_schedule = LRSchedule(cfg)
         # batch draws (fake select bits and noise, permutation, dropout)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._cohorts: Dict[str, Dict[str, torch.Tensor]] = {}
-        self.cohort_data("training")  # uploaded once, kept on the device
         self.epoch = 1
-        log.info("trainable params: %d; train samples: %d",
-                 sum(p.numel() for p in self.net.parameters()), len(datasets["training"]))
+        self.flag_dict = ckpt.FlagDict(METRICS)
+        self.weight_paths = ckpt.weight_dirs(os.path.join(exp_path, "weight"), METRICS)
+        self.summary = Summary(os.path.join(exp_path, "summary"),
+                               use_tensorboard=use_tensorboard)
+        cfg.save(exp_path)
+        n_train = len(datasets["training"]) if "training" in datasets else 0
+        if n_train:
+            self.cohort_data("training")  # uploaded once, kept on the device
+        n_params = sum(p.numel() for p in self.net.parameters())
+        logger.info("trainable params: %d; train samples: %d; ratio %.3f",
+                    n_params, n_train, n_params / max(n_train, 1))
 
     def cohort_data(self, cohort: str) -> Dict[str, torch.Tensor]:
         if cohort not in self._cohorts:
@@ -57,7 +83,36 @@ class Trainer:
             }
         return self._cohorts[cohort]
 
-    def _epoch_batches(self, epoch: int) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    # ------------------------------------------------------------- train
+    def train(self) -> Dict[str, float]:
+        """Train until `max_epochs` or early stop; returns the last
+        validation metrics (JAX `Trainer.train`)."""
+        cfg = self.cfg
+        if cfg.restore:
+            self.load_weight()
+        last_valid: Dict[str, float] = {}
+        with timer("Duration of training"):
+            while self.epoch < cfg.max_epochs:
+                is_eval = (cfg.eval_interval <= 1 or self.epoch % cfg.eval_interval == 0
+                           or self.epoch + 1 >= cfg.max_epochs)
+                logger.info("==> Epoch %d train %s", self.epoch, _fmt(self.train_one_epoch()))
+                if is_eval:
+                    last_valid, _ = self.eval_one_epoch(
+                        "valid", self.datasets["validation"], cfg.denoise)
+                    early_stop = self.aly_pred("valid", last_valid)["early_stop"]
+                else:
+                    # the epoch-indexed schedules step every epoch; plateau
+                    # needs the validation loss, so it steps at evals only
+                    if cfg.lr_decay_mode != "plateau":
+                        self._step_schedule(None)
+                    early_stop = False
+                self.epoch += 1
+                if early_stop:
+                    logger.info("======== best model: %s", self.flag_dict.to_dict())
+                    break
+        return last_valid
+
+    def _epoch_batches(self, epoch: int) -> List[Batch]:
         """The epoch's shuffled batches as (index tensor, sample mask) on the
         device. Full batches have no mask; a short final batch is padded to
         the batch size by cyclically repeating its real rows (finite values
@@ -67,7 +122,7 @@ class Trainer:
         np.random.RandomState(self.cfg.seed + epoch).shuffle(order)
         n_full = n // bs * bs
         idx = torch.as_tensor(order[:n_full], device=self.device)
-        batches = [(i, None) for i in idx.reshape(-1, bs)]
+        batches: List[Batch] = [(i, None) for i in idx.reshape(-1, bs)]
         if n_full < n:
             mask = torch.zeros(bs, dtype=torch.float32, device=self.device)
             mask[: n - n_full] = 1.0
@@ -82,36 +137,209 @@ class Trainer:
         batch = gather_batch(self.cohort_data("training"), idx)
         if sample_mask is not None:
             batch["sample_mask"] = sample_mask
-        return train_step(self.net, self.opt, self.cfg, batch, self.generator,
-                          self.cfg.denoise)
+        losses = train_step(self.net, self.opt, self.cfg, batch, self.generator,
+                            self.cfg.denoise)
+        self.num_updates += 1
+        return losses
 
-    def _end_epoch(self, valid_loss: Optional[float] = None) -> None:
-        """Advance the epoch and give the optimizer the schedule's next rate
-        ('plateau' raises without a validation loss)."""
+    def _step_schedule(self, valid_loss: Optional[float]) -> None:
+        """Step the rate schedule and give the optimizer its rate ('plateau'
+        raises without a validation loss)."""
         set_learning_rate(self.opt, self.lr_schedule.step(valid_loss))
-        self.epoch += 1
 
-    def _stream(self) -> Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    def _stream(self) -> Iterator[Batch]:
         while True:
             yield from self._epoch_batches(self.epoch)
-            self._end_epoch()
+            self._step_schedule(None)
+            self.epoch += 1
 
     def train_steps(self, n: int) -> List[Dict[str, torch.Tensor]]:
-        """Take `n` steps over the shuffled epochs; the losses stay on the
-        device."""
+        """Take `n` steps over the shuffled epochs, each epoch's end stepping
+        the schedule; the losses stay on the device. No eval, checkpoint or
+        summary: the loop of `train()` without them."""
         stream = self._stream()
         return [self.step(*next(stream)) for _ in range(n)]
 
-    def train_one_epoch(self, valid_loss: Optional[float] = None) -> Dict[str, float]:
+    def train_one_epoch(self) -> Dict[str, float]:
         """One epoch over every training encounter; returns the mean losses
-        over its batches (the masked tail counts as one, as in JAX). Then
-        the learning-rate schedule steps; `valid_loss` is the validation
-        loss that the 'plateau' mode steps on (the caller computes it)."""
-        if self.cfg.lr_decay_mode == "plateau" and valid_loss is None:
-            raise ValueError("lr_decay_mode='plateau' needs train_one_epoch(valid_loss=...)")
-        losses = [self.step(*b) for b in self._epoch_batches(self.epoch)]
-        self._end_epoch(valid_loss)
-        return {k: float(torch.stack([l[k] for l in losses]).mean()) for k in losses[0]}
+        over its batches (the masked tail counts as one, as in JAX) and
+        writes them as the summary's `train` row. Every `log_train_freq`
+        batches one step's losses are fetched for the log."""
+        batches = self._epoch_batches(self.epoch)
+        n_batches = len(batches)
+        losses = []
+        for i, (idx, mask) in enumerate(batches, start=1):
+            losses.append(self.step(idx, mask))
+            if i % self.cfg.log_train_freq == 1:
+                fetched = {k: float(v) for k, v in losses[-1].items()}
+                logger.info("%d-[%d/%d (%.0f%%)]: train-%s", self.epoch, i, n_batches,
+                            100.0 * i / n_batches, _fmt(fetched))
+                self.summary.add_summary(self.epoch * n_batches + i, scope="train_batch",
+                                         **fetched)
+        stacked = {k: torch.stack([l[k] for l in losses]).cpu().numpy() for k in losses[0]}
+        out = {k: float(np.mean(v)) for k, v in stacked.items()}
+        self.summary.add_summary(self.epoch, scope="train", **out)
+        return out
+
+    # -------------------------------------------------------------- eval
+    def eval_one_epoch(self, scope: str, ds: ArrayDataset, denoise: bool,
+                       dump_keys: Optional[Tuple[str, ...]] = None
+                       ) -> Tuple[Dict[str, float], Dict[str, list]]:
+        """Every encounter of `ds` once, in order, in batches of B: the last
+        one padded to B by repeating its real rows, `sample_mask` 1 on them.
+        The metrics are the mean over batches of each masked batch loss (JAX
+        `eval_one_epoch`); the dumps ({key: [array]} with `__index__`) hold
+        exactly the cohort's N rows. One fetch at the end."""
+        cfg = self.cfg
+        data = self.cohort_data(ds.cohort)
+        n, b = len(ds), cfg.batch_size
+        n_batches = ds.num_batches(b)
+        pending = []
+        for i in range(1, n_batches + 1):
+            start = (i - 1) * b
+            idx = np.arange(start, min(start + b, n))
+            mask = None
+            if len(idx) < b:
+                mask = torch.zeros(b, dtype=torch.float32, device=self.device)
+                mask[: len(idx)] = 1.0
+                idx = np.resize(idx, b)
+            batch = gather_batch(data, torch.as_tensor(idx, device=self.device))
+            losses, outputs = eval_step(self.net, cfg, batch, self.generator, denoise,
+                                        mask, dump_keys)
+            pending.append((losses, outputs))
+            if i % cfg.log_valid_freq == 1:
+                logger.info("%d-[%d/%d (%.0f%%)]: %s-%s", self.epoch, i, n_batches,
+                            100.0 * i / n_batches, scope,
+                            _fmt({k: float(v) for k, v in losses.items()}))
+        keys = pending[0][0].keys()
+        losses = {k: torch.stack([l[k] for l, _ in pending]).cpu().numpy() for k in keys}
+        metrics = {k: float(np.mean(v)) for k, v in losses.items()}
+        dumps: Dict[str, list] = defaultdict(list)
+        for k in pending[0][1]:
+            dumps[k].append(torch.cat([o[k] for _, o in pending])[:n].cpu().numpy())
+        dumps["__index__"].append(np.arange(n))
+        return metrics, dumps
+
+    def merge_ob_pred(self, ds: ArrayDataset, dumps: Dict[str, list]) -> Dict[str, np.ndarray]:
+        """The dumps and the cohort's planes as one dict of arrays (reference
+        merge_ob_pred, pretrain_trainer.py:406-414)."""
+        idx = np.concatenate(dumps.pop("__index__"))
+        out: Dict[str, np.ndarray] = {
+            "encounter_id": np.asarray([ds.encounter_ids[j] for j in idx]),
+            "ob": ds.ob[idx].copy(),
+            "padding_mask": ds.padding_mask[idx],
+            "timestamp": ds.timestamp[idx],
+            "ae_mask": ds.ae_mask[idx],
+        }
+        for k, v in ds.aux.items():
+            out[k] = v[idx]
+        for k, v in dumps.items():
+            out[k] = np.concatenate(v, axis=0)
+        return out
+
+    def re_norm_data(self, ob_pred: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Undo the input scaling and the min-max normalisation of `ob` and
+        `rec_ob`, in place, so that both are in physical units (reference
+        :416-429)."""
+        cfg = self.cfg
+        if cfg.norm_method != "minmax":
+            raise NotImplementedError(cfg.norm_method)
+        for k in ("ob", "rec_ob"):
+            if k not in ob_pred:  # feat_dump="lean" has no rec_ob
+                continue
+            data = ob_pred[k]
+            renorm = (data + cfg.scale / 2) / cfg.scale if cfg.scale != 0 else data
+            for i, (lo, hi) in enumerate(MIN_MAX_VALUES.values()):
+                data[:, i, :] = renorm[:, i, :] * (hi - lo) + lo
+            ob_pred[k] = data
+        return ob_pred
+
+    def eval(self, cohort: str, generate_feat: bool = False, denoise: bool = False,
+             metric: Optional[str] = None) -> Dict[str, np.ndarray]:
+        """Restore the best checkpoint of `metric` (default: the config's
+        `restore_metric`) and dump per-encounter features of `cohort`
+        (reference pretrain_trainer.py:90-117) to
+        `out_feat/{metric}/{cohort}.npy` when `generate_feat`."""
+        cfg = self.cfg
+        metric = metric or cfg.restore_metric
+        self.load_weight(metric)
+        ds = self.datasets[cohort]
+        scope = COHORT2SCOPE[cohort]
+        if cfg.evaluate_interpolation:
+            denoise = True
+        # "lean": only the key p2/p4 read from the dump; an interpolation
+        # evaluation dump exists for its reconstructions, so it stays full
+        lean = cfg.feat_dump == "lean" and not cfg.evaluate_interpolation
+        metrics, dumps = self.eval_one_epoch(scope, ds, denoise, ("hidden",) if lean else None)
+        logger.info("%s %s", scope, _fmt(metrics))
+        ob_pred = self.re_norm_data(self.merge_ob_pred(ds, dumps))
+        if generate_feat:
+            folder = os.path.join(self.exp_path, "out_feat", metric)
+            os.makedirs(folder, exist_ok=True)
+            suffix = "_interp_eval" if cfg.evaluate_interpolation else ""
+            path = os.path.join(folder, f"{cohort}{suffix}.npy")
+            np.save(path, ob_pred)  # a dict, as the reference writes it
+            logger.info("features saved to %s", path)
+        return ob_pred
+
+    # ------------------------------------------------------ aly + ckpt
+    def _ckpt_candidacy(self, metric_dict: Dict[str, float]) -> None:
+        """Save the epoch's weights under each monitored metric that
+        improved (reference pretrain_trainer.py:126-199)."""
+        improved = self.flag_dict.improved(metric_dict, self.epoch)
+        if not improved:
+            return
+        params, state = jax_from_state_dict(self.net.state_dict())
+        leaves = optimizer_to_jax(self.opt, self.net, self.num_updates)
+        for m in improved:
+            ckpt.save_checkpoint(
+                os.path.join(self.weight_paths[m], ckpt.CKPT_NAME), self.epoch, params, state,
+                leaves, extra={"lr": self.lr_schedule.lr, "metric": m,
+                               "lr_schedule": self.lr_schedule.state_dict(),
+                               "flag_dict": self.flag_dict.state_dict()})
+            logger.info("saving for %s", m)
+
+    def aly_pred(self, scope: str, metric_dict: Dict[str, float]) -> Dict[str, bool]:
+        """After a validation pass: the schedule steps on its loss, the rate
+        joins the row, the improved metrics' checkpoints are written, then
+        the summary row and the early-stop test (JAX `aly_pred`)."""
+        if scope == "valid":
+            self._step_schedule(metric_dict.get("loss"))
+            metric_dict["lr"] = self.lr_schedule.lr
+            self._ckpt_candidacy(metric_dict)
+        self.summary.add_summary(self.epoch, scope=scope, **metric_dict)
+        logger.info("%s", _fmt(metric_dict))
+        return {"early_stop": self.flag_dict.early_stop(self.epoch, self.cfg.early_stopping)}
+
+    def load_weight(self, metric: Optional[str] = None) -> None:
+        """Restore `metric`'s best checkpoint: the epoch, the weights, the
+        optimizer state (fresh if the file has none or another layout), the
+        schedule's state and rate, and the flags min-merged over every
+        metric's checkpoint (JAX `load_weight`)."""
+        metric = metric or self.cfg.restore_metric
+        path = os.path.join(self.weight_paths[metric], ckpt.CKPT_NAME)
+        if not os.path.exists(path):
+            logger.error("==> load fail: no checkpoint at %s", path)
+            return
+        template = optimizer_to_jax(self.opt, self.net, self.num_updates)
+        epoch, params, state, leaves, meta = ckpt.load_checkpoint(path, template)
+        self.epoch = epoch
+        self.net.load_state_dict(state_dict_from_jax(params, state), strict=True)
+        if leaves is not None:
+            self.num_updates = optimizer_from_jax(self.opt, self.net, leaves)
+        if "lr_schedule" in meta:
+            self.lr_schedule.load_state_dict(meta["lr_schedule"])
+        elif "lr" in meta:  # checkpoints from before the schedule's state
+            self.lr_schedule.lr = meta["lr"]
+            self.lr_schedule.num_steps = epoch
+        set_learning_rate(self.opt, self.lr_schedule.lr)
+        for d in self.weight_paths.values():
+            p = os.path.join(d, ckpt.CKPT_NAME)
+            if os.path.exists(p):
+                fd = ckpt.load_meta(p).get("flag_dict")
+                if fd:
+                    self.flag_dict.merge_state(fd)
+        logger.info("=> restored checkpoint %s (epoch %d)", path, epoch)
 
     def eval_batch(self, cohort: str = "validation",
                    idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -124,3 +352,12 @@ class Trainer:
         _, outputs = eval_step(self.net, self.cfg, gather_batch(data, idx),
                                self.generator, self.cfg.denoise)
         return outputs["hidden"]
+
+    def close(self) -> None:
+        """Close the summary's files."""
+        self.summary.close()
+
+
+def _fmt(d: Dict[str, float], decimals: int = 4) -> Dict[str, float]:
+    return {k: (round(v, decimals) if isinstance(v, float) and k != "lr" else v)
+            for k, v in d.items()}

@@ -80,12 +80,13 @@ print("ok", len({modules!r}))
     assert res.stdout.startswith("ok")
 
 
-def test_trainer_without_device_raises_when_no_card(monkeypatch):
+def test_trainer_without_device_raises_when_no_card(monkeypatch, tmp_path):
     """No device given means the card; without one the trainer raises and
     does not fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Trainer(Config(batch_size=2, num_timestamps=8, lstm_hidden=4, head_hidden=4), {})
+        Trainer(Config(batch_size=2, num_timestamps=8, lstm_hidden=4, head_hidden=4), {},
+                str(tmp_path))
 
 
 def _fake_cuda_args(wrapper):

@@ -150,8 +150,8 @@ def test_clip_matches_optax_rule():
     torch.testing.assert_close(p.grad, torch.tensor([3.0, 4.0, 0.0]), rtol=0, atol=0)
 
 
-def test_trainer_cpu_steps_and_eval():
-    """The lean trainer on the CPU: steps change every parameter, losses are
+def test_trainer_cpu_steps_and_eval(tmp_path):
+    """The trainer on the CPU: steps change every parameter, losses are
     finite, an epoch runs, eval gives (B, 2H) latents."""
     _, cfg = configs()
     cohorts = port_process_splits(
@@ -159,7 +159,7 @@ def test_trainer_cpu_steps_and_eval():
         rng=np.random.RandomState(0),
     )
     ds = {c: ArrayDataset(cfg, d, c) for c, d in cohorts.items()}
-    tr = Trainer(cfg, ds, device="cpu")
+    tr = Trainer(cfg, ds, str(tmp_path), device="cpu")
     before = {n: p.detach().clone() for n, p in tr.net.named_parameters()}
     losses = tr.train_steps(3)
     assert all(torch.isfinite(v) for step in losses for v in step.values())
@@ -211,7 +211,7 @@ def test_masked_tail_step_matches_jax():
                                        err_msg=name)
 
 
-def test_trainer_epoch_visits_every_encounter_once(monkeypatch):
+def test_trainer_epoch_visits_every_encounter_once(monkeypatch, tmp_path):
     """42 training encounters at B=8: five full batches and a masked tail of
     2 real rows padded by repeating them. `train_one_epoch` and the
     `train_steps` stream each visit every training index exactly once."""
@@ -223,7 +223,7 @@ def test_trainer_epoch_visits_every_encounter_once(monkeypatch):
     ds = {c: ArrayDataset(cfg, d, c) for c, d in cohorts.items()}
     n = len(ds["training"])
     assert n % cfg.batch_size == 2
-    tr = Trainer(cfg, ds, device="cpu")
+    tr = Trainer(cfg, ds, str(tmp_path), device="cpu")
     seen = []
     step = tr.step
     monkeypatch.setattr(tr, "step", lambda idx, mask=None: seen.append((idx, mask))
