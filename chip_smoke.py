@@ -13,8 +13,9 @@ not 0):
                h0/c0; the packed select, the SCI forward and backward and
                the RBF push at the scaled B=4096, T=48 too), timed with CUDA
                events beside a PyTorch library call; the select also at
-               T = 256, 354, 512 and 1024 and the packed select at T = 16,
-               96 and 192 (`by_t`, the select's layouts are read off these);
+               T = 256, 354, 512, 1024, 2048 and 4096 (the last two walked
+               by a block of 8 warps) and the packed select at T = 16, 48,
+               96 and 192 (`by_t`, each beside `torch.sort` of its bits);
                the selects, the SCI forward and the RBF push also on one
                encounter's rows (`few_rows_ms`, a call's fixed cost); the
                SCI forward and the biLSTM kernels must repeat bit for bit
@@ -27,10 +28,20 @@ not 0):
   6. plain   - one train step with the kernels and one with their plain
                versions, from the same weights and draws, must agree; so
                must one masked tail step at the scaled configuration
-Then a `{"kernels": [...]}` line, the card's name and power limit from
+  7. p1      - the p1 entry point (`cli.p1.main`) at the default Config on
+               synthetic T=354 pickles of 2,100 training encounters (each
+               epoch ends in a 52-row masked tail step): two epochs with
+               validation, the best checkpoints of loss and ae_mse, the six
+               feature dumps (every encounter once, finite), a restore into
+               a fresh Trainer that gives the dump's latents again (1e-6),
+               and a resume from the stored epoch and rate (--restore true
+               --max_epochs 4); the launch counters must show B1 and B3-B7
+Then a `{"kernels": [...]}` line (`launches`: the p1 phase's count, the
+scaled phase's for the packed select), the card's name and power limit from
 nvidia-smi, and as the last line `{"ok": true, "device": {...}}`.
 
-Imports nothing of JAX. Needs one card; builds under build/torch_kernels/.
+Imports nothing of JAX. Needs one card; builds under build/torch_kernels/;
+the trainers' run directories are temporary ones under build/.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -66,7 +78,10 @@ SCALED_TRAIN = 3 * SCALED_B + 368
 # row lengths at which the packed select (T <= 192) and the select are held
 # against the sort oracle and timed, each on enough rows for 2^20 slots
 PACKED_T = (16, 48, 96, 192)
-SELECT_T = (256, 354, 512, 1024)
+SELECT_T = (256, 354, 512, 1024, 2048, 4096)
+# the p1 phase: 2,100 training encounters, 8 full batches and a 52-row tail
+P1_TRAIN = 2100
+P1_TOTAL = 3000
 
 
 def say(phase: str, **kw) -> None:
@@ -126,6 +141,148 @@ def params_agree(net_k, net_p, lr):
     return worst, n_viol, n_tot
 
 
+def p1_phase(root: str, smi: str) -> dict:
+    """Drive `cli.p1.main` at the default Config on synthetic T=354 pickles
+    under `root`, check what it wrote, restore and resume; returns the
+    kernels' launch counts of the phase."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch import Config
+    from deep_interpolation_clustering_tpu_torch.cli import p1
+    from deep_interpolation_clustering_tpu_torch.cli.common import (
+        build_parser, config_from_args, make_datasets, save_processed,
+    )
+    from deep_interpolation_clustering_tpu_torch.compat import optimizer_to_jax
+    from deep_interpolation_clustering_tpu_torch.data import make_synthetic_cohorts, process_splits
+    from deep_interpolation_clustering_tpu_torch.info import COHORTS
+    from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
+    from deep_interpolation_clustering_tpu_torch.train import Trainer
+    from deep_interpolation_clustering_tpu_torch.train import checkpoint as ckpt
+    from deep_interpolation_clustering_tpu_torch.train.optim import LRSchedule
+
+    base, results = os.path.join(root, "Data"), os.path.join(root, "Results")
+    width = ["--batch_size", str(B), "--num_timestamps", str(T), "--lstm_hidden", str(H),
+             "--head_hidden", str(H), "--base_path", base, "--results_path", results]
+    cfg = config_from_args(build_parser("p1").parse_args(width))
+    share = (P1_TRAIN + 0.5) / P1_TOTAL  # int(share * P1_TOTAL) = P1_TRAIN
+    cohorts = process_splits(
+        make_synthetic_cohorts(n_total=P1_TOTAL, max_obs=T, seed=cfg.seed,
+                               split=(share, (1.0 - share) / 2, (1.0 - share) / 2)),
+        rng=np.random.RandomState(4))
+    if len(cohorts["training"]["encounter_id"]) % B != P1_TRAIN % B:
+        raise AssertionError(f"p1 cohort: {len(cohorts['training']['encounter_id'])} "
+                             f"training encounters")
+    save_processed(cfg, cohorts)
+
+    # seconds of each trained epoch and of each cohort's eval (restore,
+    # forward, dump), each ended by a synchronise
+    epoch_s, eval_s = [], {}
+    train_one_epoch, evaluate = Trainer.train_one_epoch, Trainer.eval
+
+    def timed_epoch(self):
+        t0 = time.perf_counter()
+        out = train_one_epoch(self)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_eval(self, cohort, *args, **kw):
+        t0 = time.perf_counter()
+        out = evaluate(self, cohort, *args, **kw)
+        torch.cuda.synchronize()
+        eval_s.setdefault(cohort, []).append(time.perf_counter() - t0)
+        return out
+
+    Trainer.train_one_epoch, Trainer.eval = timed_epoch, timed_eval
+    cb.reset_launch_counts()
+    try:
+        exp = p1.main(width + ["--max_epochs", "3"])
+        torch.cuda.synchronize()
+    finally:
+        Trainer.train_one_epoch, Trainer.eval = train_one_epoch, evaluate
+    launches = {w.name: w.launches for w in cb.KERNELS}
+    n_batches = -(-P1_TRAIN // B)
+    if len(epoch_s) != 2:
+        raise AssertionError(f"p1 trained {len(epoch_s)} epochs, expected 2")
+
+    events = os.path.join(exp, "summary", "events.jsonl")
+    with open(events) as f:
+        rows = [json.loads(line) for line in f]
+    got = [(r["scope"], r["step"]) for r in rows if r["scope"] in ("train", "valid")]
+    if got != [("train", 1), ("valid", 1), ("train", 2), ("valid", 2)]:
+        raise AssertionError(f"p1 summary rows: {got}")
+    for r in rows:
+        if not all(np.isfinite(v) for k, v in r.items() if k not in ("scope", "step")):
+            raise AssertionError(f"p1 summary row not finite: {r}")
+    # a fresh trainer over the same run directory: each checkpoint loads
+    # with its optimizer state
+    fresh = Trainer(cfg, make_datasets(cfg), exp, device="cuda")
+    metas = {}
+    for m in ("loss", "ae_mse"):
+        path = os.path.join(exp, "weight", m, ckpt.CKPT_NAME)
+        metas[m] = ckpt.load_meta(path)
+        epoch, _, _, leaves, _ = ckpt.load_checkpoint(
+            path, optimizer_to_jax(fresh.opt, fresh.net, 0))
+        if leaves is None or epoch not in (1, 2) or metas[m]["metric"] != m:
+            raise AssertionError(f"p1 checkpoint {m}: epoch {epoch}, optimizer "
+                                 f"{'missing' if leaves is None else 'present'}")
+    dumps = {}
+    for m in ("loss", "ae_mse"):
+        for cohort in COHORTS:
+            d = np.load(os.path.join(exp, "out_feat", m, f"{cohort}.npy"),
+                        allow_pickle=True).item()
+            ids = list(cohorts[cohort]["encounter_id"])
+            n = len(ids)
+            if list(d["encounter_id"]) != ids or len(set(d["encounter_id"])) != n:
+                raise AssertionError(f"p1 dump {m}/{cohort}: not every encounter once")
+            for k, shape in (("hidden", (n, 2 * H)), ("rec_ob", (n, C, T))):
+                if d[k].shape != shape or not np.isfinite(d[k]).all():
+                    raise AssertionError(f"p1 dump {m}/{cohort} {k}: shape {d[k].shape}, "
+                                         f"finite {bool(np.isfinite(d[k]).all())}")
+            dumps[m, cohort] = d
+
+    # the ae_mse checkpoint restored into the fresh trainer gives the dump's
+    # validation latents again
+    again = fresh.eval("validation", metric="ae_mse")
+    fresh.close()
+    restore_err = float(np.abs(again["hidden"] - dumps["ae_mse", "validation"]["hidden"]).max())
+    if not restore_err <= 1e-6:
+        raise AssertionError(f"p1 restore: hidden differs from the dump by {restore_err}")
+
+    # resume from the ae_mse checkpoint: the stored epoch, the stored rate
+    with open(events) as f:
+        n_rows = len(f.readlines())
+    stored = metas["ae_mse"]
+    exp2 = p1.main(width + ["--max_epochs", "4", "--restore", "true"])
+    torch.cuda.synchronize()
+    launches = {w.name: w.launches for w in cb.KERNELS}
+    with open(events) as f:
+        resumed = [json.loads(line) for line in f][n_rows:]
+    want_epochs = list(range(stored["epoch"], 4))
+    sched = LRSchedule(cfg)
+    sched.load_state_dict(stored["lr_schedule"])
+    want_lr = [sched.step(None) for _ in want_epochs]
+    got_train = [r["step"] for r in resumed if r["scope"] == "train"]
+    got_lr = [r["lr"] for r in resumed if r["scope"] == "valid"]
+    if exp2 != exp or got_train != want_epochs or got_lr != want_lr:
+        raise AssertionError(f"p1 resume from epoch {stored['epoch']}: trained {got_train}, "
+                             f"rates {got_lr}, expected {want_epochs}, {want_lr}")
+
+    need = ("fake_select", "sci_forward", "sci_backward", "rbf_push", "lstm_forward",
+            "lstm_backward")
+    missing = [k for k in need if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"p1: kernels never launched on the path: {missing}")
+    mean_epoch = float(np.mean(epoch_s))
+    say("p1", batch=B, T=T, train_encounters=P1_TRAIN, steps_per_epoch=n_batches,
+        epoch_s=json.dumps([round(x, 4) for x in epoch_s]),
+        encounters_per_s=f"{P1_TRAIN / mean_epoch:.1f}",
+        eval_s=json.dumps({k: [round(x, 4) for x in v] for k, v in eval_s.items()}),
+        restore_err=f"{restore_err:.3g}", resumed_from=stored["epoch"],
+        launches=json.dumps(launches), card=repr(smi))
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -153,6 +310,9 @@ def main() -> None:
     )
     from deep_interpolation_clustering_tpu_torch.utils import resolve_device
     from deep_interpolation_clustering_tpu_torch.utils.cuda_timing import time_ms
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    run_root = tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build"))
 
     dev = resolve_device("cuda")  # TF32 off
     kind = torch.cuda.get_device_name(0)
@@ -384,9 +544,12 @@ def main() -> None:
                     raise AssertionError(f"{name} at T={t_sel} differs from {other} at "
                                          f"{int((got != want).sum())} slots")
             by_t[t_sel] = dict(
-                rows=rows_t, ms=time_ms(lambda: fn(bits_t, nv_t, k_t)),
+                rows=rows_t, layout=list(cs.select_layout(t_sel)),
+                ms=time_ms(lambda: fn(bits_t, nv_t, k_t)),
+                library_ms=time_ms(lambda: torch.sort(bits_t, dim=-1)),
                 bound_ms=bound(rows_t * t_sel * (4 + 1) + rows_t * 8, 0, 0)[0])
             say("select", kernel=name, T=t_sel, rows=rows_t, ms=f"{by_t[t_sel]['ms']:.4f}",
+                library_ms=f"{by_t[t_sel]['library_ms']:.4f}",
                 bound_ms=f"{by_t[t_sel]['bound_ms']:.4f}")
         report[name]["by_t"] = by_t
     del got, want, wants, bits_t, nv_t, k_t
@@ -500,7 +663,8 @@ def main() -> None:
 
     # ------------------------------------------------------------ 4. main path
     trainer = Trainer(cfg, {"training": datasets["training"],
-                            "validation": datasets["validation"]}, device=dev)
+                            "validation": datasets["validation"]},
+                      os.path.join(run_root.name, "main"), device=dev)
     before = {n: p.detach().clone() for n, p in trainer.net.named_parameters()}
     cb.reset_launch_counts()
     losses = trainer.train_steps(2)  # warm-up (cuBLAS, allocator)
@@ -534,7 +698,8 @@ def main() -> None:
         latent=tuple(latent.shape), launches=json.dumps(launches), card=repr(smi))
 
     # ------------------------------------------------------ 5. scaled path
-    strainer = Trainer(scfg, {"training": sdata}, device=dev)
+    strainer = Trainer(scfg, {"training": sdata}, os.path.join(run_root.name, "scaled"),
+                       device=dev)
     sbefore = {n: p.detach().clone() for n, p in strainer.net.named_parameters()}
     n_batches = len(strainer._epoch_batches(strainer.epoch))
     if n_batches != 4:
@@ -561,6 +726,7 @@ def main() -> None:
     short = {k: (slaunches[k], n) for k, n in sneed.items() if slaunches[k] < n}
     if short:
         raise AssertionError(f"scaled kernel launches below the path's count: {short}")
+    strainer.close()
     say("scaled", batch=SCALED_B, T=SCALED_T, encounters=SCALED_TRAIN, steps=n_batches,
         loss=f"{epoch_losses['loss']:.5f}", epoch_s=f"{dt_s:.4f}",
         encounters_per_s=f"{SCALED_TRAIN / dt_s:.1f}", launches=json.dumps(slaunches),
@@ -602,17 +768,24 @@ def main() -> None:
     say("plain", max_param_diff=f"{worst:.3g}", beyond_1e5=f"{n_viol}/{n_tot}",
         loss=f"{loss:.6f}", tail_max_param_diff=f"{t_worst:.3g}",
         tail_beyond_1e5=f"{t_viol}/{t_tot}", tail_loss=f"{t_loss:.6f}")
+    trainer.close()
+    del trainer, sbatch, sarrays
+
+    # --------------------------------------------------------- 7. p1 entry point
+    p1_launches = p1_phase(os.path.join(run_root.name, "p1"), smi)
+    run_root.cleanup()
 
     kernels = []
     for w in cb.KERNELS:
         r = report[w.name]
         # each kernel's count from the path that runs it: the scaled path
-        # for the packed select (T <= 192), the main path for the others
-        path_launches = slaunches if w.name == "fake_select_packed" else launches
+        # for the packed select (T <= 192), the p1 entry point for the others
+        path_launches = slaunches if w.name == "fake_select_packed" else p1_launches
         kernels.append({
             "name": w.name, "route": "cuda", "source": w.source, "replaces": w.replaces,
-            "launches": path_launches[w.name], "launches_main": launches[w.name],
-            "launches_scaled": slaunches[w.name], "max_abs_err": r["max_abs_err"],
+            "launches": path_launches[w.name], "launches_p1": p1_launches[w.name],
+            "launches_main": launches[w.name], "launches_scaled": slaunches[w.name],
+            "max_abs_err": r["max_abs_err"],
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -128,6 +128,7 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
 
 def main() -> None:
     import subprocess
+    import tempfile
 
     from ..config import Config
     from ..data import ArrayDataset, make_synthetic_cohorts, process_splits
@@ -139,7 +140,9 @@ def main() -> None:
     cohorts = process_splits(
         make_synthetic_cohorts(n_total=2927, max_obs=cfg.num_timestamps, seed=cfg.seed),
         rng=np.random.RandomState(0))
-    trainer = Trainer(cfg, {"training": ArrayDataset(cfg, cohorts["training"], "training")})
+    run_dir = tempfile.TemporaryDirectory()
+    trainer = Trainer(cfg, {"training": ArrayDataset(cfg, cohorts["training"], "training")},
+                      run_dir.name)
     trainer.train_steps(3)  # warm-up: kernel build, cuBLAS, allocator
     stream = trainer._stream()
     step = lambda: trainer.step(*next(stream))
@@ -160,6 +163,8 @@ def main() -> None:
     # is read against `step_ms`
     prof = out["profile"]
     out["device_idle_share_at_step_ms"] = 1.0 - prof["device_busy_ms"] / prof["window_steps"] / step_ms
+    trainer.close()
+    run_dir.cleanup()
     print(json.dumps(out, indent=1))
 
 
