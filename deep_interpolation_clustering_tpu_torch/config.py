@@ -179,16 +179,13 @@ class Config:
         kw.update(overrides)
         return cls(**kw)
 
-    def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
-
     def save(self, run_dir: str, name: str = "config") -> str:
         """Write `{run_dir}/{name}.json`, which the JAX `Config.load` reads
         (it keeps the fields it knows, and knows every field here)."""
         os.makedirs(run_dir, exist_ok=True)
         path = os.path.join(run_dir, f"{name}.json")
         with open(path, "w") as f:
-            f.write(self.to_json())
+            f.write(json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True))
         return path
 
     @classmethod

@@ -17,19 +17,17 @@ from ..info import METRICS, SUMMARY_ITEMS
 
 class Summary:
     def __init__(self, log_dir: str, metric_items: Sequence[str] = METRICS,
-                 summary_items: Sequence[str] = SUMMARY_ITEMS, use_tensorboard: bool = True):
+                 summary_items: Sequence[str] = SUMMARY_ITEMS):
         self.metric_items = set(metric_items)
         self.summary_items = set(summary_items)
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
         self._tb = None
-        if use_tensorboard:
-            try:
-                from tensorboardX import SummaryWriter
-            except ImportError:  # optional, as in the JAX package
-                SummaryWriter = None
-            if SummaryWriter is not None:
-                self._tb = SummaryWriter(log_dir)
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:  # optional, as in the JAX package
+            return
+        self._tb = SummaryWriter(log_dir)
 
     def add_summary(self, step: int, **kwargs) -> None:
         scope = kwargs.get("scope", "")

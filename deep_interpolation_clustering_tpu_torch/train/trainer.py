@@ -48,8 +48,7 @@ class Trainer:
     `weight/{metric}/checkpoint.npz` and `out_feat/{metric}/{cohort}.npy`."""
 
     def __init__(self, cfg: Config, datasets: Dict[str, ArrayDataset], exp_path: str,
-                 device: Optional[Union[str, torch.device]] = None,
-                 use_tensorboard: bool = True):
+                 device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.datasets = datasets
         self.exp_path = exp_path
@@ -65,8 +64,7 @@ class Trainer:
         self.epoch = 1
         self.flag_dict = ckpt.FlagDict(METRICS)
         self.weight_paths = ckpt.weight_dirs(os.path.join(exp_path, "weight"), METRICS)
-        self.summary = Summary(os.path.join(exp_path, "summary"),
-                               use_tensorboard=use_tensorboard)
+        self.summary = Summary(os.path.join(exp_path, "summary"))
         cfg.save(exp_path)
         n_train = len(datasets["training"]) if "training" in datasets else 0
         if n_train:
@@ -176,8 +174,7 @@ class Trainer:
                             100.0 * i / n_batches, _fmt(fetched))
                 self.summary.add_summary(self.epoch * n_batches + i, scope="train_batch",
                                          **fetched)
-        stacked = {k: torch.stack([l[k] for l in losses]).cpu().numpy() for k in losses[0]}
-        out = {k: float(np.mean(v)) for k, v in stacked.items()}
+        out = _batch_means(losses)
         self.summary.add_summary(self.epoch, scope="train", **out)
         return out
 
@@ -211,9 +208,7 @@ class Trainer:
                 logger.info("%d-[%d/%d (%.0f%%)]: %s-%s", self.epoch, i, n_batches,
                             100.0 * i / n_batches, scope,
                             _fmt({k: float(v) for k, v in losses.items()}))
-        keys = pending[0][0].keys()
-        losses = {k: torch.stack([l[k] for l, _ in pending]).cpu().numpy() for k in keys}
-        metrics = {k: float(np.mean(v)) for k, v in losses.items()}
+        metrics = _batch_means([losses for losses, _ in pending])
         dumps: Dict[str, list] = defaultdict(list)
         for k in pending[0][1]:
             dumps[k].append(torch.cat([o[k] for _, o in pending])[:n].cpu().numpy())
@@ -254,23 +249,24 @@ class Trainer:
             ob_pred[k] = data
         return ob_pred
 
-    def eval(self, cohort: str, generate_feat: bool = False, denoise: bool = False,
+    def eval(self, cohort: str, generate_feat: bool = False,
              metric: Optional[str] = None) -> Dict[str, np.ndarray]:
         """Restore the best checkpoint of `metric` (default: the config's
         `restore_metric`) and dump per-encounter features of `cohort`
         (reference pretrain_trainer.py:90-117) to
-        `out_feat/{metric}/{cohort}.npy` when `generate_feat`."""
+        `out_feat/{metric}/{cohort}.npy` when `generate_feat`; with
+        `evaluate_interpolation` the inputs are the held-out (denoised) ones
+        and the file is `{cohort}_interp_eval.npy`."""
         cfg = self.cfg
         metric = metric or cfg.restore_metric
         self.load_weight(metric)
         ds = self.datasets[cohort]
         scope = COHORT2SCOPE[cohort]
-        if cfg.evaluate_interpolation:
-            denoise = True
         # "lean": only the key p2/p4 read from the dump; an interpolation
         # evaluation dump exists for its reconstructions, so it stays full
         lean = cfg.feat_dump == "lean" and not cfg.evaluate_interpolation
-        metrics, dumps = self.eval_one_epoch(scope, ds, denoise, ("hidden",) if lean else None)
+        metrics, dumps = self.eval_one_epoch(scope, ds, cfg.evaluate_interpolation,
+                                             ("hidden",) if lean else None)
         logger.info("%s %s", scope, _fmt(metrics))
         ob_pred = self.re_norm_data(self.merge_ob_pred(ds, dumps))
         if generate_feat:
@@ -356,6 +352,13 @@ class Trainer:
     def close(self) -> None:
         """Close the summary's files."""
         self.summary.close()
+
+
+def _batch_means(losses: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """The mean over batches of each loss, fetched from the device at once."""
+    keys = list(losses[0])
+    table = torch.stack([torch.stack([l[k] for k in keys]) for l in losses]).cpu().numpy()
+    return {k: float(np.mean(table[:, j], dtype=np.float64)) for j, k in enumerate(keys)}
 
 
 def _fmt(d: Dict[str, float], decimals: int = 4) -> Dict[str, float]:

@@ -1,4 +1,4 @@
 from .device import disable_tf32, resolve_device
-from .logging import get_logger, logger, timer
+from .logging import logger, timer
 
-__all__ = ["disable_tf32", "get_logger", "logger", "resolve_device", "timer"]
+__all__ = ["disable_tf32", "logger", "resolve_device", "timer"]

@@ -11,23 +11,15 @@ import time
 from contextlib import contextmanager
 
 
-def get_logger(log_level: str = "INFO") -> logging.Logger:
-    lg = logging.getLogger("dicl.torch")
-    if not getattr(lg, "handler_set", None):
-        formatter = logging.Formatter(
-            "%(asctime)s %(levelname)s - %(funcName)s(%(lineno)d): %(message)s", "%H:%M:%S"
-        )
-        lg.setLevel(log_level.upper())
-        stream = logging.StreamHandler()
-        stream.setLevel(log_level.upper())
-        stream.setFormatter(formatter)
-        lg.addHandler(stream)
-        lg.handler_set = True
-        lg.propagate = False
-    return lg
-
-
-logger = get_logger("INFO")
+logger = logging.getLogger("dicl.torch")
+if not getattr(logger, "handler_set", None):
+    _stream = logging.StreamHandler()
+    _stream.setFormatter(logging.Formatter(
+        "%(asctime)s %(levelname)s - %(funcName)s(%(lineno)d): %(message)s", "%H:%M:%S"))
+    logger.setLevel(logging.INFO)
+    logger.addHandler(_stream)
+    logger.handler_set = True
+    logger.propagate = False
 
 
 def _fmt(diff: float) -> str:

@@ -119,7 +119,7 @@ def _tiny_trainer(tmp_path, **kw):
         rng=np.random.RandomState(0),
     )
     ds = {c: ArrayDataset(cfg, d, c) for c, d in cohorts.items()}
-    return cfg, Trainer(cfg, ds, str(tmp_path), device="cpu", use_tensorboard=False)
+    return cfg, Trainer(cfg, ds, str(tmp_path), device="cpu")
 
 
 def _group_rates(tr):

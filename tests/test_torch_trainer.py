@@ -68,9 +68,8 @@ def pair(tmp_path_factory):
     jcfg = JConfig(**SMALL)
     cfg = _port_cfg(jcfg)
     jds, ds = _datasets(_cohorts(jcfg.num_timestamps), jcfg, cfg)
-    jtr = JTrainer(jcfg, jds, str(tmp_path_factory.mktemp("jax")), use_tensorboard=False)
-    tr = Trainer(cfg, ds, str(tmp_path_factory.mktemp("port")), device="cpu",
-                 use_tensorboard=False)
+    jtr = JTrainer(jcfg, jds, str(tmp_path_factory.mktemp("jax")))
+    tr = Trainer(cfg, ds, str(tmp_path_factory.mktemp("port")), device="cpu")
     tr.net.load_state_dict(state_dict_from_jax(jtr.params, jtr.state), strict=True)
     assert len(ds["validation"]) % cfg.batch_size != 0
     jmetrics, jdumps = jtr.eval_one_epoch("valid", jds["validation"], False)
@@ -147,8 +146,7 @@ def test_feat_dump_keys_full_and_lean(pair, tmp_path):
                                   dump_keys=("hidden", "cluster_pred", "cluster_label"))
     want = sorted(jtr.merge_ob_pred(jds, jlean))
     cfg = pair["cfg"].replace(feat_dump="lean")
-    tr = Trainer(cfg, {"validation": pair["ds"]["validation"]}, str(tmp_path), device="cpu",
-                 use_tensorboard=False)
+    tr = Trainer(cfg, {"validation": pair["ds"]["validation"]}, str(tmp_path), device="cpu")
     tr.net.load_state_dict(pair["tr"].net.state_dict())
     lean = tr.eval("validation", generate_feat=True, metric="ae_mse")
     tr.close()
@@ -167,7 +165,7 @@ def trained(tmp_path_factory):
     cfg = _port_cfg(jcfg)
     _, ds = _datasets(_cohorts(jcfg.num_timestamps, n_total=40), jcfg, cfg)
     exp = str(tmp_path_factory.mktemp("trained"))
-    tr = Trainer(cfg, ds, exp, device="cpu", use_tensorboard=False)
+    tr = Trainer(cfg, ds, exp, device="cpu")
     last = tr.train()
     tr.close()
     return dict(tr=tr, ds=ds, exp=exp, cfg=cfg, jcfg=jcfg, last=last)
@@ -205,8 +203,7 @@ def _jax_opt_template(jcfg):
 def test_restore_resumes_schedule_flags_and_optimizer(trained):
     cfg, exp, ds = trained["cfg"], trained["exp"], trained["ds"]
     meta = ckpt.load_meta(os.path.join(exp, "weight", "ae_mse", ckpt.CKPT_NAME))
-    tr = Trainer(cfg.replace(restore=True, max_epochs=4), ds, exp, device="cpu",
-                 use_tensorboard=False)
+    tr = Trainer(cfg.replace(restore=True, max_epochs=4), ds, exp, device="cpu")
     tr.load_weight()  # restore_metric = ae_mse
     assert tr.epoch == meta["epoch"]
     assert tr.lr_schedule.state_dict() == meta["lr_schedule"]
@@ -246,8 +243,8 @@ def test_epoch_loop_control_matches_jax(kw, tmp_path):
     jcfg = JConfig(**SMALL, max_epochs=12, fused_epoch=False, **kw)
     cfg = _port_cfg(jcfg)
     jds, ds = _datasets(_cohorts(jcfg.num_timestamps, n_total=30), jcfg, cfg)
-    jtr = JTrainer(jcfg, jds, str(tmp_path / "jax"), use_tensorboard=False)
-    tr = Trainer(cfg, ds, str(tmp_path / "port"), device="cpu", use_tensorboard=False)
+    jtr = JTrainer(jcfg, jds, str(tmp_path / "jax"))
+    tr = Trainer(cfg, ds, str(tmp_path / "port"), device="cpu")
     traces = {}
     for name, t, rate in (("jax", jtr, lambda: get_learning_rate(jtr.opt_state)),
                           ("port", tr, lambda: tr.opt.param_groups[0]["lr"])):
