@@ -1,6 +1,6 @@
 """Port of the training step (forward, losses, backward, global-norm clip,
 amsgrad Adam with L2 weight decay) vs the JAX package's `_make_update` with
-`make_optimizer`, on the CPU at a small width, plus the lean trainer.
+`make_optimizer`, on the CPU at a small width, plus the trainer.
 
 Both sides start from the same weights and take the same inputs: each step
 the port's `update` gets the `build_inputs` outputs JAX computes inside its
