@@ -705,6 +705,7 @@ def main() -> None:
     if n_batches != 4:
         raise AssertionError(f"scaled epoch: {n_batches} batches, expected 3 + the tail")
     warm = strainer.train_one_epoch()  # warm-up: allocator, cuBLAS at B=4096
+    strainer.epoch += 1  # the second epoch's shuffle (the rate is the same)
     torch.cuda.synchronize()
     cb.reset_launch_counts()
     t0 = time.perf_counter()
