@@ -3,8 +3,9 @@ name map in the JAX `compat/torch_import.py`).
 
 `state_dict_from_jax(params, state)` turns the JAX parameter and state
 pytrees (nested dicts of arrays) into the port's `Net.state_dict()`, whose
-keys are the reference torch model's names; `jax_from_state_dict` is the
-inverse. Works on NumPy-convertible values, so JAX itself is not needed.
+keys are the reference torch model's names (the DEC centres, JAX
+`params["cluster_centers"]`, are `cluster_assignment.cluster_centers`);
+`jax_from_state_dict` is the inverse. Works on NumPy-convertible values, so JAX itself is not needed.
 
 `optimizer_to_jax` and `optimizer_from_jax` carry a torch optimizer's state
 to and from the flat leaves of the JAX optimizer state
@@ -17,7 +18,7 @@ one raveled parameter vector), in the order `tree_leaves` gives them:
 
 The counts are int32 scalars, the rate a float32 scalar, and each vector
 holds every parameter in the order `ravel_pytree` gives the JAX params:
-dict keys sorted at every level.
+dict keys sorted at every level (the centres between `cci` and `decoder`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 _HEADS = ("predict_future", "aux_head", "fake_det_head")
+_CENTERS = "cluster_assignment.cluster_centers"
 
 
 def _t(v) -> torch.Tensor:
@@ -68,6 +70,8 @@ def state_dict_from_jax(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
     for name in _HEADS:
         if name in params:
             head(f"{name}.model", params[name], state[name], 3)
+    if "cluster_centers" in params:
+        sd[_CENTERS] = _t(params["cluster_centers"])
     return sd
 
 
@@ -106,6 +110,8 @@ def jax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     for name in _HEADS:
         if f"{name}.model.0.weight" in sd:
             params[name], state[name] = head(f"{name}.model", 3)
+    if _CENTERS in sd:
+        params["cluster_centers"] = _np(sd[_CENTERS])
     return params, state
 
 

@@ -4,10 +4,12 @@
 It carries the fields the ported p1 stage reads (the step, the trainer and
 its CLI), with the JAX `Config`'s defaults, loads a `config.json` written by
 the JAX `Config` and writes one (`save`) that the JAX `Config.load` reads.
+It also carries the DEC fields of p3 and the final-label fields of p4.
 Fields of the JAX config that only steer the TPU build (Pallas switches, XLA
 matmul precision, scan unrolling, PRNG implementation, mesh layout,
 multi-host, compilation cache) or belong to stages not ported yet are
-accepted on load and ignored with one log line.
+accepted on load and ignored with one log line. `compute_dtype` is read:
+the port computes in float32 only, and any other value raises.
 
 Matmul precision: the port runs float32 matmuls in full float32 on the
 card (TF32 off, `utils.device.resolve_device`); that is its counterpart of
@@ -22,7 +24,7 @@ import json
 import logging
 import os
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 log = logging.getLogger("dicl.torch")
 
@@ -35,13 +37,8 @@ _IGNORED = (
     "sci_share_weights", "data_parallel", "num_processes", "process_id",
     "coordinator_address",
     # options and stages the port has not reached yet (ROADMAP.md, queue A)
-    "fused_heads", "compute_dtype", "dc_restore_metric", "cluster_number",
-    "dec_alpha", "init_cluster_center", "stopping_delta", "stopping_mode",
-    "stopping_count", "stopping_patience", "update_interval", "pipeline_delta",
-    "kmeans_n_init", "kmeans_impl", "dbscan_impl", "k_max",
-    "select_opt_k", "n_init", "gap_b", "gap_subsample", "opt_eps",
-    "internal_metrics", "overwrite", "cluster_method", "num_clusters",
-    "dl_cluster_label_type",
+    "fused_heads", "dbscan_impl", "k_max", "select_opt_k", "n_init", "gap_b",
+    "gap_subsample", "opt_eps", "internal_metrics", "overwrite",
 )
 
 
@@ -54,6 +51,8 @@ class Config:
     restore: bool = False
     # metric whose best checkpoint a restore reads (reference p1:33-34)
     restore_metric: str = "ae_mse"
+    # metric whose best checkpoint a DEC restore reads (reference p3:29)
+    dc_restore_metric: str = "ae_mse"
     log_train_freq: int = 20
     log_valid_freq: int = 20
 
@@ -83,6 +82,30 @@ class Config:
     triple_margin: float = 0.0
     triple_pos_std: float = 0.1
     rbf_basis: str = "gaussian"
+
+    # ---- clustering (DEC, p3) -----------------------------------------
+    cluster_number: int = 4
+    dec_alpha: float = 1.0
+    init_cluster_center: str = "kmeans"  # kmeans | random | none
+    stopping_delta: Optional[float] = 1e-4
+    # checked every update_interval-th epoch: "delta" stops when the
+    # fraction of changed validation labels < stopping_delta (the
+    # reference's rule), "count" when their number <= stopping_count,
+    # "patience" when the running delta minimum has not improved for
+    # stopping_patience checks
+    stopping_mode: str = "delta"
+    stopping_count: int = 0
+    stopping_patience: int = 20
+    update_interval: int = 1
+    # read and without effect: in the JAX package it lags the delta fetch of
+    # the fused epoch's deferred cadence, bit-identical to the plain loop by
+    # construction; the port has no fused epoch, so its loop is that plain one
+    pipeline_delta: bool = False
+    kmeans_n_init: int = 20
+    # "device": k-means on the latents' device (cluster/kmeans.py);
+    # "sklearn": the NumPy mirror of sklearn.KMeans's random path
+    # (cluster/sklearn_compat.py)
+    kmeans_impl: str = "device"
 
     # ---- learning ------------------------------------------------------
     loss: str = "ae_mse_sup_fake_detect"
@@ -115,6 +138,13 @@ class Config:
     eval_interval: int = 1
     # bit width of the fake-select keys and noise draws; only 32 is ported
     rng_draw_bits: int = 32
+    # the forward's compute dtype: the port computes in float32 only
+    compute_dtype: str = "float32"
+
+    # ---- final labels (p4) --------------------------------------------
+    cluster_method: str = "kmeans"  # kmeans | dbscan | dl | consensus
+    num_clusters: int = 4
+    dl_cluster_label_type: str = "pred"  # pred | label
 
     # ---- paths ---------------------------------------------------------
     base_path: str = "Data"
@@ -148,6 +178,8 @@ class Config:
         "lr_decay_mode": ("step", "plateau", "warmup"),
         "rng_draw_bits": (32, 16),
         "feat_dump": ("full", "lean"),
+        "stopping_mode": ("delta", "count", "patience"),
+        "kmeans_impl": ("device", "sklearn"),
     }
     _MIN_ONE = ("eval_interval", "batch_size", "num_timestamps", "max_epochs")
 
@@ -159,6 +191,9 @@ class Config:
         for name in self._MIN_ONE:
             if getattr(self, name) < 1:
                 raise ValueError(f"Config.{name}={getattr(self, name)} must be >= 1")
+        if self.compute_dtype != "float32":
+            raise ValueError(f"Config.compute_dtype={self.compute_dtype!r}: the port "
+                             f"computes in float32 only")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -1,5 +1,6 @@
 """Losses and the loss-mode dispatch (counterpart of the JAX
-`models/losses.py`). The KL and triplet terms come with the p3 slice."""
+`models/losses.py`, reference pretrain_interp.py:169-215 and
+clustering_interp.py:197-247)."""
 
 from __future__ import annotations
 
@@ -77,6 +78,35 @@ def fake_det_loss(label: torch.Tensor, log_probs: torch.Tensor,
     return {"fake_detection": -_masked_mean(picked, row_mask)}
 
 
+def kl_loss(label: torch.Tensor, pred: torch.Tensor,
+            sample_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Batch-mean KL(p || q), torch's `F.kl_div(pred.log(), label,
+    reduction='batchmean')` (reference clustering_interp.py:205-207), in
+    the xlogy form so that a label of 0 gives 0; the mean runs over the
+    rows `sample_mask` marks real."""
+    pointwise = torch.xlogy(label, label) - label * torch.log(pred)
+    per_row = torch.sum(pointwise, dim=1)
+    if sample_mask is None:
+        return {"kl": torch.sum(per_row) / label.shape[0]}
+    per_row = torch.where(sample_mask > 0, per_row, torch.zeros_like(per_row))
+    return {"kl": torch.sum(per_row) / torch.sum(sample_mask)}
+
+
+def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor, negative: torch.Tensor,
+                 margin: float, sample_mask: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """torch's `F.triplet_margin_loss`: mean(relu(d(a, p) - d(a, n) +
+    margin)), d the L2 distance with eps 1e-6 added to the difference
+    (reference clustering_interp.py:234-236)."""
+    eps = 1e-6
+
+    def dist(a, b):
+        return torch.sqrt(torch.sum(torch.square(a - b + eps), dim=-1))
+
+    losses = torch.relu(dist(anchor, positive) - dist(anchor, negative) + margin)
+    return {"triplet": _masked_mean(losses, sample_mask)}
+
+
 def multi_task_loss(task_weights: Dict[str, float],
                     rec_loss_dict: Dict[str, torch.Tensor],
                     aux_loss_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -103,8 +133,6 @@ def compute_losses(
 ) -> Dict[str, torch.Tensor]:
     """Dispatch on `cfg.loss_components`."""
     comps = cfg.loss_components
-    if comps & {"kl", "triplet"}:
-        raise NotImplementedError("the kl and triplet losses come with the p3 slice")
     rec = rec_loss(ob, net_out.rec, padding_mask, sample_mask)
     if not comps:
         return rec
@@ -119,5 +147,16 @@ def compute_losses(
         task_weights.update(cfg.unsup_aux_tasks)
         task_losses.update(
             fake_det_loss(fake_det_label, net_out.aux["fake_det"], fake_row_mask)
+        )
+    if "triplet" in comps:
+        task_weights.update(cfg.unsup_aux_tasks)
+        task_losses.update(
+            triplet_loss(net_out.hidden, net_out.aux["positive"], net_out.aux["negative"],
+                         cfg.triple_margin, sample_mask)
+        )
+    if "kl" in comps:
+        task_weights.update(cfg.unsup_aux_tasks)
+        task_losses.update(
+            kl_loss(net_out.aux["cluster_label"], net_out.aux["cluster_pred"], sample_mask)
         )
     return multi_task_loss(task_weights, rec, task_losses)

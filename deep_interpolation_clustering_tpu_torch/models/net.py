@@ -6,10 +6,12 @@
           -> CompressFC -> RBF push back onto the observed timestamps
   + FuturePredFc (sigmoid), AuxFc (binary outcome logits),
     FakeDetFc (log-softmax real/fake over the permuted real+fake latents)
+  + with `clustering=True` the DEC head: Student-t soft assignments of the
+    latent to the cluster centres, and their target distribution
 
+The real, fake and triplet-positive streams go through one batched encode.
 `Net`'s `state_dict()` keys are the reference torch model's names
-(pretrain_interp.py:90-167). The DEC head and the triplet stream come with
-the p3 slice.
+(pretrain_interp.py:90-167, clustering_interp.py:134-189).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops import cuda_interp
+from ..ops.dec import centers_init, soft_assignment, target_distribution
 from ..ops.interpolation import (
     Planes,
     cci_forward,
@@ -57,14 +60,22 @@ class _RNN(nn.Module):
         self.lstm = LSTMWeights(input_size, hidden)
 
 
-class Net(nn.Module):
-    """Pretraining network. Parameters are drawn from `generator` (torch's
-    default inits; the SCI and RBF kernels ~ U[0,1), CCI = identity)."""
+class _ClusterAssignment(nn.Module):
+    """The DEC head: the (K, 2H) cluster centres."""
 
-    def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
+    def __init__(self, cluster_number: int, dim: int):
         super().__init__()
-        if cfg.triple_margin != 0.0:
-            raise NotImplementedError("the triplet stream comes with the p3 slice")
+        self.cluster_centers = nn.Parameter(torch.empty((cluster_number, dim)))
+
+
+class Net(nn.Module):
+    """The network of p1 and, with `clustering=True`, of p3. Parameters are
+    drawn from `generator` (torch's default inits; the SCI and RBF kernels
+    ~ U[0,1), CCI = identity, the centres Xavier-uniform)."""
+
+    def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None,
+                 clustering: bool = False):
+        super().__init__()
         self.cfg = cfg
         c, h, latent = cfg.num_variables, cfg.lstm_hidden, cfg.dim_enc_hidden
         self.sci = _KernelLayer((c,))
@@ -79,6 +90,8 @@ class Net(nn.Module):
             self.aux_head = Head(latent, cfg.head_hidden, len(self.aux_task_names))
         if cfg.fake_detection:
             self.fake_det_head = Head(latent, cfg.head_hidden, 2)
+        if clustering:
+            self.cluster_assignment = _ClusterAssignment(cfg.cluster_number, latent)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
@@ -90,6 +103,10 @@ class Net(nn.Module):
         self.rbf.reset_parameters(generator)
         for head in self._heads():
             head.reset_parameters(generator)
+        if hasattr(self, "cluster_assignment"):
+            with torch.no_grad():
+                self.cluster_assignment.cluster_centers.copy_(centers_init(
+                    self.cfg.cluster_number, self.cfg.dim_enc_hidden, generator))
 
     def _heads(self) -> List[Head]:
         return [getattr(self, n) for n in ("predict_future", "aux_head", "fake_det_head")
@@ -103,13 +120,26 @@ class Net(nn.Module):
         if use_kernels:
             # one K2 launch per stream (no dedup), as the JAX Pallas path
             return [cuda_interp.sci(kernel, p.ob, p.mask, p.ts, r, hours) for p in streams]
-        # plain path: streams sharing (mask, ts) share the SCI weights
-        # (the JAX default `sci_share_weights`)
-        if len(streams) > 1 and all(
-            p.mask is streams[0].mask and p.ts is streams[0].ts for p in streams
-        ):
-            return sci_forward_multi(kernel, streams, r, hours)
-        return [sci_forward(kernel, p, r, hours) for p in streams]
+        # plain path: streams sharing (mask, ts) share the SCI weights (the
+        # JAX default `sci_share_weights`): the real and fake streams do,
+        # the triplet positive (jittered timestamps) does not
+        groups: List[List[int]] = []
+        for i, p in enumerate(streams):
+            for g in groups:
+                if p.mask is streams[g[0]].mask and p.ts is streams[g[0]].ts:
+                    g.append(i)
+                    break
+            else:
+                groups.append([i])
+        reps: List[torch.Tensor] = [None] * len(streams)
+        for g in groups:
+            if len(g) == 1:
+                reps[g[0]] = sci_forward(kernel, streams[g[0]], r, hours)
+            else:
+                for i, rep in zip(g, sci_forward_multi(kernel, [streams[i] for i in g],
+                                                       r, hours)):
+                    reps[i] = rep
+        return reps
 
     def _encode_rep(self, rep: torch.Tensor, use_kernels: bool):
         rep = cci_forward(self.cci.kernel, rep)
@@ -130,17 +160,21 @@ class Net(nn.Module):
         sample_mask: Optional[torch.Tensor] = None,
         use_kernels: bool = True,
     ) -> NetOutput:
-        """Full forward (reference pretrain_interp.py:130-167). `generator`
-        draws the dropout masks in train mode. `use_kernels=False` runs the
-        plain PyTorch versions of the kernels on any device."""
-        if positive_x is not None:
-            raise NotImplementedError("the triplet stream comes with the p3 slice")
+        """Full forward (reference pretrain_interp.py:130-167,
+        clustering_interp.py:134-189). `positive_x`, the triplet positive,
+        is encoded when `triple_margin` is not 0 and the fake stream is on.
+        `generator` draws the dropout masks in train mode.
+        `use_kernels=False` runs the plain PyTorch versions of the kernels
+        on any device."""
         cfg = self.cfg
         c, r = cfg.num_variables, cfg.ref_points
         x = to_planes(x, c)
         b = x.ob.shape[0]
         use_fake = cfg.fake_detection and fake_x is not None and fake_perm_idx is not None
+        use_triplet = use_fake and cfg.triple_margin != 0.0 and positive_x is not None
         streams = [x] + ([to_planes(fake_x, c)] if use_fake else [])
+        if use_triplet:
+            streams.append(to_planes(positive_x, c))
 
         # every stream through ONE encode: each encode op is per sample, so
         # this equals separate passes (net.py:212-244)
@@ -181,4 +215,12 @@ class Net(nn.Module):
                 fake_mask = torch.cat([sample_mask, sample_mask])[fake_perm_idx]
             logits = self.fake_det_head(pos_neg, rate, train, generator, fake_mask)
             aux["fake_det"] = torch.log_softmax(logits, dim=1)
+            if use_triplet:
+                aux["positive"] = cat_all[2 * b:]
+                aux["negative"] = cat_all[b: 2 * b]
+        if hasattr(self, "cluster_assignment"):
+            q = soft_assignment(self.cluster_assignment.cluster_centers, cat_hidden,
+                                cfg.dec_alpha)
+            aux["cluster_pred"] = q
+            aux["cluster_label"] = target_distribution(q, sample_mask).detach()
         return NetOutput(cat_hidden, rec, aux)

@@ -38,14 +38,16 @@ def build_inputs(
     """Assemble the model inputs from a batch (reference
     pretrain_trainer.py:130-185): re-masked `ob`, optional denoising
     (`ob * ae_mask` as input, the loss target stays `ob`), the fake batch
-    and the permuted real/fake labels.
+    and the permuted real/fake labels, and with `triple_margin` the triplet
+    positive: the re-masked real stream jittered with std `triple_pos_std`,
+    never denoised (JAX `steps.py:110-116`).
 
     `draws` may hold any of `aug_noise`, `fake_bits`, `fake_noise`,
-    `fake_aug_noise` ((B, C, T) or (2, B, C, T) tensors) and `perm` ((2B,)
-    int64); what it lacks is drawn from `generator` in that order.
+    `fake_aug_noise`, `pos_noise` ((B, C, T) or (2, B, C, T) tensors) and
+    `perm` ((2B,) int64); what it lacks is drawn from `generator` in the
+    order `aug_noise`, `fake_bits`, `fake_noise`, `fake_aug_noise`, `perm`,
+    `pos_noise`.
     """
-    if cfg.triple_margin != 0.0:
-        raise NotImplementedError("the triplet stream comes with the p3 slice")
     draws = draws or {}
     ob_raw = batch["ob"]
     padding_mask = batch["padding_mask"]
@@ -70,6 +72,7 @@ def build_inputs(
         "fake_perm_idx": None,
         "fake_det_label": None,
         "fake_row_mask": None,
+        "positive_x": None,
         "sample_mask": sample_mask,
     }
     if cfg.fake_detection:
@@ -93,6 +96,10 @@ def build_inputs(
         out["fake_det_label"] = label[perm]
         if sample_mask is not None:
             out["fake_row_mask"] = torch.cat([sample_mask, sample_mask])[perm]
+        if cfg.triple_margin != 0.0:
+            pos_ob, pos_ts = augment_batch(ob, timestamp, padding_mask, cfg.triple_pos_std,
+                                           draws.get("pos_noise"), generator)
+            out["positive_x"] = Planes(pos_ob, padding_mask, pos_ts, ae_mask)
 
     out["aux_label"] = {t: batch[t] for t in cfg.aux_tasks if t in batch}
     out["future_vital_mask"] = batch.get("future_vital_mask")
@@ -102,7 +109,8 @@ def build_inputs(
 def forward_and_losses(net: Net, cfg: Config, inputs: Dict[str, Any], train: bool,
                        generator: Optional[torch.Generator], use_kernels: bool = True):
     net_out = net(
-        inputs["x"], inputs["fake_x"], inputs["fake_perm_idx"], train=train,
+        inputs["x"], inputs["fake_x"], inputs["fake_perm_idx"], inputs["positive_x"],
+        train=train,
         generator=generator, sample_mask=inputs["sample_mask"], use_kernels=use_kernels,
     )
     losses = compute_losses(
@@ -152,7 +160,9 @@ def eval_step(net: Net, cfg: Config, batch: Dict[str, torch.Tensor],
     inputs = build_inputs(cfg, batch, generator, False, denoise)
     net_out, losses = forward_and_losses(net, cfg, inputs, False, None)
     outputs = {"hidden": net_out.hidden, "rec_ob": net_out.rec}
-    outputs.update({k: v for k, v in net_out.aux.items() if k != "fake_det"})
+    # the fake-detection and triplet outputs are not per encounter
+    outputs.update({k: v for k, v in net_out.aux.items()
+                    if k not in ("fake_det", "positive", "negative")})
     if dump_keys is not None:
         outputs = {k: v for k, v in outputs.items() if k in dump_keys}
     return losses, outputs

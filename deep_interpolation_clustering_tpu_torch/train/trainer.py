@@ -47,6 +47,9 @@ class Trainer:
     `device="cpu"`. Writes under `exp_path`: `config.json`, `summary/`,
     `weight/{metric}/checkpoint.npz` and `out_feat/{metric}/{cohort}.npy`."""
 
+    # the DEC head (`ClusterTrainer`)
+    clustering = False
+
     def __init__(self, cfg: Config, datasets: Dict[str, ArrayDataset], exp_path: str,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
@@ -54,7 +57,7 @@ class Trainer:
         self.exp_path = exp_path
         self.device = resolve_device(device)
         init_gen = torch.Generator().manual_seed(cfg.seed)
-        self.net = Net(cfg, generator=init_gen).to(self.device)
+        self.net = Net(cfg, generator=init_gen, clustering=self.clustering).to(self.device)
         self.opt = make_optimizer(cfg, self.net.parameters())
         self.num_updates = 0  # the JAX optimizer state's count
         self.lr_schedule = LRSchedule(cfg)
@@ -180,13 +183,16 @@ class Trainer:
 
     # -------------------------------------------------------------- eval
     def eval_one_epoch(self, scope: str, ds: ArrayDataset, denoise: bool,
-                       dump_keys: Optional[Tuple[str, ...]] = None
+                       dump_keys: Optional[Tuple[str, ...]] = None,
+                       device_dumps: bool = False
                        ) -> Tuple[Dict[str, float], Dict[str, list]]:
         """Every encounter of `ds` once, in order, in batches of B: the last
         one padded to B by repeating its real rows, `sample_mask` 1 on them.
         The metrics are the mean over batches of each masked batch loss (JAX
         `eval_one_epoch`); the dumps ({key: [array]} with `__index__`) hold
-        exactly the cohort's N rows. One fetch at the end."""
+        exactly the cohort's N rows. One fetch at the end; with
+        `device_dumps` the dumps stay on the device as tensors (for a
+        consumer that runs there: p3's k-means and label delta)."""
         cfg = self.cfg
         data = self.cohort_data(ds.cohort)
         n, b = len(ds), cfg.batch_size
@@ -211,7 +217,8 @@ class Trainer:
         metrics = _batch_means([losses for losses, _ in pending])
         dumps: Dict[str, list] = defaultdict(list)
         for k in pending[0][1]:
-            dumps[k].append(torch.cat([o[k] for _, o in pending])[:n].cpu().numpy())
+            rows = torch.cat([o[k] for _, o in pending])[:n]
+            dumps[k].append(rows if device_dumps else rows.cpu().numpy())
         dumps["__index__"].append(np.arange(n))
         return metrics, dumps
 
@@ -258,15 +265,16 @@ class Trainer:
         `evaluate_interpolation` the inputs are the held-out (denoised) ones
         and the file is `{cohort}_interp_eval.npy`."""
         cfg = self.cfg
-        metric = metric or cfg.restore_metric
+        metric = metric or self.restore_metric
         self.load_weight(metric)
         ds = self.datasets[cohort]
         scope = COHORT2SCOPE[cohort]
-        # "lean": only the key p2/p4 read from the dump; an interpolation
+        # "lean": only the keys p2/p4 read from the dump; an interpolation
         # evaluation dump exists for its reconstructions, so it stays full
         lean = cfg.feat_dump == "lean" and not cfg.evaluate_interpolation
-        metrics, dumps = self.eval_one_epoch(scope, ds, cfg.evaluate_interpolation,
-                                             ("hidden",) if lean else None)
+        metrics, dumps = self.eval_one_epoch(
+            scope, ds, cfg.evaluate_interpolation,
+            ("hidden", "cluster_pred", "cluster_label") if lean else None)
         logger.info("%s %s", scope, _fmt(metrics))
         ob_pred = self.re_norm_data(self.merge_ob_pred(ds, dumps))
         if generate_feat:
@@ -279,6 +287,11 @@ class Trainer:
         return ob_pred
 
     # ------------------------------------------------------ aly + ckpt
+    @property
+    def restore_metric(self) -> str:
+        """The metric whose best checkpoint `eval` and `load_weight` read."""
+        return self.cfg.restore_metric
+
     def _ckpt_candidacy(self, metric_dict: Dict[str, float]) -> None:
         """Save the epoch's weights under each monitored metric that
         improved (reference pretrain_trainer.py:126-199)."""
@@ -312,7 +325,7 @@ class Trainer:
         optimizer state (fresh if the file has none or another layout), the
         schedule's state and rate, and the flags min-merged over every
         metric's checkpoint (JAX `load_weight`)."""
-        metric = metric or self.cfg.restore_metric
+        metric = metric or self.restore_metric
         path = os.path.join(self.weight_paths[metric], ckpt.CKPT_NAME)
         if not os.path.exists(path):
             logger.error("==> load fail: no checkpoint at %s", path)

@@ -16,13 +16,26 @@ repeat bit for bit. The LSTM backward recomputes the gates' products as one
 sum over k where the forward adds four splits, so its gates differ from the
 forward's by float32 rounding: the gradient tolerance covers that at every
 shape here.
+
+The p3 path too: B6/B7 at the triplet encoder's 3 x 256 rows, the k-means on
+the card against the same code on the CPU, and one DEC step (with and
+without the triplet stream) with the kernels against one without.
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 from deep_interpolation_clustering_tpu_torch import Config
+from deep_interpolation_clustering_tpu_torch.cluster import kmeans as km
+from deep_interpolation_clustering_tpu_torch.data import (
+    ArrayDataset,
+    make_synthetic_cohorts,
+    process_splits,
+)
+from deep_interpolation_clustering_tpu_torch.data.loader import draw_bits
 from deep_interpolation_clustering_tpu_torch.models import Net
 from deep_interpolation_clustering_tpu_torch.ops import cuda_interp as ci
 from deep_interpolation_clustering_tpu_torch.ops import cuda_lstm as cl
@@ -32,6 +45,12 @@ from deep_interpolation_clustering_tpu_torch.ops.interpolation import (
     Planes,
     reference_times,
     sci_forward,
+)
+from deep_interpolation_clustering_tpu_torch.train import (
+    build_inputs,
+    gather_batch,
+    make_optimizer,
+    update,
 )
 from deep_interpolation_clustering_tpu_torch.utils import resolve_device
 
@@ -384,3 +403,97 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         cs.fake_select_packed(torch.zeros((2, 193), dtype=torch.int32, device=dev), n, n)
     with pytest.raises(ValueError, match="H <= 256"):
         cl.lstm_forward(*_lstm_inputs(2, 3, 264, False, dev))
+
+
+def test_lstm_at_the_triplet_encoder_shape(dev):
+    """p3 with the triplet stream runs the encoder on real, fake and
+    positive rows at once: B = 3 x 256 without state."""
+    ins = _lstm_inputs(6, 768, 128, False, dev, seed=9)
+    got = cl.lstm_forward(*ins)
+    want = cl.recurrence_plain(*ins)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+    for a, a2 in zip(got, cl.lstm_forward(*ins)):
+        assert torch.equal(a, a2)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cots = [torch.randn(w.shape, generator=gen, device=dev) for w in want]
+    w_hh = ins[2].transpose(1, 2).contiguous()
+    got_g = cl.lstm_backward(*ins[:3], w_hh, *ins[3:], *got, *cots)
+    want_g = cl._recurrence_bwd_plain(*ins[:3], w_hh, *ins[3:], *want, *cots)
+    for name, a, w in zip(("dxgf", "dxgb", "dw_hhT", "db_hh", "dh0", "dc0"), got_g, want_g):
+        assert _rel_err(a, w) <= 1e-4, name
+
+
+def _blobs(n, k, d, seed):
+    rng = np.random.RandomState(seed)
+    means = rng.randn(k, d).astype(np.float32) * 4
+    lab = rng.randint(0, k, n)
+    return (means[lab] + rng.randn(n, d).astype(np.float32) * 0.5).astype(np.float32)
+
+
+def test_kmeans_on_the_card_matches_the_cpu(dev):
+    """The same code on the card and on the CPU: Lloyd from the same
+    centres gives identical labels and n_iter, centres within 1e-5; a
+    fit's draws differ between the two generators, so its partition is
+    compared up to a relabelling, each centre within 1e-5 of its match."""
+    x = _blobs(3000, 4, 256, seed=1)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(dev)
+    init = xc[[0, 1, 2, 3]]
+    tol = 1e-4 * torch.mean(torch.var(xc, dim=0, correction=0))
+    cpu = km._lloyd(xc, init, 300, tol)
+    card = km._lloyd(xg, init.to(dev), 300, tol.to(dev))
+    assert torch.equal(card[1].cpu(), cpu[1]) and int(card[3]) == int(cpu[3])
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(km.kmeans_predict(cpu[0].to(dev), xg).cpu(),
+                       km.kmeans_predict(cpu[0], xc))
+    fit_c = km.kmeans_fit(torch.Generator().manual_seed(0), xc, 4, n_init=20)
+    fit_g = km.kmeans_fit(torch.Generator(device=dev).manual_seed(0), xg, 4, n_init=20)
+    assert fit_g.centers.is_cuda and fit_g.labels.is_cuda
+    lc, lg = fit_c.labels.numpy(), fit_g.labels.cpu().numpy()
+    match = {int(a): int(b) for a, b in zip(lg, lc)}
+    assert len(match) == 4 and len(set(match.values())) == 4
+    np.testing.assert_array_equal(np.vectorize(match.get)(lg), lc)
+    for a, b in match.items():
+        torch.testing.assert_close(fit_g.centers[a].cpu(), fit_c.centers[b], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("triplet", [False, True], ids=["kl", "kl_triplet"])
+def test_dec_train_step_kernels_match_plain(dev, triplet):
+    """One DEC update (the p3 loss; with the triplet stream, the encoder at
+    3 x B rows) with the kernels and one with their plain versions, from
+    the same weights and draws: losses within 1e-5 and parameters under
+    the Adam eps-regime rule (at most 0.01% of elements beyond 1e-5, none
+    beyond 2 x lr)."""
+    b, t, c = 32, 354, 6
+    cfg = Config(batch_size=b, num_timestamps=t, dropout=0.0,
+                 loss="ae_mse_sup_fake_detect_kl" + ("_triplet" if triplet else ""),
+                 triple_margin=1.0 if triplet else 0.0)
+    cohorts = process_splits(make_synthetic_cohorts(n_total=60, max_obs=t, seed=2),
+                             rng=np.random.RandomState(0))
+    data = {k: torch.as_tensor(v, device=dev)
+            for k, v in ArrayDataset(cfg, cohorts["training"], "training").arrays().items()}
+    batch = gather_batch(data, torch.arange(b, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    draws = {"fake_bits": draw_bits((b, c, t), gen, dev),
+             "fake_noise": torch.rand((b, c, t), generator=gen, device=dev),
+             "perm": torch.randperm(2 * b, generator=gen, device=dev),
+             "pos_noise": torch.randn((2, b, c, t), generator=gen, device=dev)}
+    net_k = Net(cfg, generator=torch.Generator().manual_seed(4), clustering=True).to(dev)
+    net_p = copy.deepcopy(net_k)
+    losses = {}
+    for use_kernels, net in ((True, net_k), (False, net_p)):
+        inputs = build_inputs(cfg, batch, None, True, False, draws, use_kernels)
+        losses[use_kernels] = update(net, make_optimizer(cfg, net.parameters()), cfg, inputs,
+                                     None, use_kernels)
+    assert "kl" in losses[True] and ("triplet" in losses[True]) == triplet
+    for k, v in losses[False].items():
+        assert abs(float(losses[True][k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), k
+    plain = dict(net_p.named_parameters())
+    n_viol = n_tot = 0
+    for n, p in net_k.named_parameters():
+        d = (p.detach() - plain[n].detach()).abs()
+        assert float(d.max()) <= 2 * cfg.init_lr, n
+        n_viol += int((d > 1e-5 + 1e-5 * plain[n].detach().abs()).sum())
+        n_tot += d.numel()
+    assert n_viol <= max(1, n_tot // 10_000)
