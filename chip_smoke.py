@@ -27,7 +27,10 @@ not 0):
                368-encounter tail; the second is timed and counted
   6. plain   - one train step with the kernels and one with their plain
                versions, from the same weights and draws, must agree; so
-               must one masked tail step at the scaled configuration
+               must one masked tail step at the scaled configuration, one
+               DEC step (the p3 loss, with the KL term and the centres) and
+               one DEC step with the triplet stream on, whose encoder runs
+               B6/B7 at 3 x 256 rows
   7. p1      - the p1 entry point (`cli.p1.main`) at the default Config on
                synthetic T=354 pickles of 2,100 training encounters (each
                epoch ends in a 52-row masked tail step): two epochs with
@@ -36,9 +39,23 @@ not 0):
                a fresh Trainer that gives the dump's latents again (1e-6),
                and a resume from the stored epoch and rate (--restore true
                --max_epochs 4); the launch counters must show B1 and B3-B7
+  8. p3      - the p3 entry point (`cli.p3.main`) at the default Config from
+               the p1 run: the partial restore takes every p1 leaf bit for
+               bit, k-means (20 restarts, K=4) runs on the card and its
+               labels are `kmeans_predict` of its centres, 3 DEC epochs with
+               their label deltas (`--stopping_delta 0`: no early stop), checkpoints of loss, ae_mse and delta,
+               nine dumps (every encounter once, finite, `cluster_pred` rows
+               summing to 1 within 1e-5); the launch counters must show B1
+               and B3-B7
+  9. p4      - the p4 entry point (`cli.p4.main`) on the p3 run with the
+               kmeans path (on the card) and the dl path: every cohort
+               labelled in [0, K), the kmeans training clusters in
+               descending mean SBP, the dl labels the argmax of the dumps'
+               `cluster_pred`
 Then a `{"kernels": [...]}` line (`launches`: the p1 phase's count, the
-scaled phase's for the packed select), the card's name and power limit from
-nvidia-smi, and as the last line `{"ok": true, "device": {...}}`.
+scaled phase's for the packed select; `launches_p3`: the p3 phase's), the
+card's name and power limit from nvidia-smi, and as the last line
+`{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX. Needs one card; builds under build/torch_kernels/;
 the trainers' run directories are temporary ones under build/.
@@ -280,7 +297,195 @@ def p1_phase(root: str, smi: str) -> dict:
         eval_s=json.dumps({k: [round(x, 4) for x in v] for k, v in eval_s.items()}),
         restore_err=f"{restore_err:.3g}", resumed_from=stored["epoch"],
         launches=json.dumps(launches), card=repr(smi))
-    return launches
+    return launches, dict(exp=exp, width=width, cohorts=cohorts, results=results)
+
+
+def p3_phase(run: dict, smi: str) -> dict:
+    """Drive `cli.p3.main` at the default Config from the p1 phase's run
+    (its pickles and `Pretrain` checkpoints): centre init by k-means on the
+    card, 3 DEC epochs, checkpoints and nine dumps; returns the kernels'
+    launch counts of the phase."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.cli import p3
+    from deep_interpolation_clustering_tpu_torch.cluster.kmeans import kmeans_predict
+    from deep_interpolation_clustering_tpu_torch.compat import jax_from_state_dict
+    from deep_interpolation_clustering_tpu_torch.info import COHORTS, METRICS
+    from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
+    from deep_interpolation_clustering_tpu_torch.train import ClusterTrainer, Trainer
+    from deep_interpolation_clustering_tpu_torch.train import checkpoint as ckpt
+    from deep_interpolation_clustering_tpu_torch.train import cluster_trainer as ct
+
+    epoch_s, eval_s, pred_s, restore, fits, trainers = [], {}, [], [], [], []
+    saved = (Trainer.train_one_epoch, Trainer.eval, ClusterTrainer.generate_pred_cluster,
+             ClusterTrainer.load_pretrain_weight, ClusterTrainer.train, ct.fit_kmeans_impl)
+    train_one_epoch, evaluate, predict, load_pretrain, train, fit = saved
+
+    def timed(store, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            store.append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def timed_eval(self, cohort, *args, **kw):
+        t0 = time.perf_counter()
+        out = evaluate(self, cohort, *args, **kw)
+        torch.cuda.synchronize()
+        eval_s.setdefault(cohort, []).append(time.perf_counter() - t0)
+        return out
+
+    def checked_restore(self):
+        # every leaf of the p1 checkpoint lands bit for bit; the DEC head
+        # keeps its init
+        head = self.net.cluster_assignment.cluster_centers.detach().clone()
+        load_pretrain(self)
+        path = os.path.join(self.pretrain_exp_path, "weight", self.cfg.restore_metric,
+                            ckpt.CKPT_NAME)
+        _, p_params, p_state, _, _ = ckpt.load_checkpoint(path)
+        got_p, got_s = jax_from_state_dict(self.net.state_dict())
+        want = ckpt._flatten_nested({"params": p_params, "state": p_state})
+        got = ckpt._flatten_nested({"params": got_p, "state": got_s})
+        differ = [k for k in want if not np.array_equal(got[k], want[k])]
+        if differ or set(got) - set(want) != {"params/cluster_centers"}:
+            raise AssertionError(f"p3 partial restore: {differ} differ, extra "
+                                 f"{sorted(set(got) - set(want))}")
+        if not torch.equal(self.net.cluster_assignment.cluster_centers, head):
+            raise AssertionError("p3 partial restore moved the DEC head")
+        restore.append(len(want))
+
+    def checked_fit(cfg, seed, x, k, n_init):
+        t0 = time.perf_counter()
+        result = fit(cfg, seed, x, k, n_init)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not (isinstance(x, torch.Tensor) and x.is_cuda and result.centers.is_cuda):
+            raise AssertionError("p3 k-means did not run on the card")
+        if not torch.equal(result.labels, kmeans_predict(result.centers, x)):
+            raise AssertionError("p3 k-means labels differ from kmeans_predict of its centres")
+        fits.append(dict(seconds=dt, n_init=n_init, k=k, rows=int(x.shape[0]),
+                         n_iter=int(result.n_iter), inertia=float(result.inertia)))
+        return result
+
+    def recorded_train(self):
+        trainers.append(self)
+        return train(self)
+
+    Trainer.train_one_epoch = timed(epoch_s, train_one_epoch)
+    Trainer.eval = timed_eval
+    ClusterTrainer.generate_pred_cluster = timed(pred_s, predict)
+    ClusterTrainer.load_pretrain_weight = checked_restore
+    ClusterTrainer.train = recorded_train
+    ct.fit_kmeans_impl = checked_fit
+    cb.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        # stopping_delta 0: no label delta is below it, so the 3 epochs
+        # always run (the stop rules are held by the CPU tests)
+        exp = p3.main(run["width"] + ["--max_epochs", "4", "--stopping_delta", "0",
+                                      "--pretrain_path", run["exp"]])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    finally:
+        (Trainer.train_one_epoch, Trainer.eval, ClusterTrainer.generate_pred_cluster,
+         ClusterTrainer.load_pretrain_weight, ClusterTrainer.train, ct.fit_kmeans_impl) = saved
+    launches = {w.name: w.launches for w in cb.KERNELS}
+
+    tr = trainers[0]
+    p3_cfg = tr.cfg
+    cfg0 = type(p3_cfg)()
+    if (p3_cfg.loss, p3_cfg.cluster_number, p3_cfg.kmeans_n_init) != (
+            "ae_mse_sup_fake_detect_kl", cfg0.cluster_number, cfg0.kmeans_n_init):
+        raise AssertionError(f"p3 config: {p3_cfg.loss}, K {p3_cfg.cluster_number}, "
+                             f"n_init {p3_cfg.kmeans_n_init}")
+    if len(restore) != 1 or len(fits) != 1 or fits[0]["n_init"] != 20 or fits[0]["k"] != 4:
+        raise AssertionError(f"p3 centre init: restores {restore}, k-means fits {fits}")
+    if len(epoch_s) != 3 or len(tr.delta_history) != 3:
+        raise AssertionError(f"p3 trained {len(epoch_s)} epochs, deltas {tr.delta_history}")
+    for m in METRICS:
+        if not os.path.exists(os.path.join(exp, "weight", m, ckpt.CKPT_NAME)):
+            raise AssertionError(f"p3: no checkpoint for {m}")
+    k = p3_cfg.cluster_number
+    for m in METRICS:
+        for cohort in COHORTS:
+            d = np.load(os.path.join(exp, "out_feat", m, f"{cohort}.npy"),
+                        allow_pickle=True).item()
+            ids = list(run["cohorts"][cohort]["encounter_id"])
+            n = len(ids)
+            if list(d["encounter_id"]) != ids or len(set(d["encounter_id"])) != n:
+                raise AssertionError(f"p3 dump {m}/{cohort}: not every encounter once")
+            for key, shape in (("hidden", (n, 2 * H)), ("cluster_pred", (n, k)),
+                               ("cluster_label", (n, k))):
+                if d[key].shape != shape or not np.isfinite(d[key]).all():
+                    raise AssertionError(f"p3 dump {m}/{cohort} {key}: shape "
+                                         f"{d[key].shape}, expected {shape}, or not finite")
+            row_err = float(np.abs(d["cluster_pred"].sum(1) - 1.0).max())
+            if not row_err <= 1e-5:
+                raise AssertionError(f"p3 dump {m}/{cohort}: cluster_pred rows sum to 1 "
+                                     f"within {row_err}")
+    need = ("fake_select", "sci_forward", "sci_backward", "rbf_push", "lstm_forward",
+            "lstm_backward")
+    missing = [name for name in need if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"p3: kernels never launched on the path: {missing}")
+    n_train = len(run["cohorts"]["training"]["encounter_id"])
+    say("p3", batch=B, T=T, K=k, train_encounters=n_train, restored_leaves=restore[0],
+        kmeans=json.dumps({key: (round(v, 4) if isinstance(v, float) and key == "seconds"
+                                 else v) for key, v in fits[0].items()}),
+        deltas=json.dumps(tr.delta_history),
+        epoch_s=json.dumps([round(x, 4) for x in epoch_s]),
+        encounters_per_s=json.dumps([round(n_train / x, 1) for x in epoch_s]),
+        delta_eval_s=json.dumps([round(x, 4) for x in pred_s]),
+        eval_s=json.dumps({c: [round(x, 4) for x in v] for c, v in eval_s.items()}),
+        total_s=f"{total_s:.2f}", launches=json.dumps(launches), card=repr(smi))
+    return launches, dict(run, exp_p3=exp, k=k)
+
+
+def p4_phase(run: dict, smi: str) -> None:
+    """Drive `cli.p4.main` on the p3 phase's `Clustering` run with the
+    kmeans path (on the card) and then the dl path, and check the labels."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.cli import p4
+    from deep_interpolation_clustering_tpu_torch.info import COHORTS, METRICS
+
+    k = run["k"]
+    seconds = {}
+    out = {}
+    for method in ("kmeans", "dl"):
+        t0 = time.perf_counter()
+        out[method] = p4.main(["--cluster_method", method, "--results_path", run["results"]])
+        torch.cuda.synchronize()
+        seconds[method] = time.perf_counter() - t0
+    for method, results in out.items():
+        if sorted(results) != sorted(METRICS):
+            raise AssertionError(f"p4 {method}: metrics {sorted(results)}")
+        for m, cohorts in results.items():
+            for cohort in COHORTS:
+                labels = cohorts[cohort]
+                n = len(run["cohorts"][cohort]["encounter_id"])
+                if len(labels) != n or labels.min() < 0 or labels.max() >= k:
+                    raise AssertionError(f"p4 {method} {m}/{cohort}: {len(labels)} labels "
+                                         f"in [{labels.min()}, {labels.max()}]")
+                dump = np.load(os.path.join(run["exp_p3"], "out_feat", m, f"{cohort}.npy"),
+                               allow_pickle=True).item()
+                if method == "dl" and not np.array_equal(labels,
+                                                         np.argmax(dump["cluster_pred"], 1)):
+                    raise AssertionError(f"p4 dl {m}/{cohort}: not the argmax of cluster_pred")
+                if method == "kmeans" and cohort == "training":
+                    # the align contract: clusters in descending masked mean SBP
+                    pad = dump["padding_mask"][:, 0]
+                    sbp = (dump["ob"][:, 0] * pad).sum(1) / pad.sum(1)
+                    means = [float(sbp[labels == i].mean()) for i in np.unique(labels)]
+                    if means != sorted(means, reverse=True):
+                        raise AssertionError(f"p4 kmeans {m}: cluster SBP means {means} "
+                                             f"not descending")
+    sizes = {method: {m: np.bincount(results[m]["training"], minlength=k).tolist()
+                      for m in results} for method, results in out.items()}
+    say("p4", K=k, seconds=json.dumps({m: round(x, 4) for m, x in seconds.items()}),
+        training_cluster_sizes=json.dumps(sizes), card=repr(smi))
 
 
 def main() -> None:
@@ -555,7 +760,8 @@ def main() -> None:
     del got, want, wants, bits_t, nv_t, k_t
 
     # B6/B7 at the encoder's shape (real+fake batched, B = 2 x 256, no
-    # state) and the decoder's (B = 256, seeded with h0/c0)
+    # state), the decoder's (B = 256, seeded with h0/c0) and the encoder's
+    # with p3's triplet stream on (real+fake+positive, B = 3 x 256)
     def lstm_inputs(b, feat, with_state):
         bnd = 1.0 / np.sqrt(H)
         uni = lambda *shape: (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bnd
@@ -580,7 +786,8 @@ def main() -> None:
 
     lstm_checks = {}
     for tag, b_l, feat, with_state in (("encoder", 2 * B, 3 * C, False),
-                                       ("decoder", B, 2 * H, True)):
+                                       ("decoder", B, 2 * H, True),
+                                       ("encoder_triplet", 3 * B, 3 * C, False)):
         ins, w = lstm_inputs(b_l, feat, with_state)
         outs = cl.lstm_forward(*ins)
         want = cl.recurrence_plain(*ins)
@@ -735,8 +942,9 @@ def main() -> None:
     del strainer
 
     # ------------------------------------------------- 6. main path vs plain
-    def kernel_vs_plain_step(cfg0, batch, draws):
-        net_k = Net(cfg0, generator=torch.Generator().manual_seed(1)).to(dev)
+    def kernel_vs_plain_step(cfg0, batch, draws, clustering=False):
+        net_k = Net(cfg0, generator=torch.Generator().manual_seed(1),
+                    clustering=clustering).to(dev)
         net_p = copy.deepcopy(net_k)
         out = {}
         for use_kernels, net in ((True, net_k), (False, net_p)):
@@ -749,12 +957,15 @@ def main() -> None:
                 raise AssertionError(f"loss {k}: kernels {a} vs plain {b_}")
         return (*params_agree(net_k, net_p, cfg0.init_lr), float(out[True]["loss"]))
 
-    def step_draws(b, t_len):
-        return {
+    def step_draws(b, t_len, triplet=False):
+        draws = {
             "fake_bits": draw_bits((b, C, t_len), gen, dev),
             "fake_noise": torch.rand((b, C, t_len), generator=gen, device=dev),
             "perm": torch.randperm(2 * b, generator=gen, device=dev),
         }
+        if triplet:
+            draws["pos_noise"] = torch.randn((2, b, C, t_len), generator=gen, device=dev)
+        return draws
 
     worst, n_viol, n_tot, loss = kernel_vs_plain_step(cfg.replace(dropout=0.0), batch,
                                                       step_draws(B, T))
@@ -766,14 +977,49 @@ def main() -> None:
     sbatch["sample_mask"] = (torch.arange(SCALED_B, device=dev) < n_tail).float()
     t_worst, t_viol, t_tot, t_loss = kernel_vs_plain_step(
         scfg.replace(dropout=0.0), sbatch, step_draws(SCALED_B, SCALED_T))
+    # the p3 step: the DEC head and the KL term (the default p3 loss), and
+    # with the triplet stream on, which runs the encoder's B6/B7 at 3 x B rows
+    dec_cfg = cfg.replace(dropout=0.0, loss="ae_mse_sup_fake_detect_kl")
+    d_worst, d_viol, d_tot, d_loss = kernel_vs_plain_step(dec_cfg, batch, step_draws(B, T),
+                                                          clustering=True)
+    trip_cfg = dec_cfg.replace(loss="ae_mse_sup_fake_detect_kl_triplet", triple_margin=1.0)
+    # record the rows (xg's batch) of each B6/B7 launch of the triplet step
+    lstm_wrappers = [w for w in cb.KERNELS if w.name.startswith("lstm")]
+    originals = {w.name: w._launch for w in lstm_wrappers}
+    rows_seen = {w.name: [] for w in lstm_wrappers}
+
+    def recording(name):
+        def launch(*args):
+            rows_seen[name].append(args[0].shape[1])
+            return originals[name](*args)
+        return launch
+
+    for w in lstm_wrappers:
+        w._launch = recording(w.name)
+    try:
+        r_worst, r_viol, r_tot, r_loss = kernel_vs_plain_step(
+            trip_cfg, batch, step_draws(B, T, triplet=True), clustering=True)
+    finally:
+        for w in lstm_wrappers:
+            w._launch = originals[w.name]
+    if any(sorted(rows) != [B, 3 * B] for rows in rows_seen.values()):
+        raise AssertionError(f"the triplet step's B6/B7 rows: {rows_seen}, expected the "
+                             f"encoder's {3 * B} and the decoder's {B}")
     say("plain", max_param_diff=f"{worst:.3g}", beyond_1e5=f"{n_viol}/{n_tot}",
         loss=f"{loss:.6f}", tail_max_param_diff=f"{t_worst:.3g}",
-        tail_beyond_1e5=f"{t_viol}/{t_tot}", tail_loss=f"{t_loss:.6f}")
+        tail_beyond_1e5=f"{t_viol}/{t_tot}", tail_loss=f"{t_loss:.6f}",
+        dec_max_param_diff=f"{d_worst:.3g}", dec_beyond_1e5=f"{d_viol}/{d_tot}",
+        dec_loss=f"{d_loss:.6f}", triplet_max_param_diff=f"{r_worst:.3g}",
+        triplet_beyond_1e5=f"{r_viol}/{r_tot}", triplet_loss=f"{r_loss:.6f}")
     trainer.close()
     del trainer, sbatch, sarrays
 
     # --------------------------------------------------------- 7. p1 entry point
-    p1_launches = p1_phase(os.path.join(run_root.name, "p1"), smi)
+    p1_launches, run = p1_phase(os.path.join(run_root.name, "p1"), smi)
+
+    # ------------------------------------------------- 8, 9. p3 and p4 entry points
+    p3_launches, run = p3_phase(run, smi)
+    p4_phase(run, smi)
     run_root.cleanup()
 
     kernels = []
@@ -785,6 +1031,7 @@ def main() -> None:
         kernels.append({
             "name": w.name, "route": "cuda", "source": w.source, "replaces": w.replaces,
             "launches": path_launches[w.name], "launches_p1": p1_launches[w.name],
+            "launches_p3": p3_launches[w.name],
             "launches_main": launches[w.name], "launches_scaled": slaunches[w.name],
             "max_abs_err": r["max_abs_err"],
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
