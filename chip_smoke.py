@@ -9,8 +9,9 @@ not 0):
   2. build   - compile the kernels in csrc/ with nvcc for sm_90a
   3. kernels - each kernel against its plain PyTorch version at the p1
                step's shapes (B=256, C=6, T=354, R=6; the biLSTMs at R=6,
-               H=128, the encoder's B=512 and the decoder's B=256 with
-               h0/c0; the packed select, the SCI forward and backward and
+               H=128, the encoder's B=512, the decoder's B=256 with h0/c0
+               and the encoder's B=768 of p3's triplet stream
+               (`triplet_ms`); the packed select, the SCI forward and backward and
                the RBF push at the scaled B=4096, T=48 too), timed with CUDA
                events beside a PyTorch library call; the select also at
                T = 256, 354, 512, 1024, 2048 and 4096 (the last two walked
@@ -835,6 +836,7 @@ def main() -> None:
     lib_train_fwd_ms = time_ms(lambda: lib(x_lib))
     lib_fwd_bwd_ms = time_ms(lib_fwd_bwd)
     dec_ins, dec_bwd = lstm_checks["decoder"][:2]
+    trip_ins, trip_bwd = lstm_checks["encoder_triplet"][:2]
     n_bytes, n_flop, n_expf = lstm_work(R, 2 * B, H, backward=False)
     report["lstm_forward"] = dict(
         max_abs_err=max(err_f, lstm_checks["decoder"][4]),
@@ -843,6 +845,7 @@ def main() -> None:
         plain_ms=time_ms(lambda: cl.recurrence_plain(*ins)),
         library_ms=lib_fwd_ms, library="cuDNN nn.LSTM forward incl. input projection",
         decoder_ms=time_ms(lambda: cl.lstm_forward(*dec_ins)),
+        triplet_ms=time_ms(lambda: cl.lstm_forward(*trip_ins)),
         bytes=n_bytes, flop=n_flop, expf=n_expf,
     )
     n_bytes, n_flop, n_expf = lstm_work(R, 2 * B, H, backward=True)
@@ -855,6 +858,7 @@ def main() -> None:
         library_ms=lib_fwd_bwd_ms - lib_train_fwd_ms,
         library="cuDNN nn.LSTM forward+backward less its training forward",
         decoder_ms=time_ms(lambda: cl.lstm_backward(*dec_bwd)),
+        triplet_ms=time_ms(lambda: cl.lstm_backward(*trip_bwd)),
         bytes=n_bytes, flop=n_flop, expf=n_expf,
     )
     del lib, x_lib, lstm_checks
@@ -865,8 +869,8 @@ def main() -> None:
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
             library_ms=None if r["library_ms"] is None else f"{r['library_ms']:.4f}",
-            **{k: f"{r[k]:.4f}" for k in ("decoder_ms", "scaled_ms", "few_rows_ms")
-               if k in r})
+            **{k: f"{r[k]:.4f}" for k in ("decoder_ms", "triplet_ms", "scaled_ms",
+                                           "few_rows_ms") if k in r})
 
     # ------------------------------------------------------------ 4. main path
     trainer = Trainer(cfg, {"training": datasets["training"],
@@ -1037,8 +1041,8 @@ def main() -> None:
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("by_t", "few_rows_ms", "decoder_ms", "scaled_ms", "shape",
-                                 "library")
+            **{k: r[k] for k in ("by_t", "few_rows_ms", "decoder_ms", "triplet_ms",
+                                 "scaled_ms", "shape", "library")
                if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

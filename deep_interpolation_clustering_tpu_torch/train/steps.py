@@ -110,8 +110,8 @@ def forward_and_losses(net: Net, cfg: Config, inputs: Dict[str, Any], train: boo
                        generator: Optional[torch.Generator], use_kernels: bool = True):
     net_out = net(
         inputs["x"], inputs["fake_x"], inputs["fake_perm_idx"], inputs["positive_x"],
-        train=train,
-        generator=generator, sample_mask=inputs["sample_mask"], use_kernels=use_kernels,
+        train=train, generator=generator, sample_mask=inputs["sample_mask"],
+        use_kernels=use_kernels,
     )
     losses = compute_losses(
         cfg, inputs["ob"], inputs["padding_mask"], net_out, inputs["aux_label"],
