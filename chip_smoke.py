@@ -40,7 +40,25 @@ not 0):
                a fresh Trainer that gives the dump's latents again (1e-6),
                and a resume from the stored epoch and rate (--restore true
                --max_epochs 4); the launch counters must show B1 and B3-B7
-  8. p3      - the p3 entry point (`cli.p3.main`) at the default Config from
+  8. p2      - the p2 entry point (`cli.p2.main`) at the default Config
+               (k_max 10, n_init 10, gap_b 10) on the p1 run's latents of
+               metrics ae_mse and loss: elbow and gap tables for k = 2..10,
+               all finite, the suggestions in range, the fingerprint
+               sidecar, every k-means fit on the card; a second call
+               (`--select_opt_k '["gap_sts"]'`) reloads the tables with no
+               fit; then `--cluster_algo dbscan`: the k-distance graph (256
+               neighbours) and the 9-value eps sweep
+  9. p2_scale - 70,000 x 256 synthetic latents (the 100k configuration's
+               training cohort at the latent width; four blobs and uniform
+               noise on a grid of 1/16, where every squared distance is
+               exact in float32): silhouette, inertia_v1 and the Dunn index
+               at K=4, the 255th-neighbour distance and one DBSCAN
+               (min_samples 257, eps at the k-distance knee), each timed, at
+               blocks of 1,024 and 4,096 rows (DBSCAN labels identical,
+               scores within 1e-5 relative); on the first 4,000 rows each
+               held against a dense float64 evaluation on the card; the
+               peak memory
+ 10. p3      - the p3 entry point (`cli.p3.main`) at the default Config from
                the p1 run: the partial restore takes every p1 leaf bit for
                bit, k-means (20 restarts, K=4) runs on the card and its
                labels are `kmeans_predict` of its centres, 3 DEC epochs with
@@ -48,9 +66,11 @@ not 0):
                nine dumps (every encounter once, finite, `cluster_pred` rows
                summing to 1 within 1e-5); the launch counters must show B1
                and B3-B7
-  9. p4      - the p4 entry point (`cli.p4.main`) on the p3 run with the
-               kmeans path (on the card) and the dl path: every cohort
-               labelled in [0, K), the kmeans training clusters in
+ 11. p4      - the p4 entry point (`cli.p4.main`) on the p3 run with the
+               kmeans path (on the card), the dl path and the dbscan path
+               (on the card, at an `--opt_eps` where every cohort has a
+               cluster): kmeans and dl labels in [0, K), dbscan labels in
+               [-1, n_clusters), the kmeans and dbscan training clusters in
                descending mean SBP, the dl labels the argmax of the dumps'
                `cluster_pred`
 Then a `{"kernels": [...]}` line (`launches`: the p1 phase's count, the
@@ -100,6 +120,11 @@ SELECT_T = (256, 354, 512, 1024, 2048, 4096)
 # the p1 phase: 2,100 training encounters, 8 full batches and a 52-row tail
 P1_TRAIN = 2100
 P1_TOTAL = 3000
+# the p2_scale phase: the 100k configuration's training cohort (70,000 of
+# 100,000 encounters) at the latent width, and its first rows held against
+# a dense float64 evaluation
+P2_SCALE_N = 70_000
+P2_DENSE_N = 4_000
 
 
 def say(phase: str, **kw) -> None:
@@ -301,6 +326,266 @@ def p1_phase(root: str, smi: str) -> dict:
     return launches, dict(exp=exp, width=width, cohorts=cohorts, results=results)
 
 
+def p2_phase(run: dict, smi: str, dev) -> None:
+    """Drive `cli.p2.main` at the default Config on the p1 phase's
+    `Pretrain` run: the k-means sweeps (elbow, gap), a second call that
+    reloads the gap tables with no fit, then the DBSCAN explorer. Times the
+    fits, the inertia sweeps and the internal metrics apart."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch import Config
+    from deep_interpolation_clustering_tpu_torch.cli import p2
+    from deep_interpolation_clustering_tpu_torch.cluster import kmeans as km
+    from deep_interpolation_clustering_tpu_torch.cluster import optk
+
+    cfg0 = Config()
+    ks = list(range(2, cfg0.k_max + 1))
+    n_train = len(run["cohorts"]["training"]["encounter_id"])
+    spent = {}  # seconds of each call, by what was called
+    rounds = []  # Lloyd rounds of each fit, each ending in a host read
+    saved = (optk.kmeans_fit, optk.inertia_v1, optk.compute_internal_metrics, km._lloyd,
+             optk.KSelection.elbow, optk.KSelection.gap_statistic,
+             optk.DbscanExplorer.k_distance_graph, optk.DbscanExplorer.eps_sweep)
+    fit, inertia, metrics, lloyd, elbow, gap, kdist, sweep = saved
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def checked_fit(generator, x, k, n_init=10):
+        if x.device.type != dev.type or generator.device.type != dev.type:
+            raise AssertionError(f"p2 k-means on {x.device}, generator on {generator.device}")
+        return fit(generator, x, k, n_init=n_init)
+
+    def counted_lloyd(*args):
+        out = lloyd(*args)
+        rounds.append(int(out[3].max()) + 1)
+        return out
+
+    optk.kmeans_fit = timed("fit", checked_fit)
+    optk.inertia_v1 = timed("inertia", inertia)
+    optk.compute_internal_metrics = timed("metrics", metrics)
+    km._lloyd = counted_lloyd
+    optk.KSelection.elbow = timed("elbow", elbow)
+    optk.KSelection.gap_statistic = timed("gap", gap)
+    optk.DbscanExplorer.k_distance_graph = timed("k_distance", kdist)
+    optk.DbscanExplorer.eps_sweep = timed("eps_sweep", sweep)
+    calls, fits = {}, {}
+    try:
+        for name, extra in (("kmeans", []), ("reload", ["--select_opt_k", '["gap_sts"]']),
+                            ("dbscan", ["--cluster_algo", "dbscan"])):
+            before = len(spent.get("fit", []))
+            calls[name] = timed(name, p2.main)(["--results_path", run["results"], *extra])
+            fits[name] = len(spent.get("fit", [])) - before
+    finally:
+        (optk.kmeans_fit, optk.inertia_v1, optk.compute_internal_metrics, km._lloyd,
+         optk.KSelection.elbow, optk.KSelection.gap_statistic,
+         optk.DbscanExplorer.k_distance_graph, optk.DbscanExplorer.eps_sweep) = saved
+    out, again, dbs = calls["kmeans"], calls["reload"], calls["dbscan"]
+    fits_first, fits_again = fits["kmeans"], fits["reload"]
+
+    metrics_ = ("ae_mse", "loss")
+    want_fits = len(metrics_) * len(ks) * (1 + cfg0.gap_b + 1)  # elbow, refs, data
+    if fits_first != want_fits or fits_again != 0:
+        raise AssertionError(f"p2 fits: {fits_first} (expected {want_fits}), "
+                             f"{fits_again} on the reload (expected 0)")
+    suggest = {}
+    for m in metrics_:
+        plot = os.path.join(run["results"], "Pretrain", "opt_k", m, "plot")
+        for name in ("elbow.csv", "gap_sts_v1.csv", "gap_sts_v1.csv.fp"):
+            if not os.path.exists(os.path.join(plot, name)):
+                raise AssertionError(f"p2 {m}: no {name}")
+        with open(os.path.join(plot, "elbow.csv")) as f:
+            elbow_rows = [line.strip().split(",") for line in f][1:]
+        if [int(r[0]) for r in elbow_rows] != ks or not all(
+                np.isfinite(float(v)) for r in elbow_rows for v in r[1:]):
+            raise AssertionError(f"p2 {m} elbow table: {elbow_rows}")
+        g = out[m]["gap_sts"]
+        rows = optk._read_gap_csv(g["csv"])
+        if [r["k"] for r in rows] != ks or not all(
+                np.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"p2 {m} gap table: {rows}")
+        if g["opt_k_argmax"] not in ks or g["opt_k"] not in (None, *ks[:-1]):
+            raise AssertionError(f"p2 {m}: opt_k {g['opt_k']}, argmax {g['opt_k_argmax']}")
+        if again[m]["gap_sts"]["rows"] != rows:
+            raise AssertionError(f"p2 {m}: the reloaded table differs from the written one")
+        kd, eps_rows = dbs[m]["k_distance"], dbs[m]["eps_sweep"]
+        kth = kd["kth_distances"]
+        if kth.shape != (n_train,) or not np.isfinite(kth).all() or kd["knee_eps"] is None:
+            raise AssertionError(f"p2 {m} k-distance: {kth.shape}, knee {kd['knee_eps']}")
+        if [r["eps"] for r in eps_rows] != list(np.arange(0.5, 5.0, 0.5)):
+            raise AssertionError(f"p2 {m} eps sweep: {[r['eps'] for r in eps_rows]}")
+        suggest[m] = dict(opt_k=g["opt_k"], opt_k_argmax=g["opt_k_argmax"],
+                          elbow_k=out[m]["elbow"]["elbow_k"],
+                          knee_eps=round(kd["knee_eps"], 4),
+                          sweep=[(r["eps"], r["n_clusters"], r["n_noise"]) for r in eps_rows])
+    seconds = {key: [round(x, 4) for x in spent[key]]
+               for key in ("kmeans", "reload", "dbscan", "elbow", "gap", "k_distance",
+                           "eps_sweep")}
+    say("p2", train_encounters=n_train, latent=2 * H, k_max=cfg0.k_max, n_init=cfg0.n_init,
+        gap_b=cfg0.gap_b, fits=fits_first, reload_fits=fits_again, lloyd_rounds=sum(rounds),
+        **{f"{key}_s": f"{sum(spent[key]):.4f}" for key in ("fit", "inertia", "metrics")},
+        seconds=json.dumps(seconds), suggest=json.dumps(suggest), card=repr(smi))
+
+
+def _grid_latents(n: int, dev, seed: int):
+    """`n` x 256 latents in [-1, 1] on a grid of 1/16 (squared distances
+    exact in float32): four blobs of spread 0.15 around centres drawn in
+    [-0.5, 0.5], and 2% uniform noise rows. Returns (x, labels), labels the
+    blob of each row (a noise row's drawn at random)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = 2 * H
+    centers = torch.rand((4, d), generator=g, device=dev) - 0.5
+    labels = torch.randint(0, 4, (n,), generator=g, device=dev)
+    x = centers[labels] + 0.15 * torch.randn((n, d), generator=g, device=dev)
+    noise = torch.rand((n,), generator=g, device=dev) < 0.02
+    x = torch.where(noise[:, None], torch.rand((n, d), generator=g, device=dev) * 2 - 1, x)
+    return torch.round(x.clamp(-1.0, 1.0) * 16) / 16, labels
+
+
+def _dense_reference(x, labels, k: int, kth: int, eps: float, min_samples: int) -> dict:
+    """Silhouette, inertia_v1, Dunn, the kth-neighbour distances and DBSCAN
+    labels from the dense float64 distance matrix of `x` (on its device);
+    DBSCAN by sklearn's scan: clusters numbered as the scan meets their
+    first core point, each expanded through its core points before the
+    next, a border joining the first cluster that reaches it."""
+    import torch
+
+    x64 = x.double()
+    sq = torch.sum(x64 * x64, 1)
+    dist = torch.sqrt(torch.clamp_min(sq[:, None] - 2 * x64 @ x64.T + sq[None, :], 0))
+    dist.fill_diagonal_(0.0)
+    one_hot = torch.nn.functional.one_hot(labels, k).double()
+    counts = one_hot.sum(0)
+    sums = dist @ one_hot
+    own = sums.gather(1, labels[:, None])[:, 0]
+    a = own / torch.clamp_min(counts[labels] - 1, 1)
+    mean = sums / counts[None, :]
+    mean[torch.arange(len(x)), labels] = float("inf")
+    b = mean.min(1).values
+    s = torch.where(counts[labels] > 1, (b - a) / torch.maximum(a, b), 0.0)
+    same = labels[:, None] == labels[None, :]
+    ref = {"silhouette": float(s.mean()),
+           "inertia_v1": float(torch.mean((one_hot.T @ dist @ one_hot).diagonal() / counts ** 2)),
+           "dunn": float(dist[~same].min() / dist[same].max())}
+    off = dist.clone()
+    off.fill_diagonal_(float("inf"))
+    ref["kth"] = torch.kthvalue(off, kth, dim=1).values
+    adj = (dist <= eps).cpu().numpy()
+    core = adj.sum(1) >= min_samples
+    out = np.full(len(x), -1, np.int64)
+    cluster = 0
+    for i in np.flatnonzero(core):
+        if out[i] != -1:
+            continue
+        out[i] = cluster
+        stack = [i]
+        while stack:
+            j = stack.pop()
+            for nb in np.flatnonzero(adj[j] & (out == -1)):
+                out[nb] = cluster
+                if core[nb]:
+                    stack.append(nb)
+        cluster += 1
+    ref["dbscan"], ref["core"] = out, core
+    return ref
+
+
+def p2_scale_phase(smi: str, dev) -> None:
+    """The p2 sweeps at the 100k configuration's training cohort, 70,000
+    latents of width 256: each timed at blocks of 1,024 and 4,096 rows and
+    held block against block, and on the first 4,000 rows against a dense
+    float64 evaluation."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.cluster import metrics as cm
+    from deep_interpolation_clustering_tpu_torch.cluster.dbscan import dbscan_fit
+    from deep_interpolation_clustering_tpu_torch.cluster.kneedle import kneedle
+
+    torch.cuda.reset_peak_memory_stats()
+    x, labels = _grid_latents(P2_SCALE_N, dev, seed=11)
+    k, kth_k, min_samples = 4, 2 * H - 1, 2 * H + 1
+
+    def run(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, round(time.perf_counter() - t0, 4)
+
+    def knee_eps(kth):
+        """eps at the k-distance knee, moved half a grid step of d^2 off the
+        data's squared distances (multiples of 1/256), so no pair sits on
+        eps's rounding."""
+        kth = np.sort(kth.cpu().numpy())
+        knee = kth[int(kneedle(np.arange(len(kth)), kth, "convex", "increasing"))]
+        return float(np.sqrt((np.round(knee.astype(np.float64) ** 2 * 256) + 0.5) / 256))
+
+    seconds, scores = {}, {}
+    for block in (1024, 4096):
+        for name, fn in (("silhouette", cm.silhouette_score), ("inertia_v1", cm.inertia_v1),
+                         ("dunn", cm.dunn_index)):
+            val, seconds[f"{name}_{block}"] = run(lambda: float(fn(x, labels, k, block)))
+            scores[name, block] = val
+        kth, seconds[f"kth_{block}"] = run(lambda: cm.kth_neighbor_distance(x, kth_k, block))
+        if block == 1024:
+            eps = knee_eps(kth)
+            kth_1024 = kth
+        elif not torch.equal(kth, kth_1024):
+            raise AssertionError("kth_neighbor_distance differs between blocks 1024 and 4096")
+        (lab, core), seconds[f"dbscan_{block}"] = run(
+            lambda: dbscan_fit(x, eps, min_samples, block))
+        if block == 1024:
+            db_1024 = (lab, core)
+        elif not (np.array_equal(lab, db_1024[0]) and np.array_equal(core, db_1024[1])):
+            raise AssertionError("DBSCAN labels differ between blocks 1024 and 4096")
+    block_rel = {name: abs(scores[name, 4096] - scores[name, 1024]) / abs(scores[name, 1024])
+                 for name in ("silhouette", "inertia_v1", "dunn")}
+    if not all(np.isfinite(v) for v in scores.values()) or max(block_rel.values()) > 1e-5:
+        raise AssertionError(f"p2_scale scores {scores}: block 4096 vs 1024 {block_rel}")
+    n_clusters = int(db_1024[0].max()) + 1
+    if n_clusters < 1 or not (db_1024[0] == -1).any():
+        raise AssertionError(f"p2_scale DBSCAN at eps {eps}: {n_clusters} clusters, "
+                             f"{int((db_1024[0] == -1).sum())} noise")
+
+    # the first 4,000 rows against a dense float64 evaluation on the card
+    xs, ls = x[:P2_DENSE_N], labels[:P2_DENSE_N]
+    kth_s = cm.kth_neighbor_distance(xs, kth_k)
+    eps_s = knee_eps(kth_s)
+    ref = _dense_reference(xs, ls, k, kth_k, eps_s, min_samples)
+    got = {"silhouette": float(cm.silhouette_score(xs, ls, k)),
+           "inertia_v1": float(cm.inertia_v1(xs, ls, k)), "dunn": float(cm.dunn_index(xs, ls, k))}
+    dense_rel = {key: abs(v - ref[key]) / abs(ref[key]) for key, v in got.items()}
+    dense_rel["kth"] = float(((kth_s.double() - ref["kth"]).abs() / ref["kth"]).max())
+    if max(dense_rel.values()) > 1e-5:
+        raise AssertionError(f"p2_scale vs float64 on {P2_DENSE_N} rows: {dense_rel}")
+    lab_s, core_s = dbscan_fit(xs, eps_s, min_samples)
+    if not (np.array_equal(lab_s, ref["dbscan"]) and np.array_equal(core_s, ref["core"])):
+        raise AssertionError(f"p2_scale DBSCAN on {P2_DENSE_N} rows differs from the dense "
+                             f"scan at {int((lab_s != ref['dbscan']).sum())} rows")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    say("p2_scale", rows=P2_SCALE_N, width=2 * H, K=k, seconds=json.dumps(seconds),
+        scores=json.dumps({name: scores[name, 1024] for name in ("silhouette", "inertia_v1",
+                                                                  "dunn")}),
+        block_rel=json.dumps({key: f"{v:.3g}" for key, v in block_rel.items()}),
+        eps=f"{eps:.6f}", dbscan=json.dumps(dict(
+            clusters=n_clusters, noise=int((db_1024[0] == -1).sum()),
+            core=int(db_1024[1].sum()))),
+        dense_rows=P2_DENSE_N, dense_rel=json.dumps({key: f"{v:.3g}" for key, v in
+                                                     dense_rel.items()}),
+        dense_dbscan=json.dumps(dict(clusters=int(lab_s.max()) + 1,
+                                     noise=int((lab_s == -1).sum()),
+                                     border=int((~core_s & (lab_s >= 0)).sum()),
+                                     eps=round(eps_s, 6))),
+        peak_memory_gb=f"{peak_gb:.2f}", card=repr(smi))
+
+
 def p3_phase(run: dict, smi: str) -> dict:
     """Drive `cli.p3.main` at the default Config from the p1 phase's run
     (its pickles and `Pretrain` checkpoints): centre init by k-means on the
@@ -444,49 +729,75 @@ def p3_phase(run: dict, smi: str) -> dict:
     return launches, dict(run, exp_p3=exp, k=k)
 
 
-def p4_phase(run: dict, smi: str) -> None:
+def p4_phase(run: dict, smi: str, dev) -> None:
     """Drive `cli.p4.main` on the p3 phase's `Clustering` run with the
-    kmeans path (on the card) and then the dl path, and check the labels."""
+    kmeans path (on the card), the dl path and the dbscan path (on the card,
+    at the least eps, rounded up, at which every cohort of every metric has
+    a core point), and check the labels."""
     import torch
 
     from deep_interpolation_clustering_tpu_torch.cli import p4
+    from deep_interpolation_clustering_tpu_torch.cluster.metrics import kth_neighbor_distance
     from deep_interpolation_clustering_tpu_torch.info import COHORTS, METRICS
 
     k = run["k"]
+    dumps = {(m, c): np.load(os.path.join(run["exp_p3"], "out_feat", m, f"{c}.npy"),
+                             allow_pickle=True).item() for m in METRICS for c in COHORTS}
+    # min_samples is the latent width, self included: a core point has
+    # width - 1 other points within eps
+    width = dumps[METRICS[0], "training"]["hidden"].shape[1]
+    least = max(float(kth_neighbor_distance(torch.as_tensor(d["hidden"], device=dev),
+                                            width - 1).min()) for d in dumps.values())
+    opt_eps = float(np.ceil(least * 1.001 * 1e4) / 1e4)
     seconds = {}
     out = {}
-    for method in ("kmeans", "dl"):
+    for method in ("kmeans", "dl", "dbscan"):
         t0 = time.perf_counter()
-        out[method] = p4.main(["--cluster_method", method, "--results_path", run["results"]])
+        out[method] = p4.main(["--cluster_method", method, "--opt_eps", str(opt_eps),
+                               "--results_path", run["results"]])
         torch.cuda.synchronize()
         seconds[method] = time.perf_counter() - t0
+    n_dbscan = {}
     for method, results in out.items():
         if sorted(results) != sorted(METRICS):
             raise AssertionError(f"p4 {method}: metrics {sorted(results)}")
         for m, cohorts in results.items():
+            n_clusters = len(set(cohorts["training"].tolist()) - {-1})
+            hi = n_clusters if method == "dbscan" else k
+            lo = -1 if method == "dbscan" else 0
             for cohort in COHORTS:
                 labels = cohorts[cohort]
                 n = len(run["cohorts"][cohort]["encounter_id"])
-                if len(labels) != n or labels.min() < 0 or labels.max() >= k:
+                if len(labels) != n or labels.min() < lo or labels.max() >= hi:
                     raise AssertionError(f"p4 {method} {m}/{cohort}: {len(labels)} labels "
                                          f"in [{labels.min()}, {labels.max()}]")
-                dump = np.load(os.path.join(run["exp_p3"], "out_feat", m, f"{cohort}.npy"),
-                               allow_pickle=True).item()
+                dump = dumps[m, cohort]
                 if method == "dl" and not np.array_equal(labels,
                                                          np.argmax(dump["cluster_pred"], 1)):
                     raise AssertionError(f"p4 dl {m}/{cohort}: not the argmax of cluster_pred")
-                if method == "kmeans" and cohort == "training":
+                if method == "dbscan" and not (labels >= 0).any():
+                    raise AssertionError(f"p4 dbscan {m}/{cohort}: no cluster at {opt_eps}")
+                if method == "dbscan" and not os.path.exists(os.path.join(
+                        run["exp_p3"], "out_feat", f"{m}_dbscan_aligned",
+                        f"{cohort}_eps-{opt_eps}.npy")):
+                    raise AssertionError(f"p4 dbscan {m}/{cohort}: no labels file")
+                if method in ("kmeans", "dbscan") and cohort == "training":
                     # the align contract: clusters in descending masked mean SBP
                     pad = dump["padding_mask"][:, 0]
                     sbp = (dump["ob"][:, 0] * pad).sum(1) / pad.sum(1)
-                    means = [float(sbp[labels == i].mean()) for i in np.unique(labels)]
+                    means = [float(sbp[labels == i].mean())
+                             for i in np.unique(labels[labels >= 0])]
                     if means != sorted(means, reverse=True):
-                        raise AssertionError(f"p4 kmeans {m}: cluster SBP means {means} "
+                        raise AssertionError(f"p4 {method} {m}: cluster SBP means {means} "
                                              f"not descending")
+            if method == "dbscan":
+                n_dbscan[m] = {c: dict(clusters=len(set(v.tolist()) - {-1}),
+                                       noise=int((v == -1).sum())) for c, v in cohorts.items()}
     sizes = {method: {m: np.bincount(results[m]["training"], minlength=k).tolist()
-                      for m in results} for method, results in out.items()}
+                      for m in results} for method, results in out.items() if method != "dbscan"}
     say("p4", K=k, seconds=json.dumps({m: round(x, 4) for m, x in seconds.items()}),
-        training_cluster_sizes=json.dumps(sizes), card=repr(smi))
+        training_cluster_sizes=json.dumps(sizes), opt_eps=opt_eps,
+        dbscan=json.dumps(n_dbscan), card=repr(smi))
 
 
 def main() -> None:
@@ -1021,9 +1332,13 @@ def main() -> None:
     # --------------------------------------------------------- 7. p1 entry point
     p1_launches, run = p1_phase(os.path.join(run_root.name, "p1"), smi)
 
-    # ------------------------------------------------- 8, 9. p3 and p4 entry points
+    # ------------------------------------------------- 8, 9. p2 entry point, at scale
+    p2_phase(run, smi, dev)
+    p2_scale_phase(smi, dev)
+
+    # ----------------------------------------------- 10, 11. p3 and p4 entry points
     p3_launches, run = p3_phase(run, smi)
-    p4_phase(run, smi)
+    p4_phase(run, smi, dev)
     run_root.cleanup()
 
     kernels = []

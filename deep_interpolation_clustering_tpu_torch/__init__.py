@@ -8,14 +8,16 @@ package. Kernels written by hand for Hopper (`csrc/*.cu`) are built with
 `nvcc` at first use and launched only for tensors on a CUDA device; a tensor
 on the CPU takes the kernel's plain PyTorch version.
 
-Ported so far: the p1, p3 and p4 stages. p1's step (batch inputs, SCI ->
+Ported so far: the p1, p2, p3 and p4 stages. p1's step (batch inputs, SCI ->
 CCI -> biLSTM encoder, biLSTM decoder -> CompressFC -> RBF push, heads,
 losses, clip and amsgrad Adam, SGD or RMSprop), its trainer (epochs with
 validation, per-metric best checkpoints in the JAX npz format, early stop,
 restore, feature dumps) and its entry point `python -m
-deep_interpolation_clustering_tpu_torch.cli.p1`; p3's DEC head, KL and
+deep_interpolation_clustering_tpu_torch.cli.p1`; p2's K selection (elbow,
+gap statistic with the internal metrics, DBSCAN on the device and its
+explorer, OPTICS on the host; `cli.p2`); p3's DEC head, KL and
 triplet losses, k-means on the device and `ClusterTrainer` (`cli.p3`); p4's
-alignment and final labels (`cli.p4`).
+alignment and final labels, DBSCAN's included (`cli.p4`).
 """
 
 __version__ = "0.1.0"

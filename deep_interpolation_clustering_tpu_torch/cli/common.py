@@ -1,7 +1,7 @@
 """Shared CLI plumbing (counterpart of the JAX `cli/common.py`): a flag for
-every `Config` field (dict-valued fields take JSON), `--config` to reload a
-saved `config.json` with the flags given winning, the p0 pickles' I/O and
-the run directory.
+every `Config` field (dict- and tuple-valued fields take JSON), `--config`
+to reload a saved `config.json` with the flags given winning, the p0
+pickles' I/O and the run directory.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
             p.add_argument(flag, type=_str2bool, default=None, metavar="BOOL")
         elif isinstance(default, (int, float)):
             p.add_argument(flag, type=type(default), default=None)
-        elif isinstance(default, dict):
+        elif isinstance(default, (dict, tuple)):
             p.add_argument(flag, type=str, default=None, help="JSON value")
         else:
             p.add_argument(flag, type=str, default=None)
@@ -59,6 +59,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
             continue
         if f.default_factory is not dataclasses.MISSING:
             v = json.loads(v)
+        elif isinstance(f.default, tuple):
+            v = tuple(json.loads(v))
         overrides[f.name] = v
     if args.config:
         return Config.load(args.config, **overrides)

@@ -1,0 +1,64 @@
+"""p2 — optimal-K selection (counterpart of the JAX `cli/p2.py`, reference
+p2_clustering_optK.py:45-88, 413-420): for each restore metric, read the
+latent dumps of a run and explore K with k-means (elbow and gap statistic),
+DBSCAN (k-distance graph and eps sweep) or OPTICS; tables and plots go to
+`{results_path}/{stage}/opt_k/{metric}/plot/`.
+
+    python -m deep_interpolation_clustering_tpu_torch.cli.p2 [--stage Pretrain|Clustering] [--restore_metrics M ...] [--cluster_algo kmeans|dbscan|optics] [--<Config field> VALUE ...]
+
+Runs on the card; from Python, `main(argv, device="cpu")` runs on the CPU.
+OPTICS runs scikit-learn on the host and needs it installed.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Sequence, Union
+
+import torch
+
+from ..cluster import DbscanExplorer, KSelection, OpticsExplorer, load_feature_dumps
+from ..utils.device import resolve_device
+from ..utils.logging import logger
+from .common import build_parser, config_from_args
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         device: Optional[Union[str, torch.device]] = None) -> Dict[str, Dict]:
+    """Run p2; returns {metric: what the chosen explorer returned} (for
+    dbscan, {"k_distance": ..., "eps_sweep": [...]})."""
+    parser = build_parser(__doc__)
+    parser.add_argument("--stage", default="Pretrain", choices=["Pretrain", "Clustering"])
+    parser.add_argument("--restore_metrics", nargs="+", default=["ae_mse", "loss"])
+    parser.add_argument("--cluster_algo", default="kmeans",
+                        choices=["kmeans", "dbscan", "optics"])
+    args = parser.parse_args(argv)
+    cfg = config_from_args(args)
+    dev = resolve_device(device)
+    exp_path = os.path.join(cfg.results_path, args.stage)
+    results = {}
+    for metric in args.restore_metrics:
+        data = load_feature_dumps(os.path.join(exp_path, "out_feat", metric))
+        out_path = os.path.join(exp_path, "opt_k", metric)
+        train_h = data["training"]["hidden"]
+        if args.cluster_algo == "kmeans":
+            out = KSelection(cfg, out_path, device=dev).select_opt_k(
+                train_h, data["validation"]["hidden"], seed=cfg.seed)
+            for method, r in out.items():
+                logger.info("[%s] %s -> %s", metric, method,
+                            {k: v for k, v in r.items()
+                             if k.startswith("opt_k") or k.startswith("elbow")})
+        elif args.cluster_algo == "dbscan":
+            ex = DbscanExplorer(cfg, out_path, device=dev)
+            kd = ex.k_distance_graph(train_h)
+            logger.info("[%s] dbscan knee eps: %s", metric, kd["knee_eps"])
+            out = {"k_distance": kd, "eps_sweep": ex.eps_sweep(train_h)}
+        else:
+            out = OpticsExplorer(cfg, out_path).run(train_h)
+        results[metric] = out
+    logger.info("p2 done")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """p4 — final cluster labels (counterpart of the JAX `cli/p4.py`, reference
 p4_clustering_final.py:141-309): label every cohort of a run's feature
-dumps with `cluster_method` (kmeans, dl or consensus) and write
-`{cohort}_{K}.npy` dicts carrying `cluster_id`.
+dumps with `cluster_method` (kmeans, dbscan, dl or consensus) and write
+`{cohort}_{K}.npy` dicts carrying `cluster_id` (`{cohort}_eps-{opt_eps}.npy`
+for dbscan).
 
     python -m deep_interpolation_clustering_tpu_torch.cli.p4 [--stage Clustering|Pretrain] [--restore_metrics M ...] [--<Config field> VALUE ...]
 

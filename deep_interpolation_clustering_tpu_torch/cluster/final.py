@@ -7,11 +7,15 @@ p4_clustering_final.py:43-309) over the p1 or p3 feature dumps:
                   aligned centres;
   * `consensus` - external consensus labels (CSV column `k{K}`) re-mapped
                   through the training align map (training and validation);
+  * `dbscan`    - DBSCAN at `opt_eps` on each cohort's latents on the
+                  device (`dbscan_impl`), min_samples the latent width;
+                  training aligned by SBP, validation and test to the
+                  training centroids by nearest-centre bijection;
   * `dl`        - the argmax of DEC's `cluster_pred` (or `cluster_label`).
 
-`dbscan` needs p2's DBSCAN, which the port does not have yet (ROADMAP.md
-A9): it raises. Each path writes `out_feat/{metric}_{method}_aligned/
-{cohort}_{K}.npy` dicts carrying `cluster_id`, as the JAX package does.
+Each path writes `out_feat/{metric}_{method}_aligned/{cohort}_{K}.npy`
+dicts carrying `cluster_id` (`{cohort}_eps-{opt_eps}.npy` for dbscan), as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ from ..config import Config
 from ..info import COHORTS
 from ..utils.device import resolve_device
 from ..utils.logging import logger
-from .align import align_labels, generate_align_map
+from .align import align_labels, align_labels_with_center, generate_align_map
+from .dbscan import fit_dbscan_impl
 from .kmeans import fit_kmeans_impl, kmeans_predict
+from .optk import dbscan_quality
 
 LOAD_KEYS = ("encounter_id", "hidden", "ob", "padding_mask")
 DL_KEYS = ("cluster_pred", "cluster_label")
@@ -77,10 +83,8 @@ class FinalLabeler:
         {cohort: labels}} and writes the `{cohort}_{K}.npy` dumps."""
         method = self.cfg.cluster_method
         paths = {"kmeans": lambda d, p: self._pred_kmeans(d, p, seed),
-                 "consensus": self._pred_consensus, "dl": self._pred_dl}
-        if method == "dbscan":
-            raise NotImplementedError("cluster_method='dbscan' needs p2's DBSCAN, which the "
-                                      "port has not ported yet (ROADMAP.md A9)")
+                 "dbscan": self._pred_dbscan, "consensus": self._pred_consensus,
+                 "dl": self._pred_dl}
         if method not in paths:
             raise ValueError(f"unknown cluster_method {method!r}")
         results: Dict[str, Dict[str, np.ndarray]] = {}
@@ -119,6 +123,35 @@ class FinalLabeler:
             d["cluster_id"] = labels
             self._save(d, os.path.join(out_path, f"{cohort}_{opt_k}.npy"))
             out[cohort] = labels
+        return out
+
+    # ------------------------------------------------------------ dbscan
+    def _pred_dbscan(self, data, out_path: str) -> Dict[str, np.ndarray]:
+        """Per-cohort DBSCAN (reference p4:175-239); min_samples is the
+        latent width, as in the reference and JAX (p2's explorers take the
+        width + 1)."""
+        cfg = self.cfg
+        out = {}
+        train_centers = None
+        for cohort in COHORTS:
+            d = dict(data[cohort])
+            feat = d["hidden"]
+            x = torch.as_tensor(feat, dtype=torch.float32, device=self.device)
+            raw, _ = fit_dbscan_impl(cfg, x, cfg.opt_eps, feat.shape[-1])
+            if (raw < 0).all():
+                raise ValueError(
+                    f"dbscan found 0 clusters on '{cohort}' at eps={cfg.opt_eps}, "
+                    f"min_samples={feat.shape[-1]} ({len(feat)} rows): raise --opt_eps "
+                    "(use the p2 k-distance knee) or use a larger cohort")
+            if cohort == "training":
+                _, aligned, train_centers = generate_align_map(raw, d["ob"], d["padding_mask"],
+                                                               feat)
+            else:
+                aligned = align_labels_with_center(feat, raw, train_centers)
+            d["cluster_id"] = aligned
+            logger.info("dbscan %s quality: %s", cohort, dbscan_quality(x, aligned))
+            self._save(d, os.path.join(out_path, f"{cohort}_eps-{cfg.opt_eps}.npy"))
+            out[cohort] = aligned
         return out
 
     # --------------------------------------------------------- consensus

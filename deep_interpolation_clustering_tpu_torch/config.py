@@ -4,11 +4,12 @@
 It carries the fields the ported p1 stage reads (the step, the trainer and
 its CLI), with the JAX `Config`'s defaults, loads a `config.json` written by
 the JAX `Config` and writes one (`save`) that the JAX `Config.load` reads.
-It also carries the DEC fields of p3 and the final-label fields of p4.
-Fields of the JAX config that only steer the TPU build (Pallas switches, XLA
-matmul precision, scan unrolling, PRNG implementation, mesh layout,
-multi-host, compilation cache) or belong to stages not ported yet are
-accepted on load and ignored with one log line. `compute_dtype` is read:
+It also carries the K-selection fields of p2, the DEC fields of p3 and the
+final-label fields of p4. Fields of the JAX config that only steer the TPU
+build (Pallas switches, XLA matmul precision, scan unrolling, PRNG
+implementation, mesh layout, multi-host, compilation cache) or belong to
+options not ported yet are accepted on load and ignored with one log line.
+Tuple fields come back from JSON as lists and are made tuples again. `compute_dtype` is read:
 the port computes in float32 only, and any other value raises.
 
 Matmul precision: the port runs float32 matmuls in full float32 on the
@@ -24,7 +25,7 @@ import json
 import logging
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 log = logging.getLogger("dicl.torch")
 
@@ -36,9 +37,8 @@ _IGNORED = (
     "compilation_cache_dir", "perf_profile", "fused_epoch", "device_data",
     "sci_share_weights", "data_parallel", "num_processes", "process_id",
     "coordinator_address",
-    # options and stages the port has not reached yet (ROADMAP.md, queue A)
-    "fused_heads", "dbscan_impl", "k_max", "select_opt_k", "n_init", "gap_b",
-    "gap_subsample", "opt_eps", "internal_metrics", "overwrite",
+    # options the port has not reached yet (ROADMAP.md, queue A)
+    "fused_heads",
 )
 
 
@@ -106,6 +106,9 @@ class Config:
     # "sklearn": the NumPy mirror of sklearn.KMeans's random path
     # (cluster/sklearn_compat.py)
     kmeans_impl: str = "device"
+    # "device": DBSCAN on the latents' device (cluster/dbscan.py), labels
+    # identical to sklearn's; "sklearn": sklearn.cluster.DBSCAN on the host
+    dbscan_impl: str = "device"
 
     # ---- learning ------------------------------------------------------
     loss: str = "ae_mse_sup_fake_detect"
@@ -140,6 +143,22 @@ class Config:
     rng_draw_bits: int = 32
     # the forward's compute dtype: the port computes in float32 only
     compute_dtype: str = "float32"
+
+    # ---- K selection (p2) ---------------------------------------------
+    k_max: int = 10
+    select_opt_k: Tuple[str, ...] = ("gap_sts", "elbow")
+    n_init: int = 10
+    gap_b: int = 10
+    # > 0: the gap sweep runs on a seeded uniform subsample of this many rows
+    gap_subsample: int = 0
+    opt_eps: float = 1.9
+    internal_metrics: Tuple[str, ...] = (
+        "Sihouette",
+        "Davies-Bouldin_Index",
+        "Calinski-Harabasz",
+    )
+    # recompute a gap table even when a matching one exists
+    overwrite: bool = False
 
     # ---- final labels (p4) --------------------------------------------
     cluster_method: str = "kmeans"  # kmeans | dbscan | dl | consensus
@@ -180,6 +199,7 @@ class Config:
         "feat_dump": ("full", "lean"),
         "stopping_mode": ("delta", "count", "patience"),
         "kmeans_impl": ("device", "sklearn"),
+        "dbscan_impl": ("device", "sklearn"),
     }
     _MIN_ONE = ("eval_interval", "batch_size", "num_timestamps", "max_epochs")
 
@@ -194,6 +214,8 @@ class Config:
         if self.compute_dtype != "float32":
             raise ValueError(f"Config.compute_dtype={self.compute_dtype!r}: the port "
                              f"computes in float32 only")
+        if self.k_max < 2:  # the K sweeps run 2..k_max
+            raise ValueError(f"Config.k_max={self.k_max} must be >= 2")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -212,6 +234,9 @@ class Config:
                      ", ".join(ignored))
         kw = {k: v for k, v in d.items() if k in known}
         kw.update(overrides)
+        for f in dataclasses.fields(cls):
+            if isinstance(f.default, tuple) and isinstance(kw.get(f.name), list):
+                kw[f.name] = tuple(kw[f.name])
         return cls(**kw)
 
     def save(self, run_dir: str, name: str = "config") -> str:

@@ -5,8 +5,9 @@
     give JAX's maps and labels.
   * `FinalLabeler` on copies of one dump directory: the kmeans path (the
     sklearn mirror), dl (pred and label) and consensus give JAX's labels
-    and `{cohort}_{K}.npy` files; dbscan raises (p2's DBSCAN is not
-    ported).
+    and `{cohort}_{K}.npy` files; dbscan (on the device, here the CPU)
+    gives JAX's labels and `{cohort}_eps-{opt_eps}.npy` files, and JAX's
+    ValueError when a cohort is all noise.
   * `cli.p3.main(argv, device="cpu")` from a port p1 run trains DEC and
     writes a config, checkpoints and nine dumps that the JAX package
     reads; `cli.p4.main` labels them. Without a card and without
@@ -159,9 +160,45 @@ def test_final_labeler_kmeans_on_the_device_path(dump_dir, tmp_path):
         assert len(out[cohort]) == SIZES[cohort] and set(out[cohort]) == set(range(K))
 
 
-def test_final_labeler_dbscan_raises(dump_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        FinalLabeler(Config(cluster_method="dbscan"), str(dump_dir), device="cpu").pred()
+@pytest.fixture(scope="module")
+def dbscan_dir(tmp_path_factory):
+    """Dumps with 4-d latents: min_samples is the latent width, so the
+    smallest cohort's blobs (5-6 rows each) still hold core points."""
+    root = tmp_path_factory.mktemp("final_dbscan")
+    rng = np.random.RandomState(3)
+    for metric in ("ae_mse", "delta"):
+        d = root / "out_feat" / metric
+        d.mkdir(parents=True)
+        for cohort in COHORTS:
+            np.save(d / f"{cohort}.npy", _cohort(rng, SIZES[cohort], d=4))
+    return root
+
+
+def test_final_labeler_dbscan_matches_jax(dbscan_dir, tmp_path):
+    exp, got = _labelled(dbscan_dir, tmp_path, FinalLabeler, "port", cluster_method="dbscan",
+                         opt_eps=1.5)
+    jexp, want = _labelled(dbscan_dir, tmp_path, JFinalLabeler, "jax", cluster_method="dbscan",
+                           opt_eps=1.5)
+    for metric in ("ae_mse", "delta"):
+        for cohort in COHORTS:
+            np.testing.assert_array_equal(got[metric][cohort], want[metric][cohort])
+            assert got[metric][cohort].dtype == want[metric][cohort].dtype
+        assert set(got[metric]["training"]) - {-1} == set(range(K))
+        folder = f"{metric}_dbscan_aligned"
+        names = sorted(os.listdir(jexp / "out_feat" / folder))
+        assert names == [f"{c}_eps-1.5.npy" for c in sorted(COHORTS)]
+        assert sorted(os.listdir(exp / "out_feat" / folder)) == names
+        for fname in names:
+            a = np.load(exp / "out_feat" / folder / fname, allow_pickle=True).item()
+            b = np.load(jexp / "out_feat" / folder / fname, allow_pickle=True).item()
+            assert sorted(a) == sorted(b), fname
+            for k in b:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{fname} {k}")
+    # every point noise: the same ValueError in both packages
+    for labeler in (FinalLabeler, JFinalLabeler):
+        with pytest.raises(ValueError, match="dbscan found 0 clusters on 'training'"):
+            _labelled(dbscan_dir, tmp_path, labeler, f"noise_{labeler.__module__}",
+                      cluster_method="dbscan", opt_eps=0.01)
 
 
 # ------------------------------------------------------------ entry points

@@ -25,6 +25,7 @@ from deep_interpolation_clustering_tpu.ops.interpolation import Planes as JPlane
 from deep_interpolation_clustering_tpu.train.checkpoint import _unflatten_nested
 from deep_interpolation_clustering_tpu.train.steps import build_inputs as jbuild_inputs
 from deep_interpolation_clustering_tpu_torch import Config
+from deep_interpolation_clustering_tpu_torch import config as port_config
 from deep_interpolation_clustering_tpu_torch.compat import jax_from_state_dict, state_dict_from_jax
 from deep_interpolation_clustering_tpu_torch.models import Net
 from deep_interpolation_clustering_tpu_torch.models.losses import compute_losses
@@ -229,6 +230,27 @@ def test_config_loads_jax_config_json(tmp_path):
     assert cfg.loss_components == jcfg.loss_components
 
 
+def test_config_p2_fields_round_trip_with_jax(tmp_path, monkeypatch):
+    """The K-selection fields load from a JAX config.json (tuples from JSON
+    lists), are not ignored, and the port's saved config loads in JAX."""
+    p2 = dict(k_max=6, select_opt_k=("elbow",), n_init=3, gap_b=4, gap_subsample=100,
+              opt_eps=2.5, internal_metrics=("Dunn_Index", "Sihouette"), overwrite=True,
+              dbscan_impl="sklearn")
+    logged = []
+    monkeypatch.setattr(port_config.log, "info", lambda msg, *a: logged.append(msg % a))
+    cfg = Config.load(JConfig(**p2).save(str(tmp_path / "jax")))
+    for name, value in p2.items():
+        assert getattr(cfg, name) == value, name
+        assert type(getattr(cfg, name)) is type(value), name
+    ignored = " ".join(m for m in logged if "ignoring" in m)
+    assert "use_pallas" in ignored and not any(name in ignored for name in p2)
+    back = JConfig.load(cfg.save(str(tmp_path / "port")))
+    for name, value in p2.items():
+        assert getattr(back, name) == value, name
+    for name in p2:
+        assert getattr(Config(), name) == getattr(JConfig(), name), name
+
+
 def test_config_rejects_unknown_and_bad_values(tmp_path):
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"batch_size": 4, "not_a_field": 1}))
@@ -238,3 +260,8 @@ def test_config_rejects_unknown_and_bad_values(tmp_path):
         Config(optimizer="adagrad")
     with pytest.raises(ValueError):
         Config(batch_size=0)
+    for k_max in (1, 0):
+        with pytest.raises(ValueError, match="k_max"):
+            Config(k_max=k_max)
+    with pytest.raises(ValueError, match="dbscan_impl"):
+        Config(dbscan_impl="gpu")
