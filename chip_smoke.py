@@ -17,30 +17,59 @@ not 0):
                T = 256, 354, 512, 1024, 2048 and 4096 (the last two walked
                by a block of 8 warps) and the packed select at T = 16, 48,
                96 and 192 (`by_t`, each beside `torch.sort` of its bits);
+               both selects on 16-bit keys (`bits16`: the select at T=354,
+               the packed one at T=48, as `rng_draw_bits=16` draws them);
                the selects, the SCI forward and the RBF push also on one
                encounter's rows (`few_rows_ms`, a call's fixed cost); the
                SCI forward and the biLSTM kernels must repeat bit for bit
   4. main    - the p1 trainer at the default Config width takes 8 steps and
                one eval forward on a synthetic T=354 cohort; the kernels'
-               launch counters must show the path went through them
+               launch counters must show the path went through them; then
+               the bare step's ms with `fused_heads` and with
+               `rng_draw_bits=16` beside the default, in turns
   5. scaled  - the trainer at B=4096, T=48 (the 100k-encounter scale
                configuration) runs two epochs of a cohort with a ragged
                368-encounter tail; the second is timed and counted
   6. plain   - one train step with the kernels and one with their plain
                versions, from the same weights and draws, must agree; so
                must one masked tail step at the scaled configuration, one
-               DEC step (the p3 loss, with the KL term and the centres) and
-               one DEC step with the triplet stream on, whose encoder runs
-               B6/B7 at 3 x 256 rows
-  7. p1      - the p1 entry point (`cli.p1.main`) at the default Config on
-               synthetic T=354 pickles of 2,100 training encounters (each
+               DEC step (the p3 loss, with the KL term and the centres), one
+               DEC step with the triplet stream on, whose encoder runs
+               B6/B7 at 3 x 256 rows, one step with `fused_heads` and one
+               with 16-bit draws; and the fused kernel step's forward must
+               give the unfused one's reconstruction, heads and BatchNorm
+               statistics (1e-5)
+  7. p0      - the p0 entry point (`cli.p0.main --synthetic 3000
+               --synthetic_max_obs 354`) writes the p1 phase's pickles
+               (2,100 / 450 / 450 encounters), array-equal to the generator
+               and the p0 tail run here; a second call is a cache hit (no
+               file rewritten), `--holdout_frac 0.3` reuses the raw slices
+               (same feat, another drop_mask), the default again restores
+               the first pickles; `--raw_dir` on a raw-format cohort of
+               3,000 encounters where pandas is installed (pickles with the
+               future-vital and outcome columns, the aux CSV), and without
+               pandas an ImportError naming it
+  8. p0_scale - the 100k configuration's p0 (`--synthetic 100000
+               --synthetic_max_obs 48`) into a temporary directory: the
+               first call, the hit and a hold-out re-run timed, the bytes
+               on disk
+  9. p1      - the p1 entry point (`cli.p1.main`) at the default Config on
+               the p0 phase's pickles of 2,100 training encounters (each
                epoch ends in a 52-row masked tail step): two epochs with
                validation, the best checkpoints of loss and ae_mse, the six
-               feature dumps (every encounter once, finite), a restore into
+               feature dumps (every encounter once, finite) and their
+               `viz_feat` embeddings (projector files, or without
+               tensorboardX a log line each), a restore into
                a fresh Trainer that gives the dump's latents again (1e-6),
                and a resume from the stored epoch and rate (--restore true
                --max_epochs 4); the launch counters must show B1 and B3-B7
-  8. p2      - the p2 entry point (`cli.p2.main`) at the default Config
+ 10. convert - the converter (`cli.convert.main`) on the p1 run's weight
+               root: `to_torch` in directory mode, each tar into a fresh Net
+               on the card (strict) whose validation latents equal the
+               dump's (1e-6) and whose optimizer state loads into the
+               amsgrad Adam; `to_jax` of the tars gives the checkpoints'
+               params and state back bit for bit
+ 11. p2      - the p2 entry point (`cli.p2.main`) at the default Config
                (k_max 10, n_init 10, gap_b 10) on the p1 run's latents of
                metrics ae_mse and loss: elbow and gap tables for k = 2..10,
                all finite, the suggestions in range, the fingerprint
@@ -48,7 +77,7 @@ not 0):
                (`--select_opt_k '["gap_sts"]'`) reloads the tables with no
                fit; then `--cluster_algo dbscan`: the k-distance graph (256
                neighbours) and the 9-value eps sweep
-  9. p2_scale - 70,000 x 256 synthetic latents (the 100k configuration's
+ 12. p2_scale - 70,000 x 256 synthetic latents (the 100k configuration's
                training cohort at the latent width; four blobs and uniform
                noise on a grid of 1/16, where every squared distance is
                exact in float32): silhouette, inertia_v1 and the Dunn index
@@ -58,7 +87,7 @@ not 0):
                scores within 1e-5 relative); on the first 4,000 rows each
                held against a dense float64 evaluation on the card; the
                peak memory
- 10. p3      - the p3 entry point (`cli.p3.main`) at the default Config from
+ 13. p3      - the p3 entry point (`cli.p3.main`) at the default Config from
                the p1 run: the partial restore takes every p1 leaf bit for
                bit, k-means (20 restarts, K=4) runs on the card and its
                labels are `kmeans_predict` of its centres, 3 DEC epochs with
@@ -66,7 +95,7 @@ not 0):
                nine dumps (every encounter once, finite, `cluster_pred` rows
                summing to 1 within 1e-5); the launch counters must show B1
                and B3-B7
- 11. p4      - the p4 entry point (`cli.p4.main`) on the p3 run with the
+ 14. p4      - the p4 entry point (`cli.p4.main`) on the p3 run with the
                kmeans path (on the card), the dl path and the dbscan path
                (on the card, at an `--opt_eps` where every cohort has a
                cluster): kmeans and dl labels in [0, K), dbscan labels in
@@ -86,6 +115,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -107,6 +137,8 @@ EXPF_PER_S = 16 * 132 * 1.98e9
 B, C, T, R = 256, 6, 354, 6
 N_TRAIN = 2048
 STEPS = 8
+# timed steps of each bare-step option run (fused heads, 16-bit draws)
+OPTION_STEPS = 20
 H = 128  # Config().lstm_hidden
 # the scaled configuration (benchmarks/scale_100k.py, cli/p0.py
 # --synthetic_max_obs 48): three full batches and the 368-encounter tail
@@ -125,6 +157,10 @@ P1_TOTAL = 3000
 # a dense float64 evaluation
 P2_SCALE_N = 70_000
 P2_DENSE_N = 4_000
+# the p0_scale phase: the 100k configuration's cohort
+P0_SCALE_N = 100_000
+# the p0 phase's raw-format cohort (`--raw_dir`, where pandas is installed)
+RAW_ENCOUNTERS = 3000
 
 
 def say(phase: str, **kw) -> None:
@@ -184,38 +220,203 @@ def params_agree(net_k, net_p, lr):
     return worst, n_viol, n_tot
 
 
-def p1_phase(root: str, smi: str) -> dict:
-    """Drive `cli.p1.main` at the default Config on synthetic T=354 pickles
-    under `root`, check what it wrote, restore and resume; returns the
-    kernels' launch counts of the phase."""
+def _pickles(folder: str) -> dict:
+    """The three cohort pickles of a p0 output folder."""
+    import pickle
+
+    from deep_interpolation_clustering_tpu_torch.info import COHORTS
+
+    out = {}
+    for cohort in COHORTS:
+        with open(os.path.join(folder, f"{cohort}.pickle"), "rb") as f:
+            out[cohort] = pickle.load(f)
+    return out
+
+
+def _splits_equal(got: dict, want: dict) -> list:
+    """Keys whose arrays differ (or are missing) between two p0 outputs."""
+    bad = []
+    for cohort, d in want.items():
+        for k, v in d.items():
+            g, v = got.get(cohort, {}).get(k), np.asarray(v)
+            same = (g is not None and np.asarray(g).dtype == v.dtype and np.array_equal(
+                np.asarray(g), v, equal_nan=v.dtype.kind == "f"))
+            if not same:
+                bad.append(f"{cohort}/{k}")
+        bad += [f"{cohort}/{k} (extra)" for k in set(got.get(cohort, {})) - set(d)]
+    return bad
+
+
+def _timed_p0(argv) -> float:
+    from deep_interpolation_clustering_tpu_torch.cli import p0
+
+    t0 = time.perf_counter()
+    p0.main(argv)
+    return time.perf_counter() - t0
+
+
+def _mtimes(folder: str) -> dict:
+    return {f: os.path.getmtime(os.path.join(folder, f)) for f in sorted(os.listdir(folder))}
+
+
+def p0_phase(root: str, smi: str) -> dict:
+    """Drive `cli.p0.main --synthetic 3000 --synthetic_max_obs 354` into the
+    p1 phase's `Data/` (2,100 / 450 / 450 encounters) and hold its pickles
+    against the synthetic generator and the p0 tail computed here; a second
+    call is a cache hit, a `--holdout_frac 0.3` call reuses the raw slices
+    (same `feat`, another `drop_mask`), a call at the default restores the
+    first pickles; `--raw_dir` without pandas raises an ImportError naming
+    it. Returns the processed cohorts."""
+    from deep_interpolation_clustering_tpu_torch import Config
+    from deep_interpolation_clustering_tpu_torch.data import make_synthetic_cohorts, process_splits
+
+    base = os.path.join(root, "Data")
+    argv = ["--synthetic", str(P1_TOTAL), "--synthetic_max_obs", str(T),
+            "--num_timestamps", str(T), "--base_path", base]
+    processed = os.path.join(base, "model_data", "split_processed")
+    org = os.path.join(base, "model_data", "split_org")
+    seconds = {"first": _timed_p0(argv)}
+    first = _pickles(processed)
+    cfg = Config()
+    want = process_splits(make_synthetic_cohorts(n_total=P1_TOTAL, max_obs=T, seed=cfg.seed),
+                          rng=np.random.RandomState(cfg.seed))
+    bad = _splits_equal(first, want)
+    if bad:
+        raise AssertionError(f"p0 pickles differ from the generator and the p0 tail: {bad}")
+    sizes = {c: len(d["encounter_id"]) for c, d in first.items()}
+    if sizes["training"] != P1_TRAIN or first["training"]["feat"].shape[1:] != (C, T):
+        raise AssertionError(f"p0 cohorts: {sizes}, feat {first['training']['feat'].shape}")
+
+    before, before_org = _mtimes(processed), _mtimes(org)
+    seconds["hit"] = _timed_p0(argv)
+    if _mtimes(processed) != before or _mtimes(org) != before_org:
+        raise AssertionError("p0 second call rewrote its outputs")
+    seconds["holdout_0.3"] = _timed_p0(argv + ["--holdout_frac", "0.3"])
+    held = _pickles(processed)
+    if _mtimes(org) != before_org:
+        raise AssertionError("p0 --holdout_frac 0.3 rewrote the raw slices")
+    for cohort, d in held.items():
+        if not np.array_equal(d["feat"], first[cohort]["feat"]) or np.array_equal(
+                d["drop_mask"], first[cohort]["drop_mask"]):
+            raise AssertionError(f"p0 --holdout_frac 0.3 {cohort}: feat changed or drop_mask "
+                                 f"did not")
+    seconds["restore_default"] = _timed_p0(argv)
+    bad = _splits_equal(_pickles(processed), first)
+    if bad:
+        raise AssertionError(f"p0 back at the default differs from its first call: {bad}")
+
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        raw_argv = ["--raw_dir", tmp, "--base_path", os.path.join(tmp, "Data")]
+        try:
+            import pandas as pd
+        except ImportError:
+            try:
+                _timed_p0(raw_argv)
+            except ImportError as e:
+                if "pandas" not in str(e):
+                    raise AssertionError(f"p0 --raw_dir: ImportError {e!r} does not name pandas")
+                raw = f"ImportError: {e}"
+            else:
+                raise AssertionError("p0 --raw_dir ran without pandas")
+        else:
+            n_rows = _raw_fixture(tmp, pd)
+            seconds["raw_dir"] = _timed_p0(raw_argv)
+            tr = _pickles(os.path.join(tmp, "Data", "model_data", "split_processed"))["training"]
+            n_tr = len(tr["encounter_id"])
+            if (tr["future_vital"].shape != (n_tr, C) or tr["AKI_overall"].shape != (n_tr,)
+                    or tr["time_step"].max() > 6.0 or not os.path.exists(
+                        os.path.join(tmp, "Data", "next_hour_abnormal_norm_val.csv"))):
+                raise AssertionError(f"p0 --raw_dir: training {tr['feat'].shape}, future_vital "
+                                     f"{tr['future_vital'].shape}")
+            raw = (f"pandas {pd.__version__}: {RAW_ENCOUNTERS} encounters, {n_rows} records, "
+                   f"training feat {tr['feat'].shape}")
+    say("p0", encounters=json.dumps(sizes), T=T,
+        seconds=json.dumps({k: round(v, 4) for k, v in seconds.items()}),
+        raw_dir=repr(raw), card=repr(smi))
+    return first
+
+
+def _raw_fixture(folder: str, pd) -> int:
+    """The reference's raw format for `--raw_dir` (as tests/test_p0_raw.py
+    writes it), RAW_ENCOUNTERS encounters with 2-60 records a vital over 7.5
+    hours; returns the number of records."""
+    import pickle
+
+    from deep_interpolation_clustering_tpu_torch.info import USE_FEATURES
+
+    rng = np.random.RandomState(5)
+    n = RAW_ENCOUNTERS
+    ids = np.array([f"e{i:05d}" for i in range(n)])
+    pd.DataFrame({"encounter_deiden_id": ids, "AKI_overall": rng.randint(0, 2, n),
+                  "mort_status_30d": rng.randint(0, 2, n)}).to_csv(
+        os.path.join(folder, "encounter.csv"), index=False)
+    vitals, n_rows = {}, 0
+    for v in USE_FEATURES:
+        counts = rng.randint(2, 61, n)
+        enc = np.repeat(ids, counts)
+        t = rng.rand(len(enc)) * 7.5
+        order = np.lexsort((t, enc))  # by encounter, then time
+        vitals[v] = pd.DataFrame({"encounter_deiden_id": enc[order], "time_stamp": t[order],
+                                  "measurement": rng.rand(len(enc)) * 50 + 60})
+        n_rows += len(enc)
+    with open(os.path.join(folder, "vitals.pickle"), "wb") as f:
+        pickle.dump(vitals, f)
+    n_tr, n_va = int(0.7 * n), int(0.15 * n)
+    with open(os.path.join(folder, "split_ids.pickle"), "wb") as f:
+        pickle.dump({"training": list(ids[:n_tr]), "validation": list(ids[n_tr:n_tr + n_va]),
+                     "testing": list(ids[n_tr + n_va:])}, f)
+    return n_rows
+
+
+def p0_scale_phase(smi: str) -> None:
+    """The 100k configuration's own p0 (`--synthetic 100000
+    --synthetic_max_obs 48`) into a temporary directory under build/: the
+    first call, the cache hit and a `--holdout_frac 0.3` re-run timed, and
+    the bytes each stage leaves on disk."""
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        base = os.path.join(tmp, "Data")
+        argv = ["--synthetic", str(P0_SCALE_N), "--synthetic_max_obs", str(SCALED_T),
+                "--num_timestamps", str(SCALED_T), "--base_path", base]
+        seconds = {"first": _timed_p0(argv), "hit": _timed_p0(argv),
+                   "holdout_0.3": _timed_p0(argv + ["--holdout_frac", "0.3"])}
+        disk = {}
+        for stage in ("split_org", "split_processed"):
+            folder = os.path.join(base, "model_data", stage)
+            disk[stage] = sum(os.path.getsize(os.path.join(folder, f))
+                              for f in os.listdir(folder))
+        train = _pickles(os.path.join(base, "model_data", "split_processed"))["training"]
+        if train["feat"].shape != (P2_SCALE_N, C, SCALED_T) or not np.isfinite(
+                train["feat"]).all():
+            raise AssertionError(f"p0_scale training feat {train['feat'].shape}")
+    say("p0_scale", encounters=P0_SCALE_N, T=SCALED_T,
+        seconds=json.dumps({k: round(v, 4) for k, v in seconds.items()}),
+        bytes=json.dumps(disk), card=repr(smi))
+
+
+def p1_phase(root: str, cohorts: dict, smi: str) -> dict:
+    """Drive `cli.p1.main` at the default Config on the p0 phase's T=354
+    pickles under `root` (`cohorts`), check what it wrote, that `viz_feat`
+    ran, restore and resume; returns the kernels' launch counts of the
+    phase."""
     import torch
 
     from deep_interpolation_clustering_tpu_torch import Config
     from deep_interpolation_clustering_tpu_torch.cli import p1
     from deep_interpolation_clustering_tpu_torch.cli.common import (
-        build_parser, config_from_args, make_datasets, save_processed,
+        build_parser, config_from_args, make_datasets,
     )
     from deep_interpolation_clustering_tpu_torch.compat import optimizer_to_jax
-    from deep_interpolation_clustering_tpu_torch.data import make_synthetic_cohorts, process_splits
     from deep_interpolation_clustering_tpu_torch.info import COHORTS
     from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
     from deep_interpolation_clustering_tpu_torch.train import Trainer
     from deep_interpolation_clustering_tpu_torch.train import checkpoint as ckpt
     from deep_interpolation_clustering_tpu_torch.train.optim import LRSchedule
+    from deep_interpolation_clustering_tpu_torch.train.summary import Summary
 
     base, results = os.path.join(root, "Data"), os.path.join(root, "Results")
     width = ["--batch_size", str(B), "--num_timestamps", str(T), "--lstm_hidden", str(H),
              "--head_hidden", str(H), "--base_path", base, "--results_path", results]
     cfg = config_from_args(build_parser("p1").parse_args(width))
-    share = (P1_TRAIN + 0.5) / P1_TOTAL  # int(share * P1_TOTAL) = P1_TRAIN
-    cohorts = process_splits(
-        make_synthetic_cohorts(n_total=P1_TOTAL, max_obs=T, seed=cfg.seed,
-                               split=(share, (1.0 - share) / 2, (1.0 - share) / 2)),
-        rng=np.random.RandomState(4))
-    if len(cohorts["training"]["encounter_id"]) % B != P1_TRAIN % B:
-        raise AssertionError(f"p1 cohort: {len(cohorts['training']['encounter_id'])} "
-                             f"training encounters")
-    save_processed(cfg, cohorts)
 
     # seconds of each trained epoch and of each cohort's eval (restore,
     # forward, dump), each ended by a synchronise
@@ -236,17 +437,54 @@ def p1_phase(root: str, smi: str) -> dict:
         eval_s.setdefault(cohort, []).append(time.perf_counter() - t0)
         return out
 
+    # viz_feat: each dump's latents go to the projector, or (without
+    # tensorboardX) to one log line
+    embedded, add_embedding = [], Summary.add_embedding
+
+    def recorded_embedding(self, features, step, tag):
+        embedded.append((tag, step, tuple(features.shape), self._tb is not None))
+        return add_embedding(self, features, step, tag)
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    lines = Lines()
+    port_log = logging.getLogger("dicl.torch")
     Trainer.train_one_epoch, Trainer.eval = timed_epoch, timed_eval
+    Summary.add_embedding = recorded_embedding
+    port_log.addHandler(lines)
     cb.reset_launch_counts()
     try:
         exp = p1.main(width + ["--max_epochs", "3"])
         torch.cuda.synchronize()
     finally:
         Trainer.train_one_epoch, Trainer.eval = train_one_epoch, evaluate
+        Summary.add_embedding = add_embedding
+        port_log.removeHandler(lines)
     launches = {w.name: w.launches for w in cb.KERNELS}
     n_batches = -(-P1_TRAIN // B)
     if len(epoch_s) != 2:
         raise AssertionError(f"p1 trained {len(epoch_s)} epochs, expected 2")
+    want_tags = [c for _ in ("loss", "ae_mse") for c in COHORTS]
+    if [e[0] for e in embedded] != want_tags or any(
+            e[2] != (len(cohorts[e[0]]["encounter_id"]), 2 * H) for e in embedded):
+        raise AssertionError(f"p1 viz_feat: embedded {embedded}")
+    if embedded[0][3]:
+        missing = [(tag, step) for tag, step, _, _ in embedded if not os.path.exists(
+            os.path.join(exp, "summary", f"{step:05d}", tag, "tensors.tsv"))]
+        if missing:
+            raise AssertionError(f"p1 viz_feat: no projector tensors for {missing}")
+        viz = f"projector: {len(embedded)} embeddings"
+    else:
+        said = [ln for ln in lines.lines if "tensorboardX is not installed" in ln]
+        if len(said) != len(embedded):
+            raise AssertionError(f"p1 viz_feat without tensorboardX: {len(said)} log lines")
+        viz = f"no tensorboardX: {len(said)} log lines"
 
     events = os.path.join(exp, "summary", "events.jsonl")
     with open(events) as f:
@@ -321,9 +559,71 @@ def p1_phase(root: str, smi: str) -> dict:
         epoch_s=json.dumps([round(x, 4) for x in epoch_s]),
         encounters_per_s=f"{P1_TRAIN / mean_epoch:.1f}",
         eval_s=json.dumps({k: [round(x, 4) for x in v] for k, v in eval_s.items()}),
-        restore_err=f"{restore_err:.3g}", resumed_from=stored["epoch"],
+        restore_err=f"{restore_err:.3g}", resumed_from=stored["epoch"], viz_feat=repr(viz),
         launches=json.dumps(launches), card=repr(smi))
     return launches, dict(exp=exp, width=width, cohorts=cohorts, results=results)
+
+
+def convert_phase(run: dict, smi: str) -> None:
+    """The converter on the p1 phase's weight root: `to_torch` in directory
+    mode; each tar loads with strict=True into a fresh port Net on the card,
+    whose validation eval gives the dump's latents again (1e-6), and its
+    optimizer state into the amsgrad Adam over that Net; `to_jax` of the
+    tars gives the checkpoints' params and state back bit for bit."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.cli import convert
+    from deep_interpolation_clustering_tpu_torch.cli.common import (
+        build_parser, config_from_args, make_datasets,
+    )
+    from deep_interpolation_clustering_tpu_torch.train import Trainer, make_optimizer
+    from deep_interpolation_clustering_tpu_torch.train import checkpoint as ckpt
+
+    weight = os.path.join(run["exp"], "weight")
+    root = os.path.join(os.path.dirname(run["results"]), "convert")
+    tars, back = os.path.join(root, "tars"), os.path.join(root, "npz")
+    seconds = {}
+    t0 = time.perf_counter()
+    convert.main(["to_torch", "--src", weight, "--dst", tars])
+    seconds["to_torch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert.main(["to_jax", "--src", tars, "--dst", back])
+    seconds["to_jax"] = time.perf_counter() - t0
+    cfg = config_from_args(build_parser("convert").parse_args(run["width"]))
+    ds = make_datasets(cfg)["validation"]
+    errs = {}
+    for m in ("loss", "ae_mse"):
+        t0 = time.perf_counter()
+        blob = torch.load(os.path.join(tars, m, convert.TORCH_NAME), map_location="cpu",
+                          weights_only=True)
+        tr = Trainer(cfg, {"validation": ds}, os.path.join(root, f"eval_{m}"), device="cuda")
+        tr.net.load_state_dict(blob["state_dict"], strict=True)
+        opt = make_optimizer(cfg, tr.net.parameters())
+        opt.load_state_dict(blob["optimizer"])
+        if not (isinstance(opt, torch.optim.Adam) and opt.param_groups[0]["amsgrad"]):
+            raise AssertionError(f"convert {m}: optimizer {type(opt).__name__}")
+        _, dumps = tr.eval_one_epoch("valid", ds, False)
+        hidden = tr.merge_ob_pred(ds, dumps)["hidden"]
+        torch.cuda.synchronize()
+        seconds[f"load_eval_{m}"] = time.perf_counter() - t0
+        tr.close()
+        dump = np.load(os.path.join(run["exp"], "out_feat", m, "validation.npy"),
+                       allow_pickle=True).item()
+        errs[m] = float(np.abs(hidden - dump["hidden"]).max())
+        if not errs[m] <= 1e-6:
+            raise AssertionError(f"convert {m}: the tar's latents differ from the dump by "
+                                 f"{errs[m]}")
+        _, p_want, s_want, _, _ = ckpt.load_checkpoint(os.path.join(weight, m, ckpt.CKPT_NAME))
+        _, p_got, s_got, _, meta = ckpt.load_checkpoint(os.path.join(back, m, ckpt.CKPT_NAME))
+        want = ckpt._flatten_nested({"params": p_want, "state": s_want})
+        got = ckpt._flatten_nested({"params": p_got, "state": s_got})
+        differ = [k for k in want if k not in got or not np.array_equal(got[k], want[k])]
+        if differ or set(got) != set(want):
+            raise AssertionError(f"convert {m}: to_jax of the tar differs at {differ}")
+        if meta["lr"] != ckpt.load_meta(os.path.join(weight, m, ckpt.CKPT_NAME))["lr"]:
+            raise AssertionError(f"convert {m}: rate {meta['lr']} not carried")
+    say("convert", metrics=["loss", "ae_mse"], latent_err=json.dumps(errs),
+        seconds=json.dumps({k: round(v, 4) for k, v in seconds.items()}), card=repr(smi))
 
 
 def p2_phase(run: dict, smi: str, dev) -> None:
@@ -815,7 +1115,7 @@ def main() -> None:
     from deep_interpolation_clustering_tpu_torch.data import (
         ArrayDataset, make_synthetic_cohorts, process_splits,
     )
-    from deep_interpolation_clustering_tpu_torch.data.loader import draw_bits
+    from deep_interpolation_clustering_tpu_torch.data.loader import draw_bits, draw_dtype
     from deep_interpolation_clustering_tpu_torch.models import Net
     from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
     from deep_interpolation_clustering_tpu_torch.ops import cuda_interp as ci
@@ -825,6 +1125,7 @@ def main() -> None:
     from deep_interpolation_clustering_tpu_torch.train import (
         Trainer, build_inputs, gather_batch, make_optimizer, update,
     )
+    from deep_interpolation_clustering_tpu_torch.train.steps import forward_and_losses
     from deep_interpolation_clustering_tpu_torch.utils import resolve_device
     from deep_interpolation_clustering_tpu_torch.utils.cuda_timing import time_ms
 
@@ -1030,7 +1331,22 @@ def main() -> None:
         lambda: ci.rbf_push_k(t_s, m_s, proj_s, beta, ref_t))
     del sfirst, got, want, proj_s
 
-    report["fake_select_packed"] = dict(
+    # both selects on 16-bit keys (rng_draw_bits=16: the low 16 bits 0, so
+    # ties in the random part are common), from a generator of their own
+    gen16 = torch.Generator(device=dev).manual_seed(16)
+    for name, fn, args16 in (
+            ("fake_select", cs.fake_select,
+             (draw_bits((rows, T), gen16, dev, 16), n_valid, k_sel)),
+            ("fake_select_packed", cs.fake_select_packed,
+             (draw_bits((rows_s, SCALED_T), gen16, dev, 16), nv_s, k_s))):
+        got, want = fn(*args16), cs._select_sort(*args16)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} on 16-bit keys differs from the sort oracle at "
+                                 f"{int((got != want).sum())} slots")
+        report.setdefault(name, {})["bits16"] = dict(
+            T=args16[0].shape[1], rows=args16[0].shape[0], identical=True,
+            ms=time_ms(lambda: fn(*args16)))
+    report["fake_select_packed"].update(
         max_abs_err=0.0, tolerance="bit-identical", shape=[rows_s, SCALED_T],
         ms=time_ms(lambda: cs.fake_select_packed(bits_s, nv_s, k_s)),
         plain_ms=time_ms(lambda: cs._select_sort(bits_s, nv_s, k_s)),
@@ -1039,6 +1355,7 @@ def main() -> None:
         few_rows_ms=time_ms(lambda: cs.fake_select_packed(bits_s[:8], nv_s[:8], k_s[:8])),
         bytes=rows_s * SCALED_T * (4 + 1) + rows_s * 8, flop=0, expf=0,
     )
+    del got, want, args16
     # both selects over the row lengths they are routed at, bit-identical to
     # the sort oracle (and the packed one to the other select on its rows);
     # draws from a generator of its own
@@ -1219,6 +1536,29 @@ def main() -> None:
         steps_per_s=f"{steps_per_s:.2f}", encounters_per_s=f"{steps_per_s * B:.1f}",
         latent=tuple(latent.shape), launches=json.dumps(launches), card=repr(smi))
 
+    # the bare step with the options off by default, beside the default, in
+    # turns (a record, not a change of default): each a fresh trainer, 2
+    # warm-up steps, then OPTION_STEPS timed
+    def bare_step_ms(cfg_x):
+        tr = Trainer(cfg_x, {"training": datasets["training"]},
+                     os.path.join(run_root.name, "options"), device=dev)
+        tr.train_steps(2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_steps(OPTION_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / OPTION_STEPS * 1e3
+        tr.close()
+        return round(ms, 3)
+
+    option_ms = {}
+    for _ in range(2):
+        for name, cfg_x in (("default", cfg), ("fused_heads", cfg.replace(fused_heads=True)),
+                            ("rng_draw_bits_16", cfg.replace(rng_draw_bits=16))):
+            option_ms.setdefault(name, []).append(bare_step_ms(cfg_x))
+    say("main", options="bare step ms, in turns", steps=OPTION_STEPS,
+        step_ms=json.dumps(option_ms), card=repr(smi))
+
     # ------------------------------------------------------ 5. scaled path
     strainer = Trainer(scfg, {"training": sdata}, os.path.join(run_root.name, "scaled"),
                        device=dev)
@@ -1272,10 +1612,11 @@ def main() -> None:
                 raise AssertionError(f"loss {k}: kernels {a} vs plain {b_}")
         return (*params_agree(net_k, net_p, cfg0.init_lr), float(out[True]["loss"]))
 
-    def step_draws(b, t_len, triplet=False):
+    def step_draws(b, t_len, triplet=False, width=32):
         draws = {
-            "fake_bits": draw_bits((b, C, t_len), gen, dev),
-            "fake_noise": torch.rand((b, C, t_len), generator=gen, device=dev),
+            "fake_bits": draw_bits((b, C, t_len), gen, dev, width),
+            "fake_noise": torch.rand((b, C, t_len), generator=gen, device=dev,
+                                     dtype=draw_dtype(width)),
             "perm": torch.randperm(2 * b, generator=gen, device=dev),
         }
         if triplet:
@@ -1320,23 +1661,60 @@ def main() -> None:
     if any(sorted(rows) != [B, 3 * B] for rows in rows_seen.values()):
         raise AssertionError(f"the triplet step's B6/B7 rows: {rows_seen}, expected the "
                              f"encoder's {3 * B} and the decoder's {B}")
+    # the options off by default: a kernel step against a plain step with
+    # fused heads and with 16-bit draws; the fused kernel step's forward
+    # against the unfused one's from the same weights and draws
+    fused_cfg = cfg.replace(dropout=0.0, fused_heads=True)
+    f_worst, f_viol, f_tot, f_loss = kernel_vs_plain_step(fused_cfg, batch, step_draws(B, T))
+    w_worst, w_viol, w_tot, w_loss = kernel_vs_plain_step(
+        cfg.replace(dropout=0.0, rng_draw_bits=16), batch, step_draws(B, T, width=16))
+    unfused_cfg = fused_cfg.replace(fused_heads=False)
+    net_f = Net(fused_cfg, generator=torch.Generator().manual_seed(1)).to(dev)
+    net_u = Net(unfused_cfg).to(dev)
+    net_u.load_state_dict(net_f.state_dict())
+    draws = step_draws(B, T)
+    outs = {}
+    for cfg_x, net in ((fused_cfg, net_f), (unfused_cfg, net_u)):
+        inputs = build_inputs(cfg_x, batch, None, True, False, draws, True)
+        with torch.no_grad():
+            outs[cfg_x.fused_heads] = forward_and_losses(net, cfg_x, inputs, True, None,
+                                                         True)[0]
+    fu_err = {"rec": float((outs[True].rec - outs[False].rec).abs().max())}
+    for k in outs[False].aux:
+        fu_err[k] = float((outs[True].aux[k] - outs[False].aux[k]).abs().max())
+    buf_u = dict(net_u.named_buffers())
+    fu_err["bn_running"] = max(float((v - buf_u[n]).abs().max())
+                               for n, v in net_f.named_buffers() if "running" in n)
+    if not max(fu_err.values()) <= 1e-5:
+        raise AssertionError(f"fused heads vs unfused (kernel step forward): {fu_err}")
+    del net_f, net_u, outs
     say("plain", max_param_diff=f"{worst:.3g}", beyond_1e5=f"{n_viol}/{n_tot}",
         loss=f"{loss:.6f}", tail_max_param_diff=f"{t_worst:.3g}",
         tail_beyond_1e5=f"{t_viol}/{t_tot}", tail_loss=f"{t_loss:.6f}",
         dec_max_param_diff=f"{d_worst:.3g}", dec_beyond_1e5=f"{d_viol}/{d_tot}",
         dec_loss=f"{d_loss:.6f}", triplet_max_param_diff=f"{r_worst:.3g}",
-        triplet_beyond_1e5=f"{r_viol}/{r_tot}", triplet_loss=f"{r_loss:.6f}")
+        triplet_beyond_1e5=f"{r_viol}/{r_tot}", triplet_loss=f"{r_loss:.6f}",
+        fused_max_param_diff=f"{f_worst:.3g}", fused_beyond_1e5=f"{f_viol}/{f_tot}",
+        fused_loss=f"{f_loss:.6f}", fused_vs_unfused=f"{max(fu_err.values()):.3g}",
+        draw16_max_param_diff=f"{w_worst:.3g}", draw16_beyond_1e5=f"{w_viol}/{w_tot}",
+        draw16_loss=f"{w_loss:.6f}")
     trainer.close()
     del trainer, sbatch, sarrays
 
-    # --------------------------------------------------------- 7. p1 entry point
-    p1_launches, run = p1_phase(os.path.join(run_root.name, "p1"), smi)
+    # -------------------------------------------- 7. p0 entry point, at scale
+    p1_root = os.path.join(run_root.name, "p1")
+    cohorts_p1 = p0_phase(p1_root, smi)
+    p0_scale_phase(smi)
 
-    # ------------------------------------------------- 8, 9. p2 entry point, at scale
+    # ------------------------------------------------- 8, 9. p1 entry point, converter
+    p1_launches, run = p1_phase(p1_root, cohorts_p1, smi)
+    convert_phase(run, smi)
+
+    # ----------------------------------------------- 10, 11. p2 entry point, at scale
     p2_phase(run, smi, dev)
     p2_scale_phase(smi, dev)
 
-    # ----------------------------------------------- 10, 11. p3 and p4 entry points
+    # ----------------------------------------------- 12, 13. p3 and p4 entry points
     p3_launches, run = p3_phase(run, smi)
     p4_phase(run, smi, dev)
     run_root.cleanup()
@@ -1356,7 +1734,7 @@ def main() -> None:
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("by_t", "few_rows_ms", "decoder_ms", "triplet_ms",
+            **{k: r[k] for k in ("by_t", "bits16", "few_rows_ms", "decoder_ms", "triplet_ms",
                                  "scaled_ms", "shape", "library")
                if k in r},
         })

@@ -1,13 +1,14 @@
 """Shared CLI plumbing (counterpart of the JAX `cli/common.py`): a flag for
 every `Config` field (dict- and tuple-valued fields take JSON), `--config`
 to reload a saved `config.json` with the flags given winning, the p0
-pickles' I/O and the run directory.
+pickles' I/O and caches, and the run directory.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import pickle
@@ -83,6 +84,137 @@ def save_processed(cfg: Config, splits: Dict[str, Dict[str, np.ndarray]]) -> Non
         logger.info("wrote %s (%d encounters)", path, len(data["encounter_id"]))
 
 
+# -------------------------------------------------- p0 cache fingerprint
+# The processed pickles are reused only when a content fingerprint of
+# everything that determines them matches the `p0.fp` sidecar beside them:
+# the raw input files' bytes (or the synthetic generator's parameters) and
+# the preprocessing config. The hashes are the JAX package's, byte for
+# byte, so a cache either package wrote is a hit for the other. The sidecar
+# is removed before a rewrite and written after it: a crash in between
+# recomputes on the next run.
+def _hash_sources(source_items, tail) -> str:
+    """blake2b-128 over the bytes of each item that is a file path, the
+    `repr` of each other item, then `repr(tail)`."""
+    h = hashlib.blake2b(digest_size=16)
+    for item in source_items:
+        if isinstance(item, str) and os.path.isfile(item):
+            with open(item, "rb") as f:
+                for chunk in iter(lambda: f.read(1 << 22), b""):
+                    h.update(chunk)
+        else:
+            h.update(repr(item).encode())
+    h.update(repr(tail).encode())
+    return h.hexdigest()
+
+
+def _p0_fp_path(cfg: Config) -> str:
+    return os.path.join(processed_dir(cfg), "p0.fp")
+
+
+def p0_fingerprint(cfg: Config, source_items) -> str:
+    """Content hash of the p0 inputs. `source_items` is a list of either
+    file paths (raw mode: bytes are hashed) or repr-able values (synthetic
+    mode: generator parameters)."""
+    return _hash_sources(source_items, (cfg.seed, cfg.holdout_frac, cfg.norm_method,
+                                        cfg.hours_from_admission))
+
+
+def p0_cache_valid(cfg: Config, fp: str, extra_outputs=()) -> bool:
+    """True iff every cohort pickle (plus any `extra_outputs` the mode also
+    writes, e.g. raw mode's abnormal-vital aux CSV) exists and the sidecar
+    matches `fp`."""
+    d = processed_dir(cfg)
+    if not all(os.path.exists(os.path.join(d, f"{c}.pickle")) for c in COHORTS):
+        return False
+    for path in extra_outputs:
+        if not os.path.exists(path):
+            logger.warning("p0 pickles exist but %s is missing — recomputing", path)
+            return False
+    try:
+        with open(_p0_fp_path(cfg)) as f:
+            saved = f.read().strip()
+    except OSError:
+        logger.warning("existing %s/*.pickle have no p0.fp sidecar — recomputing "
+                       "(pass --overwrite true to always recompute)", d)
+        return False
+    if saved != fp:
+        logger.warning("existing %s/*.pickle were built from different inputs/config "
+                       "— recomputing", d)
+        return False
+    return True
+
+
+def p0_invalidate(cfg: Config) -> None:
+    try:
+        os.remove(_p0_fp_path(cfg))
+    except OSError:
+        pass
+
+
+def p0_write_fp(cfg: Config, fp: str) -> None:
+    with open(_p0_fp_path(cfg), "w") as f:
+        f.write(fp)
+
+
+# The gridded raw slices (`split_org/`, reference p0_data_process.py:172-185)
+# depend only on the sources and the admission window, not on the hold-out
+# fraction, the normalization or the hold-out draws: a re-run that changes
+# only those restores the slices instead of gridding again.
+def _p0_raw_dir(cfg: Config) -> str:
+    return os.path.join(cfg.base_path, "model_data", "split_org")
+
+
+def _p0_raw_fp_path(cfg: Config) -> str:
+    return os.path.join(_p0_raw_dir(cfg), "p0_raw.fp")
+
+
+def p0_raw_fingerprint(cfg: Config, source_items) -> str:
+    """Raw-stage content hash: the sources and `hours_from_admission` only
+    (the synthetic caller appends its seed to `source_items`)."""
+    return _hash_sources(source_items, ("raw-v1", cfg.hours_from_admission))
+
+
+def p0_raw_cache_valid(cfg: Config, fp: str, extra_outputs=()) -> bool:
+    """True iff every cohort's raw-slice pickle (plus `extra_outputs` built
+    from the same raw stage) exists and the sidecar matches `fp`."""
+    d = _p0_raw_dir(cfg)
+    if not all(os.path.exists(os.path.join(d, f"{c}.pickle")) for c in COHORTS):
+        return False
+    if not all(os.path.exists(path) for path in extra_outputs):
+        return False
+    try:
+        with open(_p0_raw_fp_path(cfg)) as f:
+            return f.read().strip() == fp
+    except OSError:
+        return False
+
+
+def p0_load_raw(cfg: Config) -> Dict[str, Dict[str, np.ndarray]]:
+    d = _p0_raw_dir(cfg)
+    out = {}
+    for cohort in COHORTS:
+        with open(os.path.join(d, f"{cohort}.pickle"), "rb") as f:
+            out[cohort] = pickle.load(f)
+    return out
+
+
+def p0_save_raw(cfg: Config, splits, fp: str) -> None:
+    """Write the raw slices, then their sidecar (the old sidecar removed
+    first)."""
+    d = _p0_raw_dir(cfg)
+    os.makedirs(d, exist_ok=True)
+    try:
+        os.remove(_p0_raw_fp_path(cfg))
+    except OSError:
+        pass
+    for cohort, data in splits.items():
+        with open(os.path.join(d, f"{cohort}.pickle"), "wb") as f:
+            pickle.dump(data, f)
+    with open(_p0_raw_fp_path(cfg), "w") as f:
+        f.write(fp)
+    logger.info("p0: cached raw slices in %s", d)
+
+
 def load_processed(cfg: Config) -> Dict[str, Dict[str, np.ndarray]]:
     """The p0 pickles (written by this repo's p0 stages)."""
     d = processed_dir(cfg)
@@ -97,12 +229,26 @@ def make_datasets(cfg: Config) -> Dict[str, ArrayDataset]:
     return {c: ArrayDataset(cfg, d, c) for c, d in load_processed(cfg).items()}
 
 
+def set_seed(seed: int) -> None:
+    """Seed the host's generators (the JAX `utils.prng.set_seed`)."""
+    logger.info("The global seed: %s", seed)
+    np.random.seed(seed)
+    random.seed(seed)
+
+
+def require_single_process(cfg: Config) -> Config:
+    """p1-p4 run in one process: multi-process runs are not ported."""
+    if cfg.num_processes > 1:
+        raise NotImplementedError(
+            f"num_processes={cfg.num_processes}: the port runs p1-p4 in one process "
+            f"(multi-process runs are not ported)")
+    return cfg
+
+
 def init_run(cfg: Config, stage: str) -> str:
-    """Seed the host's generators, make `{results_path}/{stage}` and write
-    its `config.json`; returns the run directory."""
-    logger.info("The global seed: %s", cfg.seed)
-    np.random.seed(cfg.seed)
-    random.seed(cfg.seed)
+    """Seed the host's generators and torch's, make `{results_path}/{stage}`
+    and write its `config.json`; returns the run directory."""
+    set_seed(cfg.seed)
     torch.manual_seed(cfg.seed)
     exp_path = os.path.join(cfg.results_path, stage)
     os.makedirs(exp_path, exist_ok=True)

@@ -18,7 +18,9 @@ import torch
 from ..info import COHORTS
 from ..train import Trainer
 from ..utils.logging import logger
-from .common import build_parser, config_from_args, init_run, make_datasets
+from .common import (
+    build_parser, config_from_args, init_run, make_datasets, require_single_process,
+)
 
 PRETRAIN_FEAT_METRICS = ("loss", "ae_mse")  # reference p1:143
 
@@ -26,7 +28,7 @@ PRETRAIN_FEAT_METRICS = ("loss", "ae_mse")  # reference p1:143
 def main(argv: Optional[Sequence[str]] = None,
          device: Optional[Union[str, torch.device]] = None) -> str:
     """Run p1; returns the run directory."""
-    cfg = config_from_args(build_parser(__doc__).parse_args(argv))
+    cfg = require_single_process(config_from_args(build_parser(__doc__).parse_args(argv)))
     exp_path = init_run(cfg, "Pretrain")
     trainer = Trainer(cfg, make_datasets(cfg), exp_path, device=device)
     try:
@@ -34,7 +36,7 @@ def main(argv: Optional[Sequence[str]] = None,
             trainer.train()
         for metric in PRETRAIN_FEAT_METRICS:
             for cohort in COHORTS:
-                trainer.eval(cohort, generate_feat=True, metric=metric)
+                trainer.eval(cohort, generate_feat=True, viz_feat=True, metric=metric)
     finally:
         trainer.close()
     logger.info("p1 done: %s", exp_path)

@@ -20,7 +20,7 @@ import torch
 from ..cluster import DbscanExplorer, KSelection, OpticsExplorer, load_feature_dumps
 from ..utils.device import resolve_device
 from ..utils.logging import logger
-from .common import build_parser, config_from_args
+from .common import build_parser, config_from_args, require_single_process
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -33,7 +33,7 @@ def main(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--cluster_algo", default="kmeans",
                         choices=["kmeans", "dbscan", "optics"])
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
+    cfg = require_single_process(config_from_args(args))
     dev = resolve_device(device)
     exp_path = os.path.join(cfg.results_path, args.stage)
     results = {}

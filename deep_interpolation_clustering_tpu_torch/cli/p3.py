@@ -20,7 +20,9 @@ import torch
 from ..info import COHORTS, METRICS
 from ..train import ClusterTrainer
 from ..utils.logging import logger
-from .common import build_parser, config_from_args, init_run, make_datasets
+from .common import (
+    build_parser, config_from_args, init_run, make_datasets, require_single_process,
+)
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -30,7 +32,7 @@ def main(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--pretrain_path", default=None,
                         help="p1 run dir (default {results_path}/Pretrain)")
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
+    cfg = require_single_process(config_from_args(args))
     if args.loss is None and not args.config:
         cfg = cfg.replace(loss="ae_mse_sup_fake_detect_kl")  # the p3 default (p3:82)
     exp_path = init_run(cfg, "Clustering")
@@ -42,7 +44,7 @@ def main(argv: Optional[Sequence[str]] = None,
             trainer.train()
         for metric in METRICS:  # reference p3:140-143 dumps all three
             for cohort in COHORTS:
-                trainer.eval(cohort, generate_feat=True, metric=metric)
+                trainer.eval(cohort, generate_feat=True, viz_feat=True, metric=metric)
     finally:
         trainer.close()
     logger.info("p3 done: %s", exp_path)

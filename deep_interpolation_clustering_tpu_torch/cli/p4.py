@@ -19,7 +19,7 @@ import torch
 
 from ..cluster import FinalLabeler
 from ..utils.logging import logger
-from .common import build_parser, config_from_args
+from .common import build_parser, config_from_args, require_single_process
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -30,7 +30,7 @@ def main(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--stage", default="Clustering", choices=["Pretrain", "Clustering"])
     parser.add_argument("--restore_metrics", nargs="+", default=["ae_mse", "loss", "delta"])
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
+    cfg = require_single_process(config_from_args(args))
     exp_path = os.path.join(cfg.results_path, args.stage)
     results = FinalLabeler(cfg, exp_path, device=device).pred(
         metrics=args.restore_metrics, seed=cfg.seed)

@@ -7,8 +7,12 @@ the JAX `Config` and writes one (`save`) that the JAX `Config.load` reads.
 It also carries the K-selection fields of p2, the DEC fields of p3 and the
 final-label fields of p4. Fields of the JAX config that only steer the TPU
 build (Pallas switches, XLA matmul precision, scan unrolling, PRNG
-implementation, mesh layout, multi-host, compilation cache) or belong to
-options not ported yet are accepted on load and ignored with one log line.
+implementation, mesh layout, the multi-host coordinator, compilation
+cache) are accepted on load and ignored with one log line.
+`num_processes` and `process_id` are read: p0 lets rank 0 alone write, and
+p1-p4 refuse more than one process (multi-process is not ported). Like the
+JAX `Config`, `save` leaves them out of `config.json` and `load` drops
+them from a file that has them.
 Tuple fields come back from JSON as lists and are made tuples again. `compute_dtype` is read:
 the port computes in float32 only, and any other value raises.
 
@@ -35,11 +39,11 @@ _IGNORED = (
     "use_pallas", "use_pallas_bwd", "use_pallas_lstm", "matmul_precision",
     "eval_matmul_precision", "epoch_scan_unroll", "prng_impl", "shard_cohort",
     "compilation_cache_dir", "perf_profile", "fused_epoch", "device_data",
-    "sci_share_weights", "data_parallel", "num_processes", "process_id",
-    "coordinator_address",
-    # options the port has not reached yet (ROADMAP.md, queue A)
-    "fused_heads",
+    "sci_share_weights", "data_parallel", "coordinator_address",
 )
+# per-process topology: never written to, nor read from, a config.json
+# (the JAX `Config._RUNTIME_ONLY`)
+_RUNTIME_ONLY = ("num_processes", "process_id")
 
 
 @dataclass
@@ -55,6 +59,10 @@ class Config:
     dc_restore_metric: str = "ae_mse"
     log_train_freq: int = 20
     log_valid_freq: int = 20
+    # cooperating processes, 0 = single-process, and this process's rank
+    # (the JAX fields; only p0 acts on them, p1-p4 refuse more than one)
+    num_processes: int = 0
+    process_id: int = -1
 
     # ---- data ----------------------------------------------------------
     hours_from_admission: int = 6
@@ -82,6 +90,9 @@ class Config:
     triple_margin: float = 0.0
     triple_pos_std: float = 0.1
     rbf_basis: str = "gaussian"
+    # run the CompressFC trunk and the aux heads as one batched chain
+    # (`ops.nn.heads_apply_fused`); off by default, as in JAX
+    fused_heads: bool = False
 
     # ---- clustering (DEC, p3) -----------------------------------------
     cluster_number: int = 4
@@ -139,7 +150,8 @@ class Config:
     # validate, checkpoint and test early stop every k-th epoch and at the
     # last one; between, "step" and "warmup" still step the rate
     eval_interval: int = 1
-    # bit width of the fake-select keys and noise draws; only 32 is ported
+    # bit width of the random draws of the fake sample and the
+    # augmentation: 16 draws 16-bit select keys, float16 noise and normals
     rng_draw_bits: int = 32
     # the forward's compute dtype: the port computes in float32 only
     compute_dtype: str = "float32"
@@ -244,12 +256,18 @@ class Config:
         (it keeps the fields it knows, and knows every field here)."""
         os.makedirs(run_dir, exist_ok=True)
         path = os.path.join(run_dir, f"{name}.json")
+        d = dataclasses.asdict(self)
+        for k in _RUNTIME_ONLY:
+            d.pop(k)
         with open(path, "w") as f:
-            f.write(json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True))
+            f.write(json.dumps(d, indent=2, sort_keys=True))
         return path
 
     @classmethod
     def load(cls, path: str, **overrides) -> "Config":
-        """Load a `config.json` written by the JAX or the port's `Config`."""
+        """Load a `config.json` written by the JAX or the port's `Config`
+        (the runtime-only fields of an older file are dropped)."""
         with open(path) as f:
-            return cls.from_dict(json.load(f), **overrides)
+            d = json.load(f)
+        return cls.from_dict({k: v for k, v in d.items() if k not in _RUNTIME_ONLY},
+                             **overrides)

@@ -68,10 +68,22 @@ class ArrayDataset:
         return d
 
 
-def draw_bits(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Uniform 32-bit patterns as int32 (the JAX `random.bits` uint32)."""
+def draw_bits(shape, generator: torch.Generator, device, width: int = 32) -> torch.Tensor:
+    """Uniform bit patterns as int32 (the JAX `random.bits` uint32). With
+    `width=16` only the upper 16 bits are random and the lower 16 are 0:
+    the JAX uint16 draw shifted left by 16."""
+    if width == 16:
+        half = torch.randint(-(2**15), 2**15, shape, generator=generator, device=device,
+                             dtype=torch.int64)
+        return (half << 16).to(torch.int32)
     return torch.randint(-(2**31), 2**31, shape, generator=generator,
                          device=device, dtype=torch.int64).to(torch.int32)
+
+
+def draw_dtype(width: int) -> torch.dtype:
+    """The float type of the uniform and normal draws: float16 under
+    `rng_draw_bits=16` (converted to float32 where used), else float32."""
+    return torch.float16 if width == 16 else torch.float32
 
 
 def make_fake_ob(
@@ -90,18 +102,20 @@ def make_fake_ob(
     dataloader.py:182-193). Channels without observations select nothing.
 
     `bits` ((B, C, T) int32 bit patterns) and `noise` ((B, C, T) in [0, 1))
-    are drawn from `generator` unless given. The select is the kernel of
+    are drawn from `generator` unless given; `draw_bits_width=16` draws
+    16-bit keys and float16 noise (the JAX `draw_bits=16`). The noise is
+    converted to `ob`'s type. The select is the kernel of
     `ops/cuda_select.py` on the card (`use_kernel=False`: its plain version).
     """
-    if draw_bits_width != 32:
-        raise NotImplementedError("rng_draw_bits=16 is not ported yet")
     n_valid = torch.sum(padding_mask, dim=2).to(torch.int32)  # (B, C)
     num_perm = torch.where(n_valid > 0, torch.clamp(n_valid // 2, min=1),
                            torch.zeros_like(n_valid))
     if bits is None:
-        bits = draw_bits(ob.shape, generator, ob.device)
+        bits = draw_bits(ob.shape, generator, ob.device, draw_bits_width)
     if noise is None:
-        noise = torch.rand(ob.shape, generator=generator, device=ob.device, dtype=ob.dtype)
+        noise = torch.rand(ob.shape, generator=generator, device=ob.device,
+                           dtype=draw_dtype(draw_bits_width))
+    noise = noise.to(ob.dtype)
     selected = fake_select_mask(bits, n_valid, num_perm, use_kernel=use_kernel)
     if scale != 0:
         noise = noise * scale - scale / 2
@@ -115,13 +129,16 @@ def augment_batch(
     ob_std: float,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    draw_bits_width: int = 32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gaussian train-time jitter on observations (std `ob_std`) and
     timestamps (std 0.01), re-masked (reference dataloader.py:196-217).
-    `noise` is the (2, B, C, T) standard normal draw, drawn if not given."""
+    `noise` is the (2, B, C, T) standard normal draw, drawn if not given
+    (in float16 with `draw_bits_width=16`) and converted to `ob`'s type."""
     if noise is None:
         noise = torch.randn((2,) + tuple(ob.shape), generator=generator,
-                            device=ob.device, dtype=ob.dtype)
+                            device=ob.device, dtype=draw_dtype(draw_bits_width))
+    noise = noise.to(ob.dtype)
     ob_n = (ob + noise[0] * ob_std) * padding_mask
     ts_n = (timestamp + noise[1] * 0.01) * padding_mask
     return ob_n, ts_n

@@ -1,17 +1,69 @@
-"""p0 tail in NumPy: train-mean imputation, hold-out masks and min-max
-normalization (the port's own copy of the JAX `data/preprocess.py` helpers
-behind `process_splits`, reference p0_data_process.py:72-204). Observations
-are front-packed per (encounter, channel): slot k holds the k-th
-observation, `padding_mask` marks real entries.
+"""p0 in NumPy: gridding of the raw long-format vitals, train-mean
+imputation, hold-out masks and min-max normalization (the port's own copy
+of the JAX `data/preprocess.py`, reference p0_data_process.py:35-204).
+Observations are front-packed per (encounter, channel): slot k holds the
+k-th observation, `padding_mask` marks real entries.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from ..info import MIN_MAX_VALUES, USE_FEATURES
+from ..utils.logging import logger
+
+
+def generate_data(
+    encounter_ids: Sequence,
+    vital_data: Dict[str, "pandas.DataFrame"],
+    max_length: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Grid per-vital long-format dataframes into dense (N, C, T) planes.
+
+    Each dataframe has columns `encounter_deiden_id`, `time_stamp`,
+    `measurement` (reference p0_data_process.py:35-70). Returns feat /
+    time_step / padding_mask planes plus the encounter-id list. T is the max
+    observation count over all (vital, encounter) pairs unless `max_length`
+    pins it. Needs pandas.
+    """
+    import pandas as pd
+
+    encounter_ids = list(encounter_ids)
+    eid_index = pd.Index(encounter_ids)
+
+    if max_length is None:
+        max_length = 0
+        for df in vital_data.values():
+            counts = df.groupby("encounter_deiden_id")["time_stamp"].count()
+            if len(counts):
+                max_length = max(max_length, int(counts.max()))
+    logger.info("max_length %d", max_length)
+
+    n, c = len(encounter_ids), len(vital_data)
+    feat = np.zeros((n, c, max_length))
+    padding_mask = np.zeros_like(feat, dtype=np.int8)
+    time_step = np.zeros_like(feat)
+
+    for ci, (name, df) in enumerate(vital_data.items()):
+        rows = eid_index.get_indexer(df["encounter_deiden_id"])
+        keep = rows >= 0
+        rows = rows[keep]
+        # k-th observation of each encounter goes to slot k (front-packed)
+        pos = df.loc[keep].groupby("encounter_deiden_id").cumcount().to_numpy()
+        in_range = pos < max_length
+        rows, pos = rows[in_range], pos[in_range]
+        feat[rows, ci, pos] = df.loc[keep, "measurement"].to_numpy()[in_range]
+        time_step[rows, ci, pos] = df.loc[keep, "time_stamp"].to_numpy()[in_range]
+        padding_mask[rows, ci, pos] = 1
+
+    return dict(
+        feat=feat,
+        time_step=time_step,
+        padding_mask=padding_mask,
+        encounter_id=encounter_ids,
+    )
 
 
 def mean_imputation(

@@ -10,6 +10,8 @@
     latent to the cluster centres, and their target distribution
 
 The real, fake and triplet-positive streams go through one batched encode.
+With `fused_heads` the CompressFC trunk and the heads run as one batched
+chain (`ops.nn.heads_apply_fused`).
 `Net`'s `state_dict()` keys are the reference torch model's names
 (pretrain_interp.py:90-167, clustering_interp.py:134-189).
 """
@@ -32,8 +34,8 @@ from ..ops.interpolation import (
     to_planes,
 )
 from ..ops.lstm import LSTMWeights, bilstm_forward
-from ..ops.nn import Head, uniform_
-from ..ops.rbf import RBFDecoder, rbf_decode
+from ..ops.nn import Head, heads_apply_fused, uniform_
+from ..ops.rbf import RBFDecoder, rbf_push
 
 
 class NetOutput(NamedTuple):
@@ -192,29 +194,39 @@ class Net(nn.Module):
         masked = train and sample_mask is not None
         row_mask = sample_mask if masked else None
         rate = cfg.dropout
-        # CompressFC draws its dropout before the heads draw theirs
-        rec = rbf_decode(
-            self.rbf, interp_data, x, r, cfg.hours_from_admission, rate, train,
-            generator, cfg.rbf_basis, use_kernels,
-            torch.repeat_interleave(sample_mask, r) if masked else None,
-        )
-
-        aux: Dict[str, torch.Tensor] = {}
-        if hasattr(self, "predict_future"):
-            aux["future_vital"] = torch.sigmoid(
-                self.predict_future(cat_hidden, rate, train, generator, row_mask)
-            )
-        if hasattr(self, "aux_head"):
-            y = self.aux_head(cat_hidden, rate, train, generator, row_mask)
-            for i, task in enumerate(self.aux_task_names):
-                aux[task] = y[:, i]
+        # the CompressFC trunk (TimeDistributed: BatchNorm sees B*R rows,
+        # reference rbf.py:111-125) and the heads, in the order they draw
+        # their dropout
+        b_sz, _, in_dim = interp_data.shape
+        heads = [("rbf", self.rbf.compress_fc.module, interp_data.reshape(b_sz * r, in_dim),
+                  torch.repeat_interleave(sample_mask, r) if masked else None)]
+        for name in ("predict_future", "aux_head"):
+            if hasattr(self, name):
+                heads.append((name, getattr(self, name), cat_hidden, row_mask))
         if use_fake:
             pos_neg = torch.cat([cat_hidden, cat_all[b : 2 * b]], dim=0)[fake_perm_idx]
             fake_mask = None
             if masked:
                 fake_mask = torch.cat([sample_mask, sample_mask])[fake_perm_idx]
-            logits = self.fake_det_head(pos_neg, rate, train, generator, fake_mask)
-            aux["fake_det"] = torch.log_softmax(logits, dim=1)
+            heads.append(("fake_det_head", self.fake_det_head, pos_neg, fake_mask))
+        if cfg.fused_heads and len(heads) > 1:
+            ys = heads_apply_fused([h[1:] for h in heads], rate, train, generator)
+        else:
+            ys = [head(xh, rate, train, generator, mh) for _, head, xh, mh in heads]
+        out = {name: y for (name, *_), y in zip(heads, ys)}
+
+        proj = out["rbf"].reshape(b_sz, r, -1).permute(0, 2, 1)  # (B, C, R)
+        rec = rbf_push(self.rbf.kernel, proj, x, r, cfg.hours_from_admission, cfg.rbf_basis,
+                       use_kernels)
+
+        aux: Dict[str, torch.Tensor] = {}
+        if "predict_future" in out:
+            aux["future_vital"] = torch.sigmoid(out["predict_future"])
+        if "aux_head" in out:
+            for i, task in enumerate(self.aux_task_names):
+                aux[task] = out["aux_head"][:, i]
+        if use_fake:
+            aux["fake_det"] = torch.log_softmax(out["fake_det_head"], dim=1)
             if use_triplet:
                 aux["positive"] = cat_all[2 * b:]
                 aux["negative"] = cat_all[b: 2 * b]

@@ -1,5 +1,5 @@
-"""Primitive layers: linear, batch-norm, dropout, MLP heads (counterpart of
-the JAX `ops/nn.py`, unfused: the JAX default `fused_heads=False`).
+"""Primitive layers: linear, batch-norm, dropout, MLP heads, and several
+heads run as one batched chain (counterpart of the JAX `ops/nn.py`).
 
 Modules keep the reference's torch parameter names so that a `state_dict`
 maps 1:1 onto the reference checkpoints. Every random draw (init, dropout)
@@ -10,7 +10,7 @@ in place in train mode (the JAX functions return the new state instead).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -125,3 +125,92 @@ class Head(nn.Module):
             h = torch.relu(h)
         h = dropout(h, rate, train, generator)
         return self.model[-1](h)
+
+
+def heads_apply_fused(
+    heads: Sequence[Tuple[Head, torch.Tensor, Optional[torch.Tensor]]],
+    rate: float, train: bool, generator: Optional[torch.Generator],
+) -> List[torch.Tensor]:
+    """Run several `Head` trunks as one batched chain (the JAX
+    `heads_apply_fused`, `Config.fused_heads`): one fc1 product over the
+    row-concat of every head's input and the column-concat of every fc1
+    weight, one normalize pass, one masked ReLU, one dropout draw over the
+    whole plane and one block-diagonal fc2 product.
+
+    `heads`: (head, x, row_mask) triples with a shared input width; a
+    row mask (train only) weights that head's moments as in `BatchNorm`.
+    The BatchNorm statistics stay per head: a (heads, rows) row-segment
+    indicator, with the row masks folded in, sums each head's column block
+    over its own rows by one product. The off-segment blocks of the fc1
+    product are finite, normalized by the owning head's statistics and
+    multiplied by the exact zeros of the block-diagonal fc2, so each head's
+    output equals its own chain up to float32 summation order. In train
+    mode each head's running statistics are updated in place. Returns the
+    heads' outputs in order.
+    """
+    mods = [h for h, _, _ in heads]
+    xs = [x for _, x, _ in heads]
+    rows = [x.shape[0] for x in xs]
+    fc1s = [h.model[0] for h in mods]
+    bns = [h.model[1] for h in mods]
+    fc2s = [h.model[-1] for h in mods]
+    cols = [0]
+    for fc1 in fc1s:
+        cols.append(cols[-1] + fc1.weight.shape[0])
+    row_off = [0]
+    for n in rows:
+        row_off.append(row_off[-1] + n)
+    outs = [0]
+    for fc2 in fc2s:
+        outs.append(outs[-1] + fc2.weight.shape[0])
+
+    x_cat = torch.cat(xs, dim=0)  # (N, in)
+    w1 = torch.cat([fc1.weight for fc1 in fc1s], dim=0)
+    b1 = torch.cat([fc1.bias for fc1 in fc1s])
+    hid = x_cat @ w1.T + b1  # (N, HS)
+
+    if train:
+        seg = torch.zeros((len(heads), row_off[-1]), dtype=hid.dtype, device=hid.device)
+        for i in range(len(heads)):
+            seg[i, row_off[i]:row_off[i + 1]] = 1.0
+        masks = [m for _, _, m in heads]
+        counts = [float(n) for n in rows]
+        if any(m is not None for m in masks):
+            seg = seg * torch.cat([m if m is not None else torch.ones(n, dtype=hid.dtype,
+                                                                      device=hid.device)
+                                   for m, n in zip(masks, rows)])[None, :]
+            counts = [torch.sum(m) if m is not None else c for m, c in zip(masks, counts)]
+        sums = seg @ hid  # (heads, HS): each head's column sums over its rows
+        mean_blocks = [sums[i, cols[i]:cols[i + 1]] / counts[i] for i in range(len(heads))]
+        mean_vec = torch.cat(mean_blocks)
+        sq = seg @ torch.square(hid - mean_vec)
+        var_blocks = [sq[i, cols[i]:cols[i + 1]] / counts[i] for i in range(len(heads))]
+        var_vec = torch.cat(var_blocks)
+        with torch.no_grad():
+            for bn, n, mean, var in zip(bns, counts, mean_blocks, var_blocks):
+                if isinstance(n, float):
+                    unbiased = var * (n / max(n - 1.0, 1.0))
+                else:
+                    unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+                bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean)
+                bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var
+                                     + BN_MOMENTUM * unbiased)
+    else:
+        mean_vec = torch.cat([bn.running_mean for bn in bns])
+        var_vec = torch.cat([bn.running_var for bn in bns])
+
+    gamma = torch.cat([bn.weight for bn in bns])
+    beta = torch.cat([bn.bias for bn in bns])
+    y = (hid - mean_vec) * torch.rsqrt(var_vec + BN_EPS) * gamma + beta
+    if any(h.relu for h in mods):
+        relu_cols = torch.zeros(cols[-1], dtype=torch.bool, device=hid.device)
+        for i, h in enumerate(mods):
+            if h.relu:
+                relu_cols[cols[i]:cols[i + 1]] = True
+        y = torch.where(relu_cols, torch.clamp(y, min=0.0), y)
+    y = dropout(y, rate, train, generator)
+
+    w2 = torch.block_diag(*[fc2.weight.T for fc2 in fc2s])  # (HS, OS)
+    b2 = torch.cat([fc2.bias for fc2 in fc2s])
+    out = y @ w2 + b2  # (N, OS)
+    return [out[row_off[i]:row_off[i + 1], outs[i]:outs[i + 1]] for i in range(len(heads))]

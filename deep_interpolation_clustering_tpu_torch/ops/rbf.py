@@ -1,8 +1,9 @@
 """RBF decoder: gridded decoder states -> values at irregular timestamps
 (counterpart of the JAX `ops/rbf.py`).
 
-A TimeDistributed CompressFC trunk projects the `(B, R, 2H)` decoder outputs
-to per-channel values at the R reference points; softplus-positive
+A TimeDistributed CompressFC trunk (run by `models.net.Net`, alone or fused
+with the heads) projects the `(B, R, 2H)` decoder outputs to per-channel
+values at the R reference points; softplus-positive
 per-channel RBF weights over |t_obs - ref_t| push them back onto each
 channel's observed timestamps, normalized by the summed masked weights
 (`+ 1e-10`) and re-masked (reference rbf.py:57-125). All 11 bases are here;
@@ -142,28 +143,3 @@ def rbf_push(
     norm = torch.sum(phi, dim=-1)  # (B, C, T)
     y = torch.sum(phi * proj[:, :, None, :], dim=-1)
     return y / (norm + RBF_NORM_EPS) * m  # (:107)
-
-
-def rbf_decode(
-    rbf: RBFDecoder,
-    interp_data: torch.Tensor,
-    raw_input: Union[torch.Tensor, Planes],
-    ref_points: int,
-    hours_look_ahead: float,
-    dropout_rate: float,
-    train: bool,
-    generator: Optional[torch.Generator] = None,
-    basis: str = "gaussian",
-    use_kernel: bool = True,
-    row_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Decode `(B, R, in_dim)` gridded states to `(B, C, T)` observations.
-    BatchNorm in the trunk sees B*R rows, as TimeDistributed+BatchNorm1d
-    does (reference rbf.py:111-125)."""
-    b_sz, r, in_dim = interp_data.shape
-    proj = rbf.compress_fc.module(
-        interp_data.reshape(b_sz * r, in_dim), dropout_rate, train, generator, row_mask
-    )
-    proj = proj.reshape(b_sz, r, -1).permute(0, 2, 1)  # (B, C, R)
-    return rbf_push(rbf.kernel, proj, raw_input, ref_points, hours_look_ahead,
-                    basis, use_kernel)

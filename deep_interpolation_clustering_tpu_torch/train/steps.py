@@ -57,7 +57,7 @@ def build_inputs(
     ob, timestamp = ob_raw, ts_raw
     if train and cfg.aug_input:
         ob, timestamp = augment_batch(ob_raw, ts_raw, padding_mask, cfg.aug_std,
-                                      draws.get("aug_noise"), generator)
+                                      draws.get("aug_noise"), generator, cfg.rng_draw_bits)
     ob = ob * padding_mask
 
     def planes(o, t):
@@ -84,7 +84,8 @@ def build_inputs(
         fake_ts = ts_raw
         if train and cfg.aug_input:
             fake_ob, fake_ts = augment_batch(fake_ob, ts_raw, padding_mask, cfg.aug_std,
-                                             draws.get("fake_aug_noise"), generator)
+                                             draws.get("fake_aug_noise"), generator,
+                                             cfg.rng_draw_bits)
         out["fake_x"] = planes(fake_ob * padding_mask, fake_ts)
         b = ob.shape[0]
         perm = draws.get("perm")
@@ -98,7 +99,8 @@ def build_inputs(
             out["fake_row_mask"] = torch.cat([sample_mask, sample_mask])[perm]
         if cfg.triple_margin != 0.0:
             pos_ob, pos_ts = augment_batch(ob, timestamp, padding_mask, cfg.triple_pos_std,
-                                           draws.get("pos_noise"), generator)
+                                           draws.get("pos_noise"), generator,
+                                           cfg.rng_draw_bits)
             out["positive_x"] = Planes(pos_ob, padding_mask, pos_ts, ae_mask)
 
     out["aux_label"] = {t: batch[t] for t in cfg.aux_tasks if t in batch}

@@ -1,7 +1,8 @@
 """Metric records: an `events.jsonl` stream and, when tensorboardX
-imports, TensorBoard scalars (counterpart of the JAX `train/summary.py`,
-reference utils.py:175-186). Scalars are filtered to `METRICS` and
-`SUMMARY_ITEMS` and written with their scope and step.
+imports, TensorBoard scalars and latent projector dumps (counterpart of
+the JAX `train/summary.py`, reference utils.py:175-186). Scalars are
+filtered to `METRICS` and `SUMMARY_ITEMS` and written with their scope and
+step.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Dict, Sequence
 import numpy as np
 
 from ..info import METRICS, SUMMARY_ITEMS
+from ..utils.logging import logger
 
 
 class Summary:
@@ -42,6 +44,19 @@ class Summary:
             rec.update(step=step, scope=scope)
             self._jsonl.write(json.dumps(rec) + "\n")
             self._jsonl.flush()
+
+    def add_embedding(self, features: np.ndarray, step: int, tag: str) -> None:
+        """Latent-space projector dump (reference pretrain_trainer.py:117);
+        without tensorboardX only a log line, and a writer's error is
+        swallowed, as in the JAX package."""
+        if self._tb is None:
+            logger.info("add_embedding %s: tensorboardX is not installed, no projector "
+                        "written", tag)
+        else:
+            try:
+                self._tb.add_embedding(features, global_step=step, tag=tag)
+            except Exception as e:  # the projector is optional: log and go on
+                logger.warning("add_embedding %s failed: %r", tag, e)
 
     def close(self) -> None:
         self._jsonl.close()

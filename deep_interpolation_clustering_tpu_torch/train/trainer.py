@@ -256,14 +256,15 @@ class Trainer:
             ob_pred[k] = data
         return ob_pred
 
-    def eval(self, cohort: str, generate_feat: bool = False,
+    def eval(self, cohort: str, generate_feat: bool = False, viz_feat: bool = False,
              metric: Optional[str] = None) -> Dict[str, np.ndarray]:
         """Restore the best checkpoint of `metric` (default: the config's
         `restore_metric`) and dump per-encounter features of `cohort`
         (reference pretrain_trainer.py:90-117) to
         `out_feat/{metric}/{cohort}.npy` when `generate_feat`; with
         `evaluate_interpolation` the inputs are the held-out (denoised) ones
-        and the file is `{cohort}_interp_eval.npy`."""
+        and the file is `{cohort}_interp_eval.npy`. `viz_feat` writes the
+        latents to the TensorBoard projector, tagged with the cohort."""
         cfg = self.cfg
         metric = metric or self.restore_metric
         self.load_weight(metric)
@@ -284,6 +285,8 @@ class Trainer:
             path = os.path.join(folder, f"{cohort}{suffix}.npy")
             np.save(path, ob_pred)  # a dict, as the reference writes it
             logger.info("features saved to %s", path)
+        if viz_feat:
+            self.summary.add_embedding(ob_pred["hidden"], self.epoch, cohort)
         return ob_pred
 
     # ------------------------------------------------------ aly + ckpt

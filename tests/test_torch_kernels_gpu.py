@@ -19,7 +19,10 @@ shape here.
 
 The p3 path too: B6/B7 at the triplet encoder's 3 x 256 rows, the k-means on
 the card against the same code on the CPU, and one DEC step (with and
-without the triplet stream) with the kernels against one without.
+without the triplet stream) with the kernels against one without. And the
+options off by default: both selects on 16-bit keys (`rng_draw_bits=16`,
+whose random parts tie far more often), and one step with `fused_heads`
+and one with 16-bit draws, with the kernels against without.
 """
 
 import copy
@@ -487,6 +490,67 @@ def test_dec_train_step_kernels_match_plain(dev, triplet):
         losses[use_kernels] = update(net, make_optimizer(cfg, net.parameters()), cfg, inputs,
                                      None, use_kernels)
     assert "kl" in losses[True] and ("triplet" in losses[True]) == triplet
+    for k, v in losses[False].items():
+        assert abs(float(losses[True][k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), k
+    plain = dict(net_p.named_parameters())
+    n_viol = n_tot = 0
+    for n, p in net_k.named_parameters():
+        d = (p.detach() - plain[n].detach()).abs()
+        assert float(d.max()) <= 2 * cfg.init_lr, n
+        n_viol += int((d > 1e-5 + 1e-5 * plain[n].detach().abs()).sum())
+        n_tot += d.numel()
+    assert n_viol <= max(1, n_tot // 10_000)
+
+
+@pytest.mark.parametrize("t", [48, 354, 2048])
+def test_selects_bit_identical_on_16bit_keys(dev, t):
+    """Keys with 16 random bits (the low 16 of each pattern 0): ties in the
+    random part are broken by slot position in every kernel as in the
+    sort; T=48 through both wrappers of the kernel and the mask routing."""
+    rng = np.random.RandomState(t)
+    rows = 6 * 256
+    n_valid = rng.randint(0, t + 1, size=rows).astype(np.int32)
+    k = np.where(n_valid > 0, np.maximum(1, n_valid // 2), 0).astype(np.int32)
+    u16 = rng.randint(0, 2**16, size=(rows, t)).astype(np.uint32)
+    u16[:64] &= 0x3  # rows of heavy ties
+    bits = (u16 << 16).view(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (bits, n_valid, k)]
+    want = cs._select_sort(*args)
+    wrappers = [cs.fake_select] + ([cs.fake_select_packed] if t <= cs.PACKED_MAX_T else [])
+    for fn in wrappers:
+        assert torch.equal(fn(*args), want), fn.name
+    got = cs.fake_select_mask(*(a.reshape((256, 6) + a.shape[1:]) for a in args))
+    assert torch.equal(got.reshape(rows, t), want)
+    assert torch.equal(want.sum(1).to(torch.int32), args[2])
+
+
+@pytest.mark.parametrize("option", [dict(fused_heads=True), dict(rng_draw_bits=16)],
+                         ids=["fused_heads", "draw16"])
+def test_option_train_step_kernels_match_plain(dev, option):
+    """One p1 update with `fused_heads` or with 16-bit draws (drawn from a
+    generator on the card), with the kernels against without, from the
+    same weights and draws: losses within 1e-5, parameters under the Adam
+    eps-regime rule."""
+    b, t, c = 32, 354, 6
+    cfg = Config(batch_size=b, num_timestamps=t, dropout=0.0, **option)
+    cohorts = process_splits(make_synthetic_cohorts(n_total=60, max_obs=t, seed=2),
+                             rng=np.random.RandomState(0))
+    data = {k: torch.as_tensor(v, device=dev)
+            for k, v in ArrayDataset(cfg, cohorts["training"], "training").arrays().items()}
+    batch = gather_batch(data, torch.arange(b, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    width = cfg.rng_draw_bits
+    draws = {"fake_bits": draw_bits((b, c, t), gen, dev, width),
+             "fake_noise": torch.rand((b, c, t), generator=gen, device=dev,
+                                      dtype=torch.float16 if width == 16 else torch.float32),
+             "perm": torch.randperm(2 * b, generator=gen, device=dev)}
+    net_k = Net(cfg, generator=torch.Generator().manual_seed(4)).to(dev)
+    net_p = copy.deepcopy(net_k)
+    losses = {}
+    for use_kernels, net in ((True, net_k), (False, net_p)):
+        inputs = build_inputs(cfg, batch, None, True, False, draws, use_kernels)
+        losses[use_kernels] = update(net, make_optimizer(cfg, net.parameters()), cfg, inputs,
+                                     None, use_kernels)
     for k, v in losses[False].items():
         assert abs(float(losses[True][k]) - float(v)) <= 1e-5 * max(1.0, abs(float(v))), k
     plain = dict(net_p.named_parameters())
