@@ -63,6 +63,20 @@ not 0):
                a fresh Trainer that gives the dump's latents again (1e-6),
                and a resume from the stored epoch and rate (--restore true
                --max_epochs 4); the launch counters must show B1 and B3-B7
+  9b. dp     - data-parallel and multi-process runs through the entry points
+               at the default Config on the p0 phase's pickles (`dp_phase`):
+               `cli.p1.main --data_parallel 1` (one NCCL rank) and p1 under
+               torchrun (env://) bit for bit against one process; two ranks sharing the card over gloo
+               for one step and the masked tail (within invariant 1's band,
+               the ranks' parameters the same bits), then for two p1 epochs
+               and three p3 epochs (held to the band or to 10x the drift of
+               one process nudged by 2^-24, which the trajectory amplifies
+               alike), every rank's launch counts showing B1 and B3-B7 and
+               every file written once; two NCCL ranks where there are two
+               cards (else `"nccl_2": "skipped: 1 card"`); p2 and p4 at
+               `--num_processes 2` as two processes on the card, the CSVs
+               and labels those of one process; each run's epoch seconds
+               and encounters/s
  10. convert - the converter (`cli.convert.main`) on the p1 run's weight
                root: `to_torch` in directory mode, each tar into a fresh Net
                on the card (strict) whose validation latents equal the
@@ -624,6 +638,430 @@ def convert_phase(run: dict, smi: str) -> None:
             raise AssertionError(f"convert {m}: rate {meta['lr']} not carried")
     say("convert", metrics=["loss", "ae_mse"], latent_err=json.dumps(errs),
         seconds=json.dumps({k: round(v, 4) for k, v in seconds.items()}), card=repr(smi))
+
+
+def _captured_stderr(fn):
+    """Run `fn()` with file descriptor 2 (and so the log lines of every rank
+    it spawns) sent to a file; returns (fn's result, the text), the text
+    also passed on to this process's stderr."""
+    with tempfile.TemporaryFile("w+") as f:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(f.fileno(), 2)
+        try:
+            out = fn()
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        f.seek(0)
+        text = f.read()
+    sys.stderr.write(text)
+    return out, text
+
+
+def _epoch_lines(text: str) -> dict:
+    """{rank: [(epoch seconds, encounters/s)]} from the trainer's epoch log
+    lines (rank 0 without a group)."""
+    import re
+
+    out = {}
+    for m in re.finditer(r"epoch \d+ trained in ([0-9.]+) s, ([0-9.]+) encounters/s"
+                         r"(?: \(rank (\d+) of \d+\))?", text):
+        out.setdefault(int(m.group(3) or 0), []).append((float(m.group(1)),
+                                                         float(m.group(2))))
+    return out
+
+
+def _files(folder: str) -> list:
+    """The files under `folder` (TensorBoard event files, named by time and
+    host, left out)."""
+    return sorted(os.path.relpath(os.path.join(d, f), folder)
+                  for d, _, fs in os.walk(folder) for f in fs
+                  if not f.startswith("events.out.tfevents"))
+
+
+def _run_files(exp: str) -> dict:
+    """A p1 or p3 run directory's checkpoints and dumps, and its summary
+    rows."""
+    from deep_interpolation_clustering_tpu_torch.info import COHORTS, METRICS
+
+    out = {}
+    for m in METRICS:
+        path = os.path.join(exp, "weight", m, "checkpoint.npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                out[("ckpt", m)] = {k: z[k] for k in z.files}
+        for cohort in COHORTS:
+            path = os.path.join(exp, "out_feat", m, f"{cohort}.npy")
+            if os.path.exists(path):
+                out[("dump", m, cohort)] = np.load(path, allow_pickle=True).item()
+    with open(os.path.join(exp, "summary", "events.jsonl")) as f:
+        out["rows"] = [json.loads(line) for line in f]
+    return out
+
+
+def _bit_differences(a: dict, b: dict) -> list:
+    """The entries of two `_run_files` that are not the same bits."""
+    bad = [k for k in set(a) ^ set(b)]
+    for k in set(a) & set(b):
+        if k == "rows":
+            if a[k] != b[k]:
+                bad.append(k)
+            continue
+        for name in set(a[k]) | set(b[k]):
+            x, y = a[k].get(name), b[k].get(name)
+            if x is None or y is None or not np.array_equal(np.asarray(x), np.asarray(y)):
+                bad.append((k, name))
+    return bad
+
+
+# invariant 1's band (the JAX package's sharded-vs-single contract): train
+# losses, validation ae_mse, the largest parameter difference, the share of
+# parameter elements beyond 1e-4, latents, rec_ob beyond its rtol 3e-4, soft
+# cluster labels
+BAND = dict(max_loss_diff=1e-5, max_valid_ae_mse_diff=5e-4, max_param_diff=5e-3,
+            beyond_1e4_share=1e-3, max_hidden_diff=1e-4, rec_ob_excess_over_rtol=1e-4,
+            max_cluster_pred_diff=1e-4)
+# a nudge of every weight by 2^-24 of itself, random in sign: the size of
+# the float32 summation-order differences between two ranks and one process
+NUDGE = 2.0 ** -24
+
+
+def _drift(got: dict, want: dict, tag: str) -> dict:
+    """How far one run's `_run_files` are from another's, in `BAND`'s
+    measures, and the label flips of the soft cluster labels."""
+    rows, wrows = got["rows"], want["rows"]
+    if [(r["scope"], r["step"]) for r in rows] != [(r["scope"], r["step"]) for r in wrows]:
+        raise AssertionError(f"dp {tag}: summary rows {[(r['scope'], r['step']) for r in rows]}")
+    loss_diff = max([abs(r["loss"] - w["loss"]) for r, w in zip(rows, wrows)
+                     if r["scope"] == "train"] or [0.0])
+    ae_diff = max([abs(r["ae_mse"] - w["ae_mse"]) for r, w in zip(rows, wrows)
+                   if r["scope"] == "valid"] or [0.0])
+    worst, n_viol, n_tot = 0.0, 0, 0
+    for k in want:
+        if k[0] != "ckpt":
+            continue
+        for name, w in want[k].items():
+            if name.startswith("params/"):
+                d = np.abs(got[k][name] - w)
+                worst = max(worst, float(d.max()))
+                n_viol += int((d > 1e-4).sum())
+                n_tot += d.size
+    hidden = rec = soft = 0.0
+    flips = 0
+    for k in want:
+        if k[0] != "dump":
+            continue
+        g, w = got[k], want[k]
+        if list(g["encounter_id"]) != list(w["encounter_id"]):
+            raise AssertionError(f"dp {tag}: {k} encounters differ")
+        hidden = max(hidden, float(np.abs(g["hidden"] - w["hidden"]).max()))
+        if "rec_ob" in w:
+            excess = np.abs(g["rec_ob"] - w["rec_ob"]) - 3e-4 * np.abs(w["rec_ob"])
+            rec = max(rec, float(excess.max()))
+        if "cluster_pred" in w:
+            soft = max(soft, float(np.abs(g["cluster_pred"] - w["cluster_pred"]).max()))
+            flips = max(flips, int((g["cluster_pred"].argmax(1)
+                                    != w["cluster_pred"].argmax(1)).sum()))
+    return dict(max_loss_diff=loss_diff, max_valid_ae_mse_diff=ae_diff, max_param_diff=worst,
+                beyond_1e4_share=n_viol / max(n_tot, 1), max_hidden_diff=hidden,
+                rec_ob_excess_over_rtol=rec, max_cluster_pred_diff=soft, label_flips=flips)
+
+
+def _held(drift: dict, nudged: dict, tag: str) -> None:
+    """Hold a two-epoch drift to invariant 1's band or, where the training
+    trajectory amplifies float32 noise past it, to 10x the drift of the one
+    process under a `NUDGE` of its weights (measured in the same call):
+    summation order cannot be held closer than that."""
+    over = {k: (v, lim, nudged[k]) for k, v in drift.items() if k in BAND
+            for lim in [BAND[k]] if v > max(lim, 10 * nudged[k])}
+    if drift["label_flips"] > max(1, 10 * nudged["label_flips"]):
+        over["label_flips"] = (drift["label_flips"], 1, nudged["label_flips"])
+    if over:
+        raise AssertionError(f"dp {tag}: drift (value, band, nudged) {over}")
+
+
+def _nudge_(net) -> None:
+    """Every parameter of `net` times 1 +- `NUDGE` (signs from seed 0)."""
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in net.parameters():
+            sign = torch.randint(0, 2, p.shape, generator=g).to(p.device, p.dtype) * 2 - 1
+            p.add_(p * sign * NUDGE)
+
+
+def _nudged(cls, method: str, fn):
+    """Run `fn()` with `_nudge_` applied to the net after `cls.method`."""
+    saved = getattr(cls, method)
+
+    def wrapped(self, *args, **kw):
+        out = saved(self, *args, **kw)
+        _nudge_(self.net)
+        return out
+
+    setattr(cls, method, wrapped)
+    try:
+        return fn()
+    finally:
+        setattr(cls, method, saved)
+
+
+def _dp_step_rank(r: int, address: str, argv: list, exp: str, backend: str):
+    """One rank of the step check (`_two_steps` as rank r of 2)."""
+    from deep_interpolation_clustering_tpu_torch import parallel
+
+    dev = parallel.initialize(address, 2, r, "cuda", backend)
+    try:
+        return _two_steps(argv, exp, dev)
+    finally:
+        parallel.shutdown()
+
+
+def _two_steps(argv: list, exp: str, dev):
+    """A Trainer from the seed's weights takes the first full batch and the
+    masked tail (whose second half is all padding); returns each step's
+    losses and the parameters after both."""
+    from deep_interpolation_clustering_tpu_torch.cli.common import (
+        build_parser, config_from_args, make_datasets,
+    )
+    from deep_interpolation_clustering_tpu_torch.train import Trainer
+
+    cfg = config_from_args(build_parser("p1").parse_args(argv))
+    tr = Trainer(cfg, make_datasets(cfg), exp, device=dev)
+    batches = tr._epoch_batches(1)
+    losses = [{k: float(v) for k, v in tr.step(*batches[i]).items()} for i in (0, -1)]
+    params = {n: p.detach().cpu().numpy() for n, p in tr.net.named_parameters()}
+    tr.close()
+    return losses, params
+
+
+def dp_phase(run: dict, smi: str) -> dict:
+    """Data-parallel p1 and p3, and multi-process p2 and p4, through the
+    entry points at the default Config on the p0 phase's pickles:
+      (a) `cli.p1.main --data_parallel 1` (a one-rank NCCL group) writes the
+          same bits as the same argv without a group (invariant 2), and so
+          does `python -m torch.distributed.run --standalone
+          --nproc_per_node 1 -m ...cli.p1 --num_processes 1` (env://);
+      (b) two ranks sharing the card over gloo: one full-width step and the
+          masked tail from the same weights and draws within invariant 1's
+          band (`BAND`) of one process, the ranks' parameters the same bits;
+          then `cli.p1.main --data_parallel 2` for two epochs against (a),
+          each file written once, the ranks' launch counts showing B1 and
+          B3-B7 (the trainer checks the ranks' state bit for bit after
+          every epoch). Over 18 full-width steps the training trajectory
+          amplifies float32 noise past the band: one process whose weights
+          are nudged by 2^-24 of themselves drifts as far from (a) as two
+          ranks do. So the two-epoch run is held to the band or to 10x that
+          nudged run's drift, measured here, whichever is larger (`_held`);
+      (c) two NCCL ranks, one card each, where the machine has two cards,
+          held as (b);
+      (d) `cli.p3.main --data_parallel 2` (gloo) for 3 DEC epochs against
+          one process, held as (b) against a run nudged after the centre
+          init, the label deltas too;
+      (e) `cli.p2.main` and `cli.p4.main` at `--num_processes 2` as two
+          processes on the card: the CSVs at rtol 1e-5 / atol 1e-6 and the
+          labels exactly those of one process.
+    Two ranks on one card show the path is correct; they say nothing of
+    scaling. Returns what it measured."""
+    import shutil
+
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch import Config, parallel
+    from deep_interpolation_clustering_tpu_torch.cli import p1, p2, p3, p4
+    from deep_interpolation_clustering_tpu_torch.info import COHORTS
+    from deep_interpolation_clustering_tpu_torch.train import ClusterTrainer, Trainer
+
+    root = os.path.join(os.path.dirname(run["results"]), "dp")
+    width = run["width"] + ["--max_epochs", "3"]
+    n_train = len(run["cohorts"]["training"]["encounter_id"])
+    need = ("fake_select", "sci_forward", "sci_backward", "rbf_push", "lstm_forward",
+            "lstm_backward")
+    report, seconds = {}, {}
+
+    def results(name):
+        return ["--results_path", os.path.join(root, name)]
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out, text = _captured_stderr(fn)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        epochs = _epoch_lines(text)
+        report[name] = {f"rank{r}": [dict(epoch_s=round(s, 4), encounters_per_s=round(e, 1))
+                                     for s, e in v] for r, v in sorted(epochs.items())}
+        return out
+
+    def ranks_launched(name):
+        counts = list(parallel.multihost.last_rank_launches)
+        missing = [(r, k) for r, c in enumerate(counts) for k in need if not c.get(k)]
+        if not counts or missing:
+            raise AssertionError(f"dp {name}: kernels never launched on a rank: {missing}")
+        return [{k: c[k] for k in need} for c in counts]
+
+    # (a) one-rank NCCL group vs no group, the same argv
+    single = timed("single", lambda: p1.main(width + results("single")))
+    one = timed("dp1", lambda: p1.main(width + results("dp1") + ["--data_parallel", "1"]))
+    launches = {"dp1": ranks_launched("dp1")}
+    differ = _bit_differences(_run_files(one), _run_files(single))
+    if differ or _files(one) != _files(single):
+        raise AssertionError(f"dp (a): --data_parallel 1 differs from one process: "
+                             f"{differ[:8]}")
+    # (a) through torchrun's env:// launch, as a user types it
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    trun = os.path.join(root, "torchrun")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "deep_interpolation_clustering_tpu_torch.cli.p1"] + width + [
+           "--results_path", trun, "--num_processes", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    seconds["torchrun_1"] = round(time.perf_counter() - t0, 3)
+    if proc.returncode != 0:
+        raise AssertionError(f"dp (a): torchrun failed:\n{proc.stderr[-4000:]}")
+    differ = _bit_differences(_run_files(os.path.join(trun, "Pretrain")), _run_files(one))
+    if differ:
+        raise AssertionError(f"dp (a): torchrun --num_processes 1 differs from "
+                             f"--data_parallel 1: {differ[:8]}")
+
+    # (b) two gloo ranks on the card: the step check, then the entry point
+    address = f"127.0.0.1:{parallel.free_port()}"
+    step_argv = width + results("step")
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(_dp_step_rank, 2, (address, step_argv,
+                                              os.path.join(root, "step_dp"), "gloo"))
+    seconds["step_check"] = round(time.perf_counter() - t0, 3)
+    alone = _two_steps(step_argv, os.path.join(root, "step_one"), "cuda")
+    step = {}
+    for i, tag in enumerate(("first_batch", "tail")):
+        step[f"{tag}_loss_diff"] = max(abs(ranks[0][0][i][k] - v)
+                                       for k, v in alone[0][i].items())
+    worst, n_viol, n_tot = 0.0, 0, 0
+    for n, w in alone[1].items():
+        d = np.abs(ranks[0][1][n] - w)
+        worst = max(worst, float(d.max()))
+        n_viol += int((d > 1e-4).sum())
+        n_tot += d.size
+        if not np.array_equal(ranks[0][1][n], ranks[1][1][n]):
+            raise AssertionError(f"dp (b): ranks hold different {n} after the steps")
+    step.update(max_param_diff=worst, beyond_1e4=f"{n_viol}/{n_tot}")
+    step["beyond_1e4_share"] = n_viol / n_tot
+    if not (max(step["first_batch_loss_diff"], step["tail_loss_diff"]) < BAND["max_loss_diff"]
+            and worst < BAND["max_param_diff"]
+            and step["beyond_1e4_share"] <= BAND["beyond_1e4_share"]):
+        raise AssertionError(f"dp (b): two-rank steps outside the band: {step}")
+    two = timed("gloo_2", lambda: p1.main(width + results("gloo_2") + ["--data_parallel", "2"],
+                                          backend="gloo"))
+    launches["gloo_2"] = ranks_launched("gloo_2")
+    # the yardstick: one process with its initial weights nudged
+    nudged = timed("nudged", lambda: _nudged(Trainer, "__init__",
+                                             lambda: p1.main(width + results("nudged"))))
+    base = _run_files(one)
+    drift = {"nudged": _drift(_run_files(nudged), base, "(b) nudged"),
+             "gloo_2": _drift(_run_files(two), base, "(b)")}
+    _held(drift["gloo_2"], drift["nudged"], "(b)")
+    if _files(two) != _files(one):
+        raise AssertionError("dp (b): the two-rank run's files are not the one-rank run's")
+
+    # (c) two NCCL ranks, one card each
+    if torch.cuda.device_count() >= 2:
+        nccl = timed("nccl_2", lambda: p1.main(width + results("nccl_2")
+                                               + ["--data_parallel", "2"]))
+        launches["nccl_2"] = ranks_launched("nccl_2")
+        drift["nccl_2"] = _drift(_run_files(nccl), base, "(c)")
+        _held(drift["nccl_2"], drift["nudged"], "(c)")
+        nccl_2 = "ran"
+    else:
+        nccl_2 = "skipped: 1 card"
+
+    # (d) p3 under two gloo ranks against one process
+    p3_argv = width[:-2] + ["--max_epochs", "4", "--stopping_delta", "0", "--pretrain_path",
+                            single]
+    p3_one = timed("p3_single", lambda: p3.main(p3_argv + results("p3_single")))
+    p3_two = timed("p3_gloo_2", lambda: p3.main(p3_argv + results("p3_gloo_2")
+                                                + ["--data_parallel", "2"], backend="gloo"))
+    launches["p3_gloo_2"] = ranks_launched("p3_gloo_2")
+    # the yardstick: one process with the weights nudged after the centre init
+    p3_nudged = timed("p3_nudged", lambda: _nudged(
+        ClusterTrainer, "init_centers", lambda: p3.main(p3_argv + results("p3_nudged"))))
+    p3_base = _run_files(p3_one)
+    runs = {"p3_nudged": _run_files(p3_nudged), "p3_gloo_2": _run_files(p3_two)}
+    for name, x in runs.items():
+        drift[name] = _drift(x, p3_base, f"(d) {name}")
+        drift[name]["max_delta_diff"] = max(
+            abs(r["delta"] - w["delta"]) for r, w in zip(x["rows"], p3_base["rows"])
+            if r["scope"] == "valid")
+    _held(drift["p3_gloo_2"], drift["p3_nudged"], "(d)")
+    d2, dn = drift["p3_gloo_2"]["max_delta_diff"], drift["p3_nudged"]["max_delta_diff"]
+    n_valid = len(run["cohorts"]["validation"]["encounter_id"])
+    if d2 > max(1.0 / n_valid, 10 * dn):
+        raise AssertionError(f"dp (d): label deltas {d2} apart (nudged {dn})")
+
+    # (e) p2 and p4 as two processes on the card against one process
+    p2_argv = ["--restore_metrics", "ae_mse", "--k_max", "6", "--n_init", "3", "--gap_b", "3"]
+    p4_argv = ["--stage", "Pretrain", "--restore_metrics", "ae_mse", "--cluster_method",
+               "kmeans"]
+    multi = os.path.join(root, "p2p4_multi")
+    shutil.copytree(os.path.join(root, "single"), multi)
+    ports = [parallel.free_port() for _ in range(2)]
+
+    def rank_code(pid):
+        def flags(i):
+            return ["--results_path", multi, "--num_processes", "2", "--process_id", str(pid),
+                    "--coordinator_address", f"127.0.0.1:{ports[i]}"]
+        return ("from deep_interpolation_clustering_tpu_torch.cli import p2, p4\n"
+                f"p2.main({p2_argv + flags(0)!r})\np4.main({p4_argv + flags(1)!r})\n")
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", rank_code(pid)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds["p2p4_2proc"] = round(time.perf_counter() - t0, 3)
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"dp (e): a p2/p4 process failed:\n{out[-4000:]}")
+    single_results = os.path.join(root, "single")
+    t0 = time.perf_counter()
+    p2.main(p2_argv + ["--results_path", single_results])
+    labels = p4.main(p4_argv + ["--results_path", single_results])
+    seconds["p2p4_single"] = round(time.perf_counter() - t0, 3)
+    plot = os.path.join("Pretrain", "opt_k", "ae_mse", "plot")
+    for name in ("gap_sts_v1.csv", "elbow.csv"):
+        with open(os.path.join(multi, plot, name)) as f:
+            got = f.read().splitlines()
+        with open(os.path.join(single_results, plot, name)) as f:
+            want = f.read().splitlines()
+        if got[0] != want[0]:
+            raise AssertionError(f"dp (e): {name} header {got[0]}")
+        g = np.array([[float(x) for x in row.split(",")] for row in got[1:]])
+        w = np.array([[float(x) for x in row.split(",")] for row in want[1:]])
+        if g.shape != w.shape or not np.allclose(g, w, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"dp (e): {name} differs from one process")
+    k = Config().num_clusters
+    for cohort in COHORTS:
+        path = os.path.join("Pretrain", "out_feat", "ae_mse_kmeans_aligned", f"{cohort}_{k}.npy")
+        d = np.load(os.path.join(multi, path), allow_pickle=True).item()
+        if not np.array_equal(d["cluster_id"], labels["ae_mse"][cohort]):
+            raise AssertionError(f"dp (e): p4 labels of {cohort} differ from one process")
+    if _files(os.path.join(multi, "Pretrain", "opt_k")) != _files(
+            os.path.join(single_results, "Pretrain", "opt_k")):
+        raise AssertionError("dp (e): the two processes' opt_k files are not one process's")
+
+    say("dp", batch=B, T=T, train_encounters=n_train, note=repr(
+            "two ranks share one card over gloo: a check of correctness, not of scaling"),
+        one_rank_bits="identical", step=json.dumps(step), drift=json.dumps(drift),
+        nccl_2=repr(nccl_2), epochs=json.dumps(report), seconds=json.dumps(seconds),
+        rank_launches=json.dumps(launches), card=repr(smi))
+    return dict(step=step, drift=drift, epochs=report, seconds=seconds)
 
 
 def p2_phase(run: dict, smi: str, dev) -> None:
@@ -1708,6 +2146,7 @@ def main() -> None:
 
     # ------------------------------------------------- 8, 9. p1 entry point, converter
     p1_launches, run = p1_phase(p1_root, cohorts_p1, smi)
+    dp_phase(run, smi)
     convert_phase(run, smi)
 
     # ----------------------------------------------- 10, 11. p2 entry point, at scale

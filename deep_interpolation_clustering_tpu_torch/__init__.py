@@ -17,7 +17,9 @@ deep_interpolation_clustering_tpu_torch.cli.p1`; p2's K selection (elbow,
 gap statistic with the internal metrics, DBSCAN on the device and its
 explorer, OPTICS on the host; `cli.p2`); p3's DEC head, KL and
 triplet losses, k-means on the device and `ClusterTrainer` (`cli.p3`); p4's
-alignment and final labels, DBSCAN's included (`cli.p4`).
+alignment and final labels, DBSCAN's included (`cli.p4`); data-parallel and
+multi-process runs on `torch.distributed` (`parallel/`: p1 and p3 under
+`--data_parallel` and `--num_processes`, p2 and p4 under `--num_processes`).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Shared CLI plumbing (counterpart of the JAX `cli/common.py`): a flag for
 every `Config` field (dict- and tuple-valued fields take JSON), `--config`
 to reload a saved `config.json` with the flags given winning, the p0
-pickles' I/O and caches, and the run directory.
+pickles' I/O and caches, the run directory, and the ranks a stage runs as
+(`run_stage`).
 """
 
 from __future__ import annotations
@@ -13,15 +14,19 @@ import json
 import os
 import pickle
 import random
-from typing import Dict
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config
 from ..data import ArrayDataset
 from ..info import COHORTS
+from ..utils.device import resolve_device
 from ..utils.logging import logger
+
+Device = Optional[Union[str, torch.device]]
 
 
 def _str2bool(v: str) -> bool:
@@ -236,22 +241,112 @@ def set_seed(seed: int) -> None:
     random.seed(seed)
 
 
-def require_single_process(cfg: Config) -> Config:
-    """p1-p4 run in one process: multi-process runs are not ported."""
-    if cfg.num_processes > 1:
-        raise NotImplementedError(
-            f"num_processes={cfg.num_processes}: the port runs p1-p4 in one process "
-            f"(multi-process runs are not ported)")
-    return cfg
+def init_multihost(cfg: Config, device: Device = None, backend: Optional[str] = None
+                   ) -> torch.device:
+    """Join the process group of a multi-process launch (`--num_processes
+    P --process_id i --coordinator_address host:port`, or torchrun's
+    `env://` without an address) as one rank with one device: the card
+    unless `device="cpu"`. Returns the rank's device; raises, naming the
+    missing flag or variable, before anything is written."""
+    dev = torch.device("cuda" if device is None else device)
+    out = parallel.initialize(cfg.coordinator_address, cfg.num_processes,
+                              cfg.process_id, dev.type, backend)
+    logger.info("multihost: rank %d of %d on %s (%s)", parallel.rank(),
+                parallel.process_count(), out, torch.distributed.get_backend())
+    return resolve_device(out)
+
+
+def data_parallel_ranks(cfg: Config, device: Device = None) -> int:
+    """The local ranks `--data_parallel` asks for: 0 none, -1 every visible
+    card."""
+    n = cfg.data_parallel
+    if n == -1:
+        if torch.device("cuda" if device is None else device).type != "cuda":
+            raise ValueError("--data_parallel -1 counts the visible cards; on the CPU "
+                             "give the number of ranks")
+        if not torch.cuda.is_available():
+            raise RuntimeError("--data_parallel -1: no CUDA device found")
+        n = torch.cuda.device_count()
+    return n
+
+
+def _as_rank(body: Callable, cfg: Config, dev: torch.device, build: bool = False) -> Any:
+    """Run `body(cfg, dev)` as this rank of the group, which it leaves after
+    a barrier that ends every rank's run. With `build`, rank 0 builds the
+    CUDA kernels before the others load them."""
+    try:
+        if build and dev.type == "cuda":
+            from ..ops import _cuda_build as cb
+
+            if parallel.is_main_process():
+                cb.build_all()
+            parallel.barrier("build")
+            cb.build_all()
+        out = body(cfg, dev)
+        parallel.barrier("exit")
+    finally:
+        parallel.shutdown()
+    return out
+
+
+def _stage_rank(r: int, body: Callable, cfg: Config, device: str, backend: str,
+                address: str, world: int) -> Any:
+    """One spawned rank of `run_stage`."""
+    return _as_rank(body, cfg,
+                    resolve_device(parallel.initialize(address, world, r, device, backend)))
+
+
+def run_stage(body: Callable[[Config, torch.device], Any], cfg: Config, device: Device = None,
+              backend: Optional[str] = None, data_parallel: bool = True) -> Any:
+    """Run `body(cfg, device)` as the ranks the config asks for and return
+    rank 0's result (each process's own under `--num_processes`).
+
+      * `--num_processes P` (> 0): this process is one rank of P
+        (`init_multihost`); with `data_parallel` (p1, p3) the ranks train
+        data-parallel, else (p2, p4) each computes the same result and rank
+        0 writes. `--data_parallel` must then be 0, -1 or P.
+      * `--data_parallel N` (> 0; -1 every visible card), p1 and p3 only:
+        N local ranks spawned here (`parallel.spawn`), one device each: card
+        r with NCCL, the CPU with gloo when `device="cpu"`. 1 is a one-rank
+        group. The CUDA kernels are built here once before the ranks start.
+      * otherwise one process without a group.
+
+    `backend` (Python only, for tests and the smoke run): "gloo" lets ranks
+    share a card. A barrier ends every rank's run before the group is left.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if cfg.num_processes > 0:
+        if data_parallel and cfg.data_parallel not in (0, -1, cfg.num_processes):
+            raise ValueError(f"--data_parallel {cfg.data_parallel} with --num_processes "
+                             f"{cfg.num_processes}: one rank per process")
+        local = init_multihost(cfg, dev, backend if data_parallel else "gloo")
+        return _as_rank(body, cfg, local, build=data_parallel)
+    n = data_parallel_ranks(cfg, dev) if data_parallel else 0
+    if n == 0:
+        return body(cfg, resolve_device(dev))
+    backend = backend or parallel.multihost.default_backend(dev)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device found; pass device='cpu' to run on the CPU")
+        if backend == "nccl" and n > torch.cuda.device_count():
+            raise ValueError(f"--data_parallel {n} over NCCL needs {n} cards, "
+                             f"{torch.cuda.device_count()} visible")
+        from ..ops import _cuda_build as cb
+
+        cb.build_all()
+    address = f"127.0.0.1:{parallel.free_port()}"
+    logger.info("data_parallel: spawning %d ranks on %s (%s)", n, dev.type, backend)
+    return parallel.spawn(_stage_rank, n, (body, cfg, dev.type, backend, address, n))[0]
 
 
 def init_run(cfg: Config, stage: str) -> str:
     """Seed the host's generators and torch's, make `{results_path}/{stage}`
-    and write its `config.json`; returns the run directory."""
+    and write its `config.json` (rank 0 alone); returns the run directory."""
     set_seed(cfg.seed)
     torch.manual_seed(cfg.seed)
     exp_path = os.path.join(cfg.results_path, stage)
-    os.makedirs(exp_path, exist_ok=True)
-    cfg.save(exp_path)
+    if parallel.is_main_process():
+        os.makedirs(exp_path, exist_ok=True)
+        cfg.save(exp_path)
     logger.info("run dir: %s", exp_path)
     return exp_path

@@ -7,6 +7,10 @@ ae_mse over all three cohorts.
     python -m deep_interpolation_clustering_tpu_torch.cli.p1 [--<Config field> VALUE ...]
 
 Runs on the card; from Python, `main(argv, device="cpu")` runs on the CPU.
+`--data_parallel N` trains data-parallel over N local ranks (one card each;
+-1 every visible card), `--num_processes P --process_id i
+--coordinator_address host:port` (or torchrun's env:// without an address)
+as one rank of P processes; rank 0 writes (`common.run_stage`).
 """
 
 from __future__ import annotations
@@ -18,17 +22,21 @@ import torch
 from ..info import COHORTS
 from ..train import Trainer
 from ..utils.logging import logger
-from .common import (
-    build_parser, config_from_args, init_run, make_datasets, require_single_process,
-)
+from .common import build_parser, config_from_args, init_run, make_datasets, run_stage
 
 PRETRAIN_FEAT_METRICS = ("loss", "ae_mse")  # reference p1:143
 
 
 def main(argv: Optional[Sequence[str]] = None,
-         device: Optional[Union[str, torch.device]] = None) -> str:
-    """Run p1; returns the run directory."""
-    cfg = require_single_process(config_from_args(build_parser(__doc__).parse_args(argv)))
+         device: Optional[Union[str, torch.device]] = None,
+         backend: Optional[str] = None) -> str:
+    """Run p1; returns the run directory. `backend="gloo"` lets data-parallel
+    ranks share a card."""
+    cfg = config_from_args(build_parser(__doc__).parse_args(argv))
+    return run_stage(_run, cfg, device, backend)
+
+
+def _run(cfg, device: torch.device) -> str:
     exp_path = init_run(cfg, "Pretrain")
     trainer = Trainer(cfg, make_datasets(cfg), exp_path, device=device)
     try:

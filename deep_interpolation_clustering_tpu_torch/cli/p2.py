@@ -7,20 +7,24 @@ DBSCAN (k-distance graph and eps sweep) or OPTICS; tables and plots go to
     python -m deep_interpolation_clustering_tpu_torch.cli.p2 [--stage Pretrain|Clustering] [--restore_metrics M ...] [--cluster_algo kmeans|dbscan|optics] [--<Config field> VALUE ...]
 
 Runs on the card; from Python, `main(argv, device="cpu")` runs on the CPU.
-OPTICS runs scikit-learn on the host and needs it installed.
+OPTICS runs scikit-learn on the host and needs it installed. Under
+`--num_processes P` every process computes the same tables on its own card
+and rank 0 alone writes; the row-sharding of the latents over
+`--data_parallel` ranks (JAX `cluster/optk.py`) is not ported and that
+flag above 1 raises.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, Optional, Sequence, Union
 
 import torch
 
 from ..cluster import DbscanExplorer, KSelection, OpticsExplorer, load_feature_dumps
-from ..utils.device import resolve_device
 from ..utils.logging import logger
-from .common import build_parser, config_from_args, require_single_process
+from .common import build_parser, config_from_args, data_parallel_ranks, run_stage
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -33,8 +37,16 @@ def main(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--cluster_algo", default="kmeans",
                         choices=["kmeans", "dbscan", "optics"])
     args = parser.parse_args(argv)
-    cfg = require_single_process(config_from_args(args))
-    dev = resolve_device(device)
+    cfg = config_from_args(args)
+    if cfg.num_processes == 0 and data_parallel_ranks(cfg, device) > 1:
+        raise NotImplementedError(
+            f"--data_parallel {cfg.data_parallel}: p2's row-sharding of the latents over "
+            f"data-parallel ranks is not ported; run it on one card, or as "
+            f"--num_processes P (every process computes, rank 0 writes)")
+    return run_stage(functools.partial(_run, args=args), cfg, device, data_parallel=False)
+
+
+def _run(cfg, dev: torch.device, args) -> Dict[str, Dict]:
     exp_path = os.path.join(cfg.results_path, args.stage)
     results = {}
     for metric in args.restore_metrics:

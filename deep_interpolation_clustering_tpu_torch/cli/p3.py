@@ -8,10 +8,12 @@ dumps for the metrics loss, ae_mse and delta over all three cohorts.
 `--pretrain_path` is the p1 run directory (default `{results_path}/Pretrain`);
 without `--loss` or `--config` the loss is `ae_mse_sup_fake_detect_kl`.
 Runs on the card; from Python, `main(argv, device="cpu")` runs on the CPU.
+`--data_parallel` and `--num_processes` as in p1.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Sequence, Union
 
@@ -20,23 +22,28 @@ import torch
 from ..info import COHORTS, METRICS
 from ..train import ClusterTrainer
 from ..utils.logging import logger
-from .common import (
-    build_parser, config_from_args, init_run, make_datasets, require_single_process,
-)
+from .common import build_parser, config_from_args, init_run, make_datasets, run_stage
 
 
 def main(argv: Optional[Sequence[str]] = None,
-         device: Optional[Union[str, torch.device]] = None) -> str:
-    """Run p3; returns the run directory."""
+         device: Optional[Union[str, torch.device]] = None,
+         backend: Optional[str] = None) -> str:
+    """Run p3; returns the run directory. `backend="gloo"` lets data-parallel
+    ranks share a card."""
     parser = build_parser(__doc__)
     parser.add_argument("--pretrain_path", default=None,
                         help="p1 run dir (default {results_path}/Pretrain)")
     args = parser.parse_args(argv)
-    cfg = require_single_process(config_from_args(args))
+    cfg = config_from_args(args)
     if args.loss is None and not args.config:
         cfg = cfg.replace(loss="ae_mse_sup_fake_detect_kl")  # the p3 default (p3:82)
-    exp_path = init_run(cfg, "Clustering")
     pretrain_path = args.pretrain_path or os.path.join(cfg.results_path, "Pretrain")
+    return run_stage(functools.partial(_run, pretrain_path=pretrain_path), cfg, device,
+                     backend)
+
+
+def _run(cfg, device: torch.device, pretrain_path: str) -> str:
+    exp_path = init_run(cfg, "Clustering")
     trainer = ClusterTrainer(cfg, make_datasets(cfg), exp_path,
                              pretrain_exp_path=pretrain_path, device=device)
     try:

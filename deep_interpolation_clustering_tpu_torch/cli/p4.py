@@ -7,10 +7,13 @@ for dbscan).
     python -m deep_interpolation_clustering_tpu_torch.cli.p4 [--stage Clustering|Pretrain] [--restore_metrics M ...] [--<Config field> VALUE ...]
 
 Runs on the card; from Python, `main(argv, device="cpu")` runs on the CPU.
+Under `--num_processes P` every process labels on its own card and rank 0
+alone writes; `--data_parallel` has no effect here, as in the JAX p4.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, Optional, Sequence, Union
 
@@ -19,7 +22,7 @@ import torch
 
 from ..cluster import FinalLabeler
 from ..utils.logging import logger
-from .common import build_parser, config_from_args, require_single_process
+from .common import build_parser, config_from_args, run_stage
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -30,9 +33,13 @@ def main(argv: Optional[Sequence[str]] = None,
     parser.add_argument("--stage", default="Clustering", choices=["Pretrain", "Clustering"])
     parser.add_argument("--restore_metrics", nargs="+", default=["ae_mse", "loss", "delta"])
     args = parser.parse_args(argv)
-    cfg = require_single_process(config_from_args(args))
+    cfg = config_from_args(args)
+    return run_stage(functools.partial(_run, args=args), cfg, device, data_parallel=False)
+
+
+def _run(cfg, dev: torch.device, args) -> Dict[str, Dict[str, np.ndarray]]:
     exp_path = os.path.join(cfg.results_path, args.stage)
-    results = FinalLabeler(cfg, exp_path, device=device).pred(
+    results = FinalLabeler(cfg, exp_path, device=dev).pred(
         metrics=args.restore_metrics, seed=cfg.seed)
     for metric, cohorts in results.items():
         for cohort, labels in cohorts.items():

@@ -29,6 +29,7 @@ import torch
 
 from ..config import Config
 from ..info import COHORTS
+from ..parallel import is_main_process
 from ..utils.device import resolve_device
 from ..utils.logging import logger
 from .align import align_labels, align_labels_with_center, generate_align_map
@@ -74,7 +75,8 @@ class FinalLabeler:
 
     def _out_path(self, metric: str) -> str:
         p = os.path.join(self.exp_path, "out_feat", f"{metric}_{self.cfg.cluster_method}_aligned")
-        os.makedirs(p, exist_ok=True)
+        if is_main_process():  # under a multi-process launch rank 0 writes
+            os.makedirs(p, exist_ok=True)
         return p
 
     def pred(self, metrics: Optional[List[str]] = None, seed: int = 0
@@ -98,7 +100,8 @@ class FinalLabeler:
     def _save(d: Dict, path: str) -> None:
         d.pop("ob", None)
         d.pop("padding_mask", None)
-        np.save(path, d)
+        if is_main_process():
+            np.save(path, d)
 
     # ------------------------------------------------------------ kmeans
     def _pred_kmeans(self, data, out_path: str, seed: int) -> Dict[str, np.ndarray]:

@@ -13,8 +13,9 @@ the Tibshirani rule `min k : gap(k) >= gap(k+1) - s(k+1)`, with the
 argmax-gap fallback.
 
 Inputs: a host array (what `cli.p2` passes) is moved to the device given to
-`KSelection` or `DbscanExplorer`; a tensor stays on its device. Random
-draws:
+`KSelection` or `DbscanExplorer`; a tensor stays on its device. Under a
+multi-process launch every rank computes the same tables and rank 0 alone
+writes files (`parallel.is_main_process`). Random draws:
   * every k-means fit gets a `torch.Generator` on its data's device, seeded
     from (seed, stream, k, b) by `np.random.SeedSequence` (a hash, not an
     arithmetic composition that could make a reference fit's seed equal
@@ -37,6 +38,7 @@ import torch
 
 from ..config import Config
 from ..info import LEGEND_INFO
+from ..parallel import is_main_process
 from ..utils.device import resolve_device
 from ..utils.logging import logger
 from .dbscan import fit_dbscan_impl
@@ -85,10 +87,12 @@ def _read_gap_csv(path: str) -> List[Dict]:
 
 
 def _maybe_plot(fn):
-    """Run a plotting closure if matplotlib is importable; never fatal. The
-    style is a seaborn-whitegrid/poster look from plain matplotlib rcParams
-    (the reference styles its p2 figures with seaborn,
+    """Run a plotting closure if matplotlib is importable, on rank 0 only;
+    never fatal. The style is a seaborn-whitegrid/poster look from plain
+    matplotlib rcParams (the reference styles its p2 figures with seaborn,
     p2_clustering_optK.py:299-330)."""
+    if not is_main_process():
+        return
     try:
         import matplotlib
 
@@ -138,7 +142,8 @@ class KSelection:
         self.cfg = cfg
         self.out_path = os.path.join(out_path, "plot")
         self.device = resolve_device(device)
-        os.makedirs(self.out_path, exist_ok=True)
+        if is_main_process():
+            os.makedirs(self.out_path, exist_ok=True)
 
     # ------------------------------------------------------------ elbow
     def elbow(self, train_feat, valid_feat, seed: int = 0, plot: bool = True) -> Dict:
@@ -157,10 +162,11 @@ class KSelection:
             valid_d.append(float(mean_min_distance(centers, valid)))
         knee = kneedle(np.array(ks), np.array(train_d), "convex", "decreasing")
         out = {"k": ks, "train": train_d, "valid": valid_d, "elbow_k": knee}
-        with open(os.path.join(self.out_path, "elbow.csv"), "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["k", "train_distortion", "valid_distortion"])
-            w.writerows(zip(ks, train_d, valid_d))
+        if is_main_process():
+            with open(os.path.join(self.out_path, "elbow.csv"), "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["k", "train_distortion", "valid_distortion"])
+                w.writerows(zip(ks, train_d, valid_d))
         if plot:
             def draw(plt):
                 for cohort, d in (("train", train_d), ("valid", valid_d)):
@@ -211,10 +217,11 @@ class KSelection:
                 data = data[np.sort(sel)]
         # invalidate first: a crash before the new fingerprint is written
         # leaves a table without one, which the next run recomputes
-        try:
-            os.remove(csv_path + ".fp")
-        except FileNotFoundError:
-            pass
+        if is_main_process():
+            try:
+                os.remove(csv_path + ".fp")
+            except FileNotFoundError:
+                pass
         if on_device:
             lo, rng_width = torch.stack([data.min(), data.max() - data.min()]).tolist()
         else:
@@ -246,8 +253,9 @@ class KSelection:
                         k, row["gap"], ref_mean, act, ref_s)
             rows.append(row)
         out = self._gap_summary(rows, names, csv_path, plot)
-        with open(csv_path + ".fp", "w") as f:
-            f.write(fp)
+        if is_main_process():
+            with open(csv_path + ".fp", "w") as f:
+                f.write(fp)
         return out
 
     def _gap_fingerprint(self, data, version: int, seed: int, names: Sequence[str]) -> str:
@@ -310,7 +318,7 @@ class KSelection:
                 break
         opt_k_argmax = max(rows, key=lambda r: r["gap"])["k"]
 
-        if write_csv:
+        if write_csv and is_main_process():
             # atomic: a process killed mid-write leaves no partial table
             tmp = csv_path + ".tmp"
             with open(tmp, "w", newline="") as f:
@@ -421,7 +429,8 @@ class DbscanExplorer:
         self.min_samples = min_samples  # None -> feat_dim + 1 per fit
         self.out_path = os.path.join(out_path, "plot")
         self.device = resolve_device(device)
-        os.makedirs(self.out_path, exist_ok=True)
+        if is_main_process():
+            os.makedirs(self.out_path, exist_ok=True)
 
     def _min_samples(self, feat) -> int:
         return _derive_min_samples(self.min_samples, feat)
@@ -480,7 +489,8 @@ class OpticsExplorer:
         self.cfg = cfg
         self.min_samples = min_samples  # None -> feat_dim + 1 per fit
         self.out_path = os.path.join(out_path, "plot")
-        os.makedirs(self.out_path, exist_ok=True)
+        if is_main_process():
+            os.makedirs(self.out_path, exist_ok=True)
 
     def _min_samples(self, feat) -> int:
         return _derive_min_samples(self.min_samples, feat)

@@ -7,12 +7,16 @@ the JAX `Config` and writes one (`save`) that the JAX `Config.load` reads.
 It also carries the K-selection fields of p2, the DEC fields of p3 and the
 final-label fields of p4. Fields of the JAX config that only steer the TPU
 build (Pallas switches, XLA matmul precision, scan unrolling, PRNG
-implementation, mesh layout, the multi-host coordinator, compilation
-cache) are accepted on load and ignored with one log line.
-`num_processes` and `process_id` are read: p0 lets rank 0 alone write, and
-p1-p4 refuse more than one process (multi-process is not ported). Like the
-JAX `Config`, `save` leaves them out of `config.json` and `load` drops
-them from a file that has them.
+implementation, compilation cache) are accepted on load and ignored with
+one log line.
+`data_parallel`, `num_processes`, `process_id` and `coordinator_address`
+are read: p1 and p3 train data-parallel over the ranks they give, p2 and p4
+compute on every rank and write on rank 0, p0 writes on rank 0
+(`parallel/`, `cli/common.run_stage`). Like the JAX `Config`, `save` leaves
+the last three out of `config.json` and `load` drops them from a file that
+has them. `shard_cohort` (row-sharded cohort storage) is not ported: each
+rank keeps the whole cohort on its device, the JAX `shard_cohort=False`
+path, whose results are the same.
 Tuple fields come back from JSON as lists and are made tuples again. `compute_dtype` is read:
 the port computes in float32 only, and any other value raises.
 
@@ -39,11 +43,11 @@ _IGNORED = (
     "use_pallas", "use_pallas_bwd", "use_pallas_lstm", "matmul_precision",
     "eval_matmul_precision", "epoch_scan_unroll", "prng_impl", "shard_cohort",
     "compilation_cache_dir", "perf_profile", "fused_epoch", "device_data",
-    "sci_share_weights", "data_parallel", "coordinator_address",
+    "sci_share_weights",
 )
 # per-process topology: never written to, nor read from, a config.json
 # (the JAX `Config._RUNTIME_ONLY`)
-_RUNTIME_ONLY = ("num_processes", "process_id")
+_RUNTIME_ONLY = ("num_processes", "process_id", "coordinator_address")
 
 
 @dataclass
@@ -59,10 +63,15 @@ class Config:
     dc_restore_metric: str = "ae_mse"
     log_train_freq: int = 20
     log_valid_freq: int = 20
-    # cooperating processes, 0 = single-process, and this process's rank
-    # (the JAX fields; only p0 acts on them, p1-p4 refuse more than one)
+    # data-parallel ranks that p1 and p3 spawn on this host, one device
+    # each: 0 = no group, -1 = every visible card, N = N ranks (1 is a
+    # one-rank group); with num_processes set, 0, -1 or num_processes
+    data_parallel: int = 0
+    # cooperating processes, one rank each (0 = single-process), this
+    # process's rank, and rank 0's "host:port" (empty: torchrun's env://)
     num_processes: int = 0
     process_id: int = -1
+    coordinator_address: str = ""
 
     # ---- data ----------------------------------------------------------
     hours_from_admission: int = 6
@@ -226,6 +235,8 @@ class Config:
         if self.compute_dtype != "float32":
             raise ValueError(f"Config.compute_dtype={self.compute_dtype!r}: the port "
                              f"computes in float32 only")
+        if self.data_parallel < -1:
+            raise ValueError(f"Config.data_parallel={self.data_parallel} must be >= -1")
         if self.k_max < 2:  # the K sweeps run 2..k_max
             raise ValueError(f"Config.k_max={self.k_max} must be >= 2")
 
@@ -241,6 +252,10 @@ class Config:
         if unknown:
             raise ValueError(f"Config: unknown fields {unknown}")
         ignored = sorted(k for k in d if k in _IGNORED)
+        if "shard_cohort" in ignored:
+            log.info("Config: shard_cohort is not ported: each data-parallel rank keeps "
+                     "the whole cohort on its device (the JAX shard_cohort=False path, "
+                     "with the same results)")
         if ignored:
             log.info("Config: ignoring fields the port does not read: %s",
                      ", ".join(ignored))

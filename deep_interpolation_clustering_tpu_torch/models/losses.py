@@ -1,6 +1,14 @@
 """Losses and the loss-mode dispatch (counterpart of the JAX
 `models/losses.py`, reference pretrain_interp.py:169-215 and
-clustering_interp.py:197-247)."""
+clustering_interp.py:197-247).
+
+Data-parallel (`parallel.world_size() > 1`), every mean over the batch is
+this rank's sum over its rows divided by the count over every rank's rows,
+so each loss is the rank's share of the global-batch loss: the shares sum
+to it, and each rank back-propagates its own (`train.steps.update` then
+sums the gradients over ranks). A rank whose rows are all padding gives a
+share of 0. In a world of one the single-device code runs unchanged.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +17,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..config import Config
 
 
@@ -25,14 +34,17 @@ def rec_loss(
         padding_mask = padding_mask * sample_mask[:, None, None]
     obs = padding_mask == 1.0
     diff = torch.where(obs, rec_ob - org_ob, torch.zeros_like(rec_ob))
-    mse = torch.sum(torch.square(diff)) / torch.sum(obs)
+    mse = torch.sum(torch.square(diff)) / parallel.all_sum(torch.sum(obs))
     return {"loss": mse, "ae_mse": mse}
 
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is None:
-        return torch.mean(x)
-    return torch.sum(torch.where(mask > 0, x, torch.zeros_like(x))) / torch.sum(mask)
+        if parallel.world_size() == 1:
+            return torch.mean(x)
+        return torch.sum(x) / (x.numel() * parallel.world_size())
+    return (torch.sum(torch.where(mask > 0, x, torch.zeros_like(x)))
+            / parallel.all_sum(torch.sum(mask)))
 
 
 def bce_with_logits(logits, targets, pos_weight: float,
@@ -61,7 +73,8 @@ def sup_aux_loss(
         obs = fv_mask == 1.0
         diff = aux_pred["future_vital"] - aux_label["future_vital"]
         diff = torch.where(obs, diff, torch.zeros_like(diff))
-        out["future_vital"] = torch.sum(torch.square(diff)) / torch.sum(obs)
+        out["future_vital"] = (torch.sum(torch.square(diff))
+                               / parallel.all_sum(torch.sum(obs)))
     for task in cfg.aux_tasks:
         if task == "future_vital":
             continue
@@ -87,9 +100,9 @@ def kl_loss(label: torch.Tensor, pred: torch.Tensor,
     pointwise = torch.xlogy(label, label) - label * torch.log(pred)
     per_row = torch.sum(pointwise, dim=1)
     if sample_mask is None:
-        return {"kl": torch.sum(per_row) / label.shape[0]}
+        return {"kl": torch.sum(per_row) / (label.shape[0] * parallel.world_size())}
     per_row = torch.where(sample_mask > 0, per_row, torch.zeros_like(per_row))
-    return {"kl": torch.sum(per_row) / torch.sum(sample_mask)}
+    return {"kl": torch.sum(per_row) / parallel.all_sum(torch.sum(sample_mask))}
 
 
 def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor, negative: torch.Tensor,

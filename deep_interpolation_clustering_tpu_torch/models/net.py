@@ -14,6 +14,11 @@ With `fused_heads` the CompressFC trunk and the heads run as one batched
 chain (`ops.nn.heads_apply_fused`).
 `Net`'s `state_dict()` keys are the reference torch model's names
 (pretrain_interp.py:90-167, clustering_interp.py:134-189).
+
+Data-parallel, `x` and the streams are this rank's rows of the global batch
+and `fake_perm_idx` permutes the global 2B real and fake latents: they are
+gathered over ranks (with autograd) and the rank runs the fake-detection
+head on its share of the permuted rows (`parallel.permuted_share`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Dict, List, NamedTuple, Optional, Union
 import torch
 from torch import nn
 
+from .. import parallel
 from ..config import Config
 from ..ops import cuda_interp
 from ..ops.dec import centers_init, soft_assignment, target_distribution
@@ -204,10 +210,10 @@ class Net(nn.Module):
             if hasattr(self, name):
                 heads.append((name, getattr(self, name), cat_hidden, row_mask))
         if use_fake:
-            pos_neg = torch.cat([cat_hidden, cat_all[b : 2 * b]], dim=0)[fake_perm_idx]
+            pos_neg = parallel.permuted_share(cat_hidden, cat_all[b : 2 * b], fake_perm_idx)
             fake_mask = None
             if masked:
-                fake_mask = torch.cat([sample_mask, sample_mask])[fake_perm_idx]
+                fake_mask = parallel.permuted_share(sample_mask, sample_mask, fake_perm_idx)
             heads.append(("fake_det_head", self.fake_det_head, pos_neg, fake_mask))
         if cfg.fused_heads and len(heads) > 1:
             ys = heads_apply_fused([h[1:] for h in heads], rate, train, generator)

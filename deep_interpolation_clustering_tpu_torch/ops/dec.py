@@ -10,6 +10,8 @@ from typing import Optional
 
 import torch
 
+from .. import parallel
+
 
 def centers_init(cluster_number: int, dim: int,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -33,11 +35,13 @@ def soft_assignment(centers: torch.Tensor, batch: torch.Tensor,
 def target_distribution(q: torch.Tensor,
                         sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """p_ij = (q_ij^2 / f_j) / sum_j' (q_ij'^2 / f_j'), f_j = sum_i q_ij over
-    the rows `sample_mask` marks real (all rows without it). The caller
-    detaches the result (reference clustering_interp.py:186)."""
+    the rows `sample_mask` marks real (all rows without it), over every
+    rank's rows when data-parallel. The caller detaches the result
+    (reference clustering_interp.py:186)."""
     if sample_mask is None:
         f = torch.sum(q, dim=0)
     else:
         f = torch.sum(torch.where(sample_mask[:, None] > 0, q, torch.zeros_like(q)), dim=0)
+    f = parallel.all_sum(f)
     weight = torch.square(q) / f
     return weight / torch.sum(weight, dim=1, keepdim=True)

@@ -5,6 +5,14 @@ Modules keep the reference's torch parameter names so that a `state_dict`
 maps 1:1 onto the reference checkpoints. Every random draw (init, dropout)
 takes an explicit `torch.Generator`. BatchNorm updates its running buffers
 in place in train mode (the JAX functions return the new state instead).
+
+Data-parallel (`parallel.world_size() > 1`, each rank holding its block of
+the global batch's rows): the train-mode moments are global-batch ones,
+summed over ranks in two passes (the masked sum and count give the mean,
+then the masked squared deviations give the variance), so the running
+statistics are the same on every rank; dropout draws its mask at the
+global shape from the generator every rank seeds alike and keeps the
+rank's rows. In a world of one the single-device code runs unchanged.
 """
 
 from __future__ import annotations
@@ -14,6 +22,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from .. import parallel
 
 BN_EPS = 1e-5  # torch BatchNorm1d default
 BN_MOMENTUM = 0.1  # torch BatchNorm1d default
@@ -61,7 +71,9 @@ class BatchNorm(nn.Module):
         """Train: normalize with the biased batch variance and update the
         running stats with the unbiased one. Eval: running stats."""
         if train:
-            if row_mask is None:
+            if parallel.world_size() > 1:
+                mean, var, unbiased = global_moments(x, row_mask)
+            elif row_mask is None:
                 mean = torch.mean(x, dim=0)
                 var = torch.mean(torch.square(x - mean), dim=0)  # biased
                 n = x.shape[0]
@@ -84,15 +96,45 @@ class BatchNorm(nn.Module):
         return (x - mean) * torch.rsqrt(var + BN_EPS) * self.weight + self.bias
 
 
+def global_moments(x: torch.Tensor, row_mask: Optional[torch.Tensor]):
+    """(mean, biased variance, unbiased variance) of the rows of `x` over
+    every rank's rows, weighted by `row_mask` when given: the masked sum and
+    the count summed over ranks give the mean, then the masked squared
+    deviations summed over ranks give the variance. With autograd through
+    both sums."""
+    if row_mask is None:
+        n = float(x.shape[0] * parallel.world_size())
+        mean = parallel.all_sum_grad(torch.sum(x, dim=0)) / n
+        var = parallel.all_sum_grad(torch.sum(torch.square(x - mean), dim=0)) / n
+        return mean, var, var * (n / max(n - 1.0, 1.0))
+    m = row_mask[:, None]
+    n = parallel.all_sum(torch.sum(row_mask))
+    mean = parallel.all_sum_grad(torch.sum(x * m, dim=0)) / n
+    var = parallel.all_sum_grad(torch.sum(torch.square(x - mean) * m, dim=0)) / n
+    return mean, var, var * (n / torch.clamp(n - 1.0, min=1.0))
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """torch nn.Dropout semantics with the mask drawn from `generator`."""
+            generator: Optional[torch.Generator],
+            segments: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """torch nn.Dropout semantics with the mask drawn from `generator`.
+
+    Data-parallel, the mask is drawn at the global shape and the rank's rows
+    kept: `x`'s rows are its block of a global plane of D times as many
+    rows, or with `segments` (local row counts) its block of each of the
+    plane's segments (`parallel.segment_rows`)."""
     if not train or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs an explicit generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < 1.0 - rate
+    d = parallel.world_size()
+    if d == 1:
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) < 1.0 - rate
+    else:
+        u = torch.rand((d * x.shape[0],) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device, dtype=x.dtype)
+        keep = parallel.segment_rows(u, segments or [x.shape[0]]) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -145,8 +187,10 @@ def heads_apply_fused(
     product are finite, normalized by the owning head's statistics and
     multiplied by the exact zeros of the block-diagonal fc2, so each head's
     output equals its own chain up to float32 summation order. In train
-    mode each head's running statistics are updated in place. Returns the
-    heads' outputs in order.
+    mode each head's running statistics are updated in place. Data-parallel,
+    the sums and counts are summed over ranks (each head's moments are
+    global-batch ones) and the dropout plane is drawn at the global shape.
+    Returns the heads' outputs in order.
     """
     mods = [h for h, _, _ in heads]
     xs = [x for _, x, _ in heads]
@@ -180,10 +224,13 @@ def heads_apply_fused(
                                                                       device=hid.device)
                                    for m, n in zip(masks, rows)])[None, :]
             counts = [torch.sum(m) if m is not None else c for m, c in zip(masks, counts)]
-        sums = seg @ hid  # (heads, HS): each head's column sums over its rows
+        if parallel.world_size() > 1:
+            counts = [parallel.all_sum(c) if isinstance(c, torch.Tensor)
+                      else c * parallel.world_size() for c in counts]
+        sums = parallel.all_sum_grad(seg @ hid)  # (heads, HS): each head's column sums
         mean_blocks = [sums[i, cols[i]:cols[i + 1]] / counts[i] for i in range(len(heads))]
         mean_vec = torch.cat(mean_blocks)
-        sq = seg @ torch.square(hid - mean_vec)
+        sq = parallel.all_sum_grad(seg @ torch.square(hid - mean_vec))
         var_blocks = [sq[i, cols[i]:cols[i + 1]] / counts[i] for i in range(len(heads))]
         var_vec = torch.cat(var_blocks)
         with torch.no_grad():
@@ -208,7 +255,7 @@ def heads_apply_fused(
             if h.relu:
                 relu_cols[cols[i]:cols[i + 1]] = True
         y = torch.where(relu_cols, torch.clamp(y, min=0.0), y)
-    y = dropout(y, rate, train, generator)
+    y = dropout(y, rate, train, generator, rows)
 
     w2 = torch.block_diag(*[fc2.weight.T for fc2 in fc2s])  # (HS, OS)
     b2 = torch.cat([fc2.bias for fc2 in fc2s])

@@ -1,0 +1,229 @@
+"""The data-parallel world and its collectives (counterpart of the JAX
+`parallel/mesh.py`).
+
+The JAX package shards the batch over a 1-D device mesh and lets XLA insert
+the gradient sum and the global-batch reductions. Here each rank of a
+`torch.distributed` group is one process with one device. Every rank holds
+the whole model and the whole cohort, and takes a contiguous block of rows
+of each global batch: rank r of D holds rows [r*B/D, (r+1)*B/D). The ops
+ask this module for the world and reduce over it where the single-device
+code reduces over the batch:
+
+  * a sum over ranks without autograd (`all_sum`: counts, the DEC target's
+    cluster frequencies, the reported losses);
+  * a sum over ranks with autograd (`all_sum_grad`: BatchNorm moments),
+    whose backward sums the incoming gradients over ranks, so that every
+    rank back-propagates only its own share of the loss;
+  * a gather of rows with autograd (`gather_rows`), as an `all_reduce` over
+    a zero-filled (D, rows, ...) buffer in which each rank fills its own
+    slot: exact, since x + 0 = x;
+  * a broadcast from rank 0 (`broadcast_`).
+
+Every collective is an `all_reduce` (sum) or a `broadcast`, which NCCL and
+gloo both offer for CUDA tensors and gloo for CPU tensors, so one code path
+serves NCCL, gloo on the CPU and gloo on ranks that share one card.
+
+Without a process group, or in a group of one rank, `world_size()` is 1 and
+every helper returns its input: the single-device code runs unchanged, bit
+for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def world_size() -> int:
+    """Ranks in the default process group (1 without one)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def rank() -> int:
+    """This process's rank (0 without a group)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def shard_rows(n: int) -> slice:
+    """This rank's rows of a global batch of `n` rows."""
+    d = world_size()
+    if n % d:
+        raise ValueError(f"{n} rows do not split over {d} ranks")
+    k = n // d
+    r = rank()
+    return slice(r * k, (r + 1) * k)
+
+
+def all_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over ranks, detached from autograd (`t` itself in a
+    world of one)."""
+    if world_size() == 1:
+        return t
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out)
+    return out
+
+
+class _AllSum(torch.autograd.Function):
+    """Sum over ranks; the backward sums the gradients over ranks too (each
+    rank's gradient is that of its own share of the loss)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g)
+        return g
+
+
+def all_sum_grad(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over ranks, with autograd."""
+    if world_size() == 1:
+        return t
+    return _AllSum.apply(t)
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of `t` in rank order, with autograd: (D*n, ...)."""
+    d = world_size()
+    if d == 1:
+        return t
+    r = rank()
+    zeros = torch.zeros_like(t)
+    slots = torch.stack([t if i == r else zeros for i in range(d)])
+    return all_sum_grad(slots).reshape((d * t.shape[0],) + tuple(t.shape[1:]))
+
+
+def gather_blocks(t: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """`t` holds this rank's share of `n_blocks` global batches, block after
+    block; returns the global batches' rows in order (every rank's share of
+    block 0, then of block 1, ...)."""
+    d = world_size()
+    if d == 1:
+        return t
+    rest = tuple(t.shape[1:])
+    k = t.shape[0] // n_blocks
+    g = gather_rows(t).reshape((d, n_blocks, k) + rest)
+    return g.transpose(0, 1).reshape((d * n_blocks * k,) + rest)
+
+
+def permuted_share(a: torch.Tensor, b: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """This rank's share of `torch.cat([A, B])[perm]`, where A and B are the
+    global batches whose local rows are `a` and `b` and `perm` permutes the
+    global 2B rows; with autograd through the gather."""
+    d = world_size()
+    if d == 1:
+        return torch.cat([a, b])[perm]
+    rest = tuple(a.shape[1:])
+    g = gather_rows(torch.cat([a, b])).reshape((d, 2, a.shape[0]) + rest)
+    rows = g.transpose(0, 1).reshape((2 * d * a.shape[0],) + rest)[perm]
+    return rows[shard_rows(rows.shape[0])]
+
+
+def local_rows(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This rank's rows of a tensor drawn at the global batch shape along
+    `dim`."""
+    if world_size() == 1:
+        return t
+    index = [slice(None)] * t.dim()
+    index[dim] = shard_rows(t.shape[dim])
+    return t[tuple(index)]
+
+
+def segment_rows(t: torch.Tensor, counts: Sequence[int]) -> torch.Tensor:
+    """This rank's rows of a global plane made of segments that hold
+    `counts[i] * D` rows each (segment i's local rows are `counts[i]`):
+    the rank's block of every segment, in order."""
+    d = world_size()
+    if d == 1:
+        return t
+    r = rank()
+    parts, off = [], 0
+    for n in counts:
+        parts.append(t[off + r * n: off + (r + 1) * n])
+        off += n * d
+    return torch.cat(parts)
+
+
+def all_sum_grads_(params: Iterable[torch.nn.Parameter]) -> None:
+    """Sum every parameter's gradient over ranks in place, through one flat
+    buffer (parameters without a gradient keep none)."""
+    if world_size() == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off: off + g.numel()].view_as(g))
+        off += g.numel()
+
+
+def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
+    """Overwrite each tensor in place with rank `src`'s."""
+    if world_size() == 1:
+        return
+    with torch.no_grad():
+        for t in tensors:
+            if t.is_contiguous():
+                dist.broadcast(t, src)
+            else:
+                buf = t.contiguous()
+                dist.broadcast(buf, src)
+                t.copy_(buf)
+
+
+def replicated(named: Sequence[Tuple[str, torch.Tensor]]) -> List[str]:
+    """The names of the tensors that differ, in any bit, from rank 0's; the
+    same list on every rank. Tensors on the CPU (an optimizer's step count)
+    are compared on the first tensor's device."""
+    if world_size() == 1 or not named:
+        return []
+    dev = named[0][1].device
+    flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float64) for _, t in named])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    differ = flat != ref  # float64 holds every float32 and int64 count below 2^53
+    ends = np.cumsum([t.numel() for _, t in named]).tolist()
+    bad = torch.stack([differ[a:b].any() for a, b in zip([0] + ends[:-1], ends)])
+    bad = all_sum(bad.to(torch.float64))
+    return [name for (name, _), b in zip(named, bad.tolist()) if b]
+
+
+def pad_batch_to(batch: Dict[str, np.ndarray], size: int
+                 ) -> Tuple[Dict[str, np.ndarray], int]:
+    """Pad every array's leading axis to `size` by cyclically repeating the
+    real rows and add `sample_mask` (1 on the real rows), as the JAX
+    `pad_batch_to`: repeated rows, not zeros, so that every value stays
+    finite (an all-zero row has an all-zero padding mask, and the
+    interpolation's masked log-sum-exp would give NaN that poisons the
+    gradients). A rank whose share holds only padding then still computes
+    finite values that the mask leaves out. Returns `(padded, n_real)`."""
+    n: Optional[int] = None
+    for v in batch.values():
+        if isinstance(v, np.ndarray):
+            n = v.shape[0]
+            break
+    if n is None or not 0 < n <= size:
+        raise ValueError(f"cannot pad {n} rows to {size}")
+    wrap = np.arange(size) % n
+    out = {k: (v[wrap] if isinstance(v, np.ndarray) and v.shape[0] == n else v)
+           for k, v in batch.items()}
+    mask = np.zeros((size,), np.float32)
+    mask[:n] = 1.0
+    out["sample_mask"] = mask
+    return out, n

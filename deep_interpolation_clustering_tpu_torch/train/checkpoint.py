@@ -182,11 +182,13 @@ class FlagDict:
                 self.best_epoch[m] = int(best_epoch.get(m, self.best_epoch[m]))
 
 
-def weight_dirs(root: str, metrics: Sequence[str]) -> Dict[str, str]:
-    """`weight/{metric}/` best-checkpoint directories (utils.py:195-199)."""
+def weight_dirs(root: str, metrics: Sequence[str], create: bool = True) -> Dict[str, str]:
+    """`weight/{metric}/` best-checkpoint directories (utils.py:195-199),
+    made unless `create` is False (a rank that writes nothing)."""
     out = {}
     for m in metrics:
         d = os.path.join(root, m)
-        os.makedirs(d, exist_ok=True)
+        if create:
+            os.makedirs(d, exist_ok=True)
         out[m] = d
     return out

@@ -14,6 +14,11 @@
     (`stopping_mode`, every `update_interval`-th epoch). The argmax and
     the changed-label count run on the device; the host reads one integer.
 
+Data-parallel, the latents and labels come from the trainer's gathered eval
+dumps (every rank holds the whole cohort's), rank 0 fits the centres and
+broadcasts them, so every rank steps the same centres and counts the same
+label delta.
+
 This is the JAX loop's branch without the fused epoch (`fused_epoch=False`
 there): a validation pass every epoch for the delta, and every
 `eval_interval`-th epoch (and at the last) the schedule step, checkpoints
@@ -29,6 +34,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import parallel
 from ..cluster.kmeans import fit_kmeans_impl, kmeans_predict
 from ..compat import jax_from_state_dict, state_dict_from_jax
 from ..config import Config
@@ -89,24 +95,29 @@ class ClusterTrainer(Trainer):
             return None
         self.load_pretrain_weight()
         hidden = self.generate_pretrain_feat("training")
-        if mode == "kmeans":
-            if cfg.kmeans_impl == "sklearn":  # the NumPy mirror fits host arrays
-                hidden = hidden.cpu().numpy()
-            result = fit_kmeans_impl(cfg, cfg.seed, hidden, cfg.cluster_number,
-                                     n_init=cfg.kmeans_n_init)
-            centers = torch.as_tensor(result.centers, dtype=torch.float32, device=self.device)
-            valid_prev = kmeans_predict(centers, self.generate_pretrain_feat("validation"))
-        elif mode == "random":
-            hidden = hidden.cpu().numpy()
-            lo, hi = hidden.min(axis=0), hidden.max(axis=0)
-            rng = np.random.RandomState(cfg.seed)
-            centers = rng.uniform(lo, hi, size=(cfg.cluster_number, hidden.shape[-1]))
-            valid_prev = None
-        else:
+        if mode not in ("kmeans", "random"):
             raise ValueError(f"unknown init_cluster_center {mode!r}")
+        # rank 0 fits, every rank takes its centres
+        centers = torch.empty((cfg.cluster_number, hidden.shape[-1]), dtype=torch.float32,
+                              device=self.device)
+        if self.main:
+            if mode == "kmeans":
+                if cfg.kmeans_impl == "sklearn":  # the NumPy mirror fits host arrays
+                    hidden = hidden.cpu().numpy()
+                fitted = fit_kmeans_impl(cfg, cfg.seed, hidden, cfg.cluster_number,
+                                         n_init=cfg.kmeans_n_init).centers
+            else:
+                hidden = hidden.cpu().numpy()
+                lo, hi = hidden.min(axis=0), hidden.max(axis=0)
+                rng = np.random.RandomState(cfg.seed)
+                fitted = rng.uniform(lo, hi, size=(cfg.cluster_number, hidden.shape[-1]))
+            centers = torch.as_tensor(fitted, dtype=torch.float32, device=self.device)
+        parallel.broadcast_([centers])
+        valid_prev = None
+        if mode == "kmeans":
+            valid_prev = kmeans_predict(centers, self.generate_pretrain_feat("validation"))
         with torch.no_grad():
-            self.net.cluster_assignment.cluster_centers.copy_(
-                torch.as_tensor(centers, dtype=torch.float32))
+            self.net.cluster_assignment.cluster_centers.copy_(centers)
         logger.info("***** cluster initialize %s done *****", mode)
         return valid_prev
 

@@ -4,6 +4,15 @@ Building a step's inputs and applying the update are separate functions,
 so a test can hand the JAX `build_inputs` outputs to the port's `update`.
 Every draw comes from an explicit `torch.Generator` on the batch's device,
 or from `draws` when the caller supplies them.
+
+Data-parallel (`parallel.world_size() > 1`), the batch is this rank's rows
+of the global batch. Every draw is taken at the global batch's shape, in
+the single-device order, from the generator every rank seeds alike, and
+the rank keeps its rows, so its draws are those rows of the single-device
+draws; the fake/real permutation stays global. The losses a rank computes
+are its shares (`models.losses`); `update` sums the gradients over ranks
+before the global-norm clip, so every rank takes the same optimizer step,
+and `update` and `eval_step` return the global losses.
 """
 
 from __future__ import annotations
@@ -12,8 +21,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import parallel
 from ..config import Config
-from ..data.loader import augment_batch, make_fake_ob
+from ..data.loader import augment_batch, draw_bits, draw_dtype, make_fake_ob
 from ..models.losses import compute_losses
 from ..models.net import Net
 from ..ops.interpolation import Planes
@@ -24,6 +34,39 @@ def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, 
     """Batch assembly from a device-resident cohort: one index_select per
     plane (the JAX `gather_batch`)."""
     return {k: torch.index_select(v, 0, idx) for k, v in data.items()}
+
+
+def global_draws(cfg: Config, ob: torch.Tensor, generator: Optional[torch.Generator],
+                 train: bool, draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the draws `build_inputs` takes, each drawn at the
+    global batch's shape in the single-device order unless `draws` holds it
+    (at that shape); `perm` stays global."""
+    width = cfg.rng_draw_bits
+    shape = (ob.shape[0] * parallel.world_size(),) + tuple(ob.shape[1:])
+    out: Dict[str, torch.Tensor] = {}
+
+    def take(name, draw):
+        out[name] = draws[name] if name in draws else draw()
+
+    def normal():
+        return torch.randn((2,) + shape, generator=generator, device=ob.device,
+                           dtype=draw_dtype(width))
+
+    if train and cfg.aug_input:
+        take("aug_noise", normal)
+    if cfg.fake_detection:
+        take("fake_bits", lambda: draw_bits(shape, generator, ob.device, width))
+        take("fake_noise", lambda: torch.rand(shape, generator=generator, device=ob.device,
+                                              dtype=draw_dtype(width)))
+        if train and cfg.aug_input:
+            take("fake_aug_noise", normal)
+        take("perm", lambda: torch.randperm(2 * shape[0], generator=generator,
+                                            device=ob.device))
+        if cfg.triple_margin != 0.0:
+            take("pos_noise", normal)
+    # the (2, B, C, T) normal draws hold the batch on axis 1
+    return {k: v if k == "perm" else parallel.local_rows(v, 1 if v.dim() == 4 else 0)
+            for k, v in out.items()}
 
 
 def build_inputs(
@@ -49,6 +92,8 @@ def build_inputs(
     `pos_noise`.
     """
     draws = draws or {}
+    if parallel.world_size() > 1:
+        draws = global_draws(cfg, batch["ob"], generator, train, draws)
     ob_raw = batch["ob"]
     padding_mask = batch["padding_mask"]
     ts_raw = batch["timestamp"]
@@ -87,16 +132,16 @@ def build_inputs(
                                              draws.get("fake_aug_noise"), generator,
                                              cfg.rng_draw_bits)
         out["fake_x"] = planes(fake_ob * padding_mask, fake_ts)
-        b = ob.shape[0]
         perm = draws.get("perm")
         if perm is None:
-            perm = torch.randperm(2 * b, generator=generator, device=ob.device)
+            perm = torch.randperm(2 * ob.shape[0], generator=generator, device=ob.device)
+        b = perm.shape[0] // 2  # the global batch
         label = torch.cat([torch.ones(b, dtype=torch.long, device=ob.device),
                            torch.zeros(b, dtype=torch.long, device=ob.device)])
         out["fake_perm_idx"] = perm
-        out["fake_det_label"] = label[perm]
+        out["fake_det_label"] = parallel.local_rows(label[perm])
         if sample_mask is not None:
-            out["fake_row_mask"] = torch.cat([sample_mask, sample_mask])[perm]
+            out["fake_row_mask"] = parallel.permuted_share(sample_mask, sample_mask, perm)
         if cfg.triple_margin != 0.0:
             pos_ob, pos_ts = augment_batch(ob, timestamp, padding_mask, cfg.triple_pos_std,
                                            draws.get("pos_noise"), generator,
@@ -133,10 +178,21 @@ def update(net: Net, opt: torch.optim.Optimizer, cfg: Config, inputs: Dict[str, 
     opt.zero_grad(set_to_none=True)
     _, losses = forward_and_losses(net, cfg, inputs, True, generator, use_kernels)
     losses["loss"].backward()
+    parallel.all_sum_grads_(net.parameters())
     if cfg.grad_clip and cfg.grad_clip > 0:
         clip_grad_global_norm_(net.parameters(), cfg.grad_clip)
     opt.step()
-    return {k: v.detach() for k, v in losses.items()}
+    return global_losses({k: v.detach() for k, v in losses.items()})
+
+
+def global_losses(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each rank's loss shares summed over ranks (one collective); the dict
+    itself in a world of one."""
+    if parallel.world_size() == 1:
+        return losses
+    keys = list(losses)
+    total = parallel.all_sum(torch.stack([losses[k] for k in keys]))
+    return {k: total[i] for i, k in enumerate(keys)}
 
 
 def train_step(net: Net, opt: torch.optim.Optimizer, cfg: Config,
@@ -161,6 +217,7 @@ def eval_step(net: Net, cfg: Config, batch: Dict[str, torch.Tensor],
         batch = dict(batch, sample_mask=sample_mask)
     inputs = build_inputs(cfg, batch, generator, False, denoise)
     net_out, losses = forward_and_losses(net, cfg, inputs, False, None)
+    losses = global_losses(losses)
     outputs = {"hidden": net_out.hidden, "rec_ob": net_out.rec}
     # the fake-detection and triplet outputs are not per encounter
     outputs.update({k: v for k, v in net_out.aux.items()

@@ -18,13 +18,19 @@ from ..utils.logging import logger
 
 
 class Summary:
+    """`enabled=False` (a data-parallel rank other than 0) writes nothing."""
+
     def __init__(self, log_dir: str, metric_items: Sequence[str] = METRICS,
-                 summary_items: Sequence[str] = SUMMARY_ITEMS):
+                 summary_items: Sequence[str] = SUMMARY_ITEMS, enabled: bool = True):
         self.metric_items = set(metric_items)
         self.summary_items = set(summary_items)
+        self.enabled = enabled
+        self._jsonl = None
+        self._tb = None
+        if not enabled:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
-        self._tb = None
         try:
             from tensorboardX import SummaryWriter
         except ImportError:  # optional, as in the JAX package
@@ -32,6 +38,8 @@ class Summary:
         self._tb = SummaryWriter(log_dir)
 
     def add_summary(self, step: int, **kwargs) -> None:
+        if not self.enabled:
+            return
         scope = kwargs.get("scope", "")
         rec: Dict[str, float] = {}
         for k, v in kwargs.items():
@@ -49,6 +57,8 @@ class Summary:
         """Latent-space projector dump (reference pretrain_trainer.py:117);
         without tensorboardX only a log line, and a writer's error is
         swallowed, as in the JAX package."""
+        if not self.enabled:
+            return
         if self._tb is None:
             logger.info("add_embedding %s: tensorboardX is not installed, no projector "
                         "written", tag)
@@ -59,6 +69,7 @@ class Summary:
                 logger.warning("add_embedding %s failed: %r", tag, e)
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

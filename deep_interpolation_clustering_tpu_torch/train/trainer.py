@@ -1,5 +1,6 @@
 """The p1 trainer (counterpart of the JAX `train/trainer.py`, reference
-pretrain_trainer.py:17-438), on one device.
+pretrain_trainer.py:17-438), on one device or data-parallel over the ranks
+of a process group.
 
 `train()` is the reference's epoch loop: a training epoch, then (every
 `eval_interval` epochs and at the last) a validation pass and `aly_pred`
@@ -15,17 +16,32 @@ full batch by repeating its real rows and trained as one masked step
 eval pass pads its last batch the same way and masks it out of the losses.
 A step's losses stay on the device until its epoch ends; the host fetches
 them then, and every `log_*_freq` batches for the log, as JAX does.
+
+Data-parallel (`parallel.world_size()` D > 1, one rank a device): every
+rank holds the whole cohort (the JAX `shard_cohort=False` path), shuffles
+it alike (`RandomState(seed + epoch)`) and takes its B/D rows of each
+global batch, the padded tail's included; the step's draws, moments,
+losses and gradient sum are global ones (`steps`), so the ranks take the
+same step and hold the same weights, which `train_one_epoch` checks bit
+for bit at each epoch's end. Rank 0's weights are broadcast at start. An
+eval pass shards each batch the same way; its metrics are per-batch global
+losses and its dumps are gathered, so every rank holds them. Rank 0 alone
+writes `config.json`, checkpoints, the summary and the dumps; `load_weight`
+waits at a barrier first. Every decision of the host (early stop, the
+schedule, logging) reads global values, the same on every rank.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from collections import defaultdict
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import parallel
 from ..compat import jax_from_state_dict, optimizer_from_jax, optimizer_to_jax
 from ..compat import state_dict_from_jax
 from ..config import Config
@@ -44,8 +60,9 @@ Batch = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 class Trainer:
     """Interpolation-autoencoder pretraining on one device: the card unless
-    `device="cpu"`. Writes under `exp_path`: `config.json`, `summary/`,
-    `weight/{metric}/checkpoint.npz` and `out_feat/{metric}/{cohort}.npy`."""
+    `device="cpu"`, one rank's device in a process group. Writes under
+    `exp_path`: `config.json`, `summary/`, `weight/{metric}/checkpoint.npz`
+    and `out_feat/{metric}/{cohort}.npy`."""
 
     # the DEC head (`ClusterTrainer`)
     clustering = False
@@ -56,8 +73,14 @@ class Trainer:
         self.datasets = datasets
         self.exp_path = exp_path
         self.device = resolve_device(device)
+        self.world = parallel.world_size()
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by the "
+                             f"{self.world} data-parallel ranks")
+        self.main = parallel.is_main_process()
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.net = Net(cfg, generator=init_gen, clustering=self.clustering).to(self.device)
+        parallel.broadcast_(list(self.net.parameters()) + list(self.net.buffers()))
         self.opt = make_optimizer(cfg, self.net.parameters())
         self.num_updates = 0  # the JAX optimizer state's count
         self.lr_schedule = LRSchedule(cfg)
@@ -66,9 +89,11 @@ class Trainer:
         self._cohorts: Dict[str, Dict[str, torch.Tensor]] = {}
         self.epoch = 1
         self.flag_dict = ckpt.FlagDict(METRICS)
-        self.weight_paths = ckpt.weight_dirs(os.path.join(exp_path, "weight"), METRICS)
-        self.summary = Summary(os.path.join(exp_path, "summary"))
-        cfg.save(exp_path)
+        self.weight_paths = ckpt.weight_dirs(os.path.join(exp_path, "weight"), METRICS,
+                                             create=self.main)
+        self.summary = Summary(os.path.join(exp_path, "summary"), enabled=self.main)
+        if self.main:
+            cfg.save(exp_path)
         n_train = len(datasets["training"]) if "training" in datasets else 0
         if n_train:
             self.cohort_data("training")  # uploaded once, kept on the device
@@ -115,20 +140,21 @@ class Trainer:
 
     def _epoch_batches(self, epoch: int) -> List[Batch]:
         """The epoch's shuffled batches as (index tensor, sample mask) on the
-        device. Full batches have no mask; a short final batch is padded to
-        the batch size by cyclically repeating its real rows (finite values
-        everywhere, as the JAX `_tail_train_step`), its mask 1 on them."""
+        device, this rank's rows of each. Full batches have no mask; a short
+        final batch is padded to the batch size by cyclically repeating its
+        real rows (`parallel.pad_batch_to`: finite values everywhere, as the
+        JAX `_tail_train_step`), its mask 1 on them."""
         n, bs = len(self.datasets["training"]), self.cfg.batch_size
         order = np.arange(n)
         np.random.RandomState(self.cfg.seed + epoch).shuffle(order)
         n_full = n // bs * bs
+        rows = parallel.shard_rows(bs)
         idx = torch.as_tensor(order[:n_full], device=self.device)
-        batches: List[Batch] = [(i, None) for i in idx.reshape(-1, bs)]
+        batches: List[Batch] = [(i[rows], None) for i in idx.reshape(-1, bs)]
         if n_full < n:
-            mask = torch.zeros(bs, dtype=torch.float32, device=self.device)
-            mask[: n - n_full] = 1.0
-            tail = torch.as_tensor(np.resize(order[n_full:], bs), device=self.device)
-            batches.append((tail, mask))
+            tail, _ = parallel.pad_batch_to({"idx": order[n_full:]}, bs)
+            batches.append((torch.as_tensor(tail["idx"][rows], device=self.device),
+                            torch.as_tensor(tail["sample_mask"][rows], device=self.device)))
         return batches
 
     def step(self, idx: torch.Tensor, sample_mask: Optional[torch.Tensor] = None
@@ -166,6 +192,7 @@ class Trainer:
         over its batches (the masked tail counts as one, as in JAX) and
         writes them as the summary's `train` row. Every `log_train_freq`
         batches one step's losses are fetched for the log."""
+        t0 = time.perf_counter()
         batches = self._epoch_batches(self.epoch)
         n_batches = len(batches)
         losses = []
@@ -177,9 +204,28 @@ class Trainer:
                             100.0 * i / n_batches, _fmt(fetched))
                 self.summary.add_summary(self.epoch * n_batches + i, scope="train_batch",
                                          **fetched)
-        out = _batch_means(losses)
+        out = _batch_means(losses)  # the fetch ends the epoch's device work
+        seconds = time.perf_counter() - t0
+        logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s", self.epoch, seconds,
+                    len(self.datasets["training"]) / seconds,
+                    f" (rank {parallel.rank()} of {self.world})" if self.world > 1 else "")
         self.summary.add_summary(self.epoch, scope="train", **out)
+        self._check_replicated()
         return out
+
+    def _check_replicated(self) -> None:
+        """Data-parallel: raise unless every rank holds rank 0's parameters,
+        BatchNorm buffers and optimizer state, bit for bit."""
+        if self.world == 1:
+            return
+        named = list(self.net.named_parameters()) + list(self.net.named_buffers())
+        for i, p in enumerate(self.net.parameters()):
+            named += [(f"opt.{i}.{k}", v) for k, v in sorted(self.opt.state[p].items())
+                      if isinstance(v, torch.Tensor)]
+        differ = parallel.replicated(named)
+        if differ:
+            raise RuntimeError(f"data-parallel ranks drifted apart after epoch {self.epoch}: "
+                               f"{differ[:8]}")
 
     # -------------------------------------------------------------- eval
     def eval_one_epoch(self, scope: str, ds: ArrayDataset, denoise: bool,
@@ -197,16 +243,17 @@ class Trainer:
         data = self.cohort_data(ds.cohort)
         n, b = len(ds), cfg.batch_size
         n_batches = ds.num_batches(b)
+        rows = parallel.shard_rows(b)
         pending = []
         for i in range(1, n_batches + 1):
             start = (i - 1) * b
             idx = np.arange(start, min(start + b, n))
             mask = None
             if len(idx) < b:
-                mask = torch.zeros(b, dtype=torch.float32, device=self.device)
-                mask[: len(idx)] = 1.0
-                idx = np.resize(idx, b)
-            batch = gather_batch(data, torch.as_tensor(idx, device=self.device))
+                padded, _ = parallel.pad_batch_to({"idx": idx}, b)
+                idx = padded["idx"]
+                mask = torch.as_tensor(padded["sample_mask"][rows], device=self.device)
+            batch = gather_batch(data, torch.as_tensor(idx[rows], device=self.device))
             losses, outputs = eval_step(self.net, cfg, batch, self.generator, denoise,
                                         mask, dump_keys)
             pending.append((losses, outputs))
@@ -217,8 +264,9 @@ class Trainer:
         metrics = _batch_means([losses for losses, _ in pending])
         dumps: Dict[str, list] = defaultdict(list)
         for k in pending[0][1]:
-            rows = torch.cat([o[k] for _, o in pending])[:n]
-            dumps[k].append(rows if device_dumps else rows.cpu().numpy())
+            out = parallel.gather_blocks(torch.cat([o[k] for _, o in pending]),
+                                         n_batches)[:n]
+            dumps[k].append(out if device_dumps else out.cpu().numpy())
         dumps["__index__"].append(np.arange(n))
         return metrics, dumps
 
@@ -278,7 +326,7 @@ class Trainer:
             ("hidden", "cluster_pred", "cluster_label") if lean else None)
         logger.info("%s %s", scope, _fmt(metrics))
         ob_pred = self.re_norm_data(self.merge_ob_pred(ds, dumps))
-        if generate_feat:
+        if generate_feat and self.main:
             folder = os.path.join(self.exp_path, "out_feat", metric)
             os.makedirs(folder, exist_ok=True)
             suffix = "_interp_eval" if cfg.evaluate_interpolation else ""
@@ -299,7 +347,7 @@ class Trainer:
         """Save the epoch's weights under each monitored metric that
         improved (reference pretrain_trainer.py:126-199)."""
         improved = self.flag_dict.improved(metric_dict, self.epoch)
-        if not improved:
+        if not improved or not self.main:
             return
         params, state = jax_from_state_dict(self.net.state_dict())
         leaves = optimizer_to_jax(self.opt, self.net, self.num_updates)
@@ -329,6 +377,9 @@ class Trainer:
         schedule's state and rate, and the flags min-merged over every
         metric's checkpoint (JAX `load_weight`)."""
         metric = metric or self.restore_metric
+        # rank 0 writes the checkpoints: past this barrier every rank reads
+        # the file rank 0 last wrote, not one it is still writing
+        parallel.barrier("load_weight")
         path = os.path.join(self.weight_paths[metric], ckpt.CKPT_NAME)
         if not os.path.exists(path):
             logger.error("==> load fail: no checkpoint at %s", path)

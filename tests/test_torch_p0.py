@@ -243,27 +243,39 @@ def test_p0_rank_gate(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("stage", [p1, p2, p3, p4], ids=["p1", "p2", "p3", "p4"])
 def test_later_stages_refuse_more_than_one_process(tmp_path, monkeypatch, stage):
+    """More than one process is a multi-process launch now: `--num_processes
+    2` without `--process_id`, `--coordinator_address` or torchrun's env://
+    variables is refused, naming the missing flag and variables, before
+    anything is written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="num_processes=2"):
-        stage.main(["--num_processes", "2", "--process_id", "0"], device="cpu")
-    assert not os.path.exists("Results")
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=r"--process_id.*MASTER_ADDR, MASTER_PORT"):
+        stage.main(["--num_processes", "2"], device="cpu")
+    assert os.listdir(tmp_path) == []
 
 
 def test_config_keeps_the_process_fields_out_of_config_json(tmp_path):
     """As the JAX `Config`: `save` leaves them out, `load` drops them from a
     file that has them, and a JAX config.json round-trips."""
-    cfg = Config(num_processes=2, process_id=1, fused_heads=True, rng_draw_bits=16)
+    cfg = Config(num_processes=2, process_id=1, coordinator_address="10.0.0.1:8476",
+                 data_parallel=2, fused_heads=True, rng_draw_bits=16)
     path = cfg.save(str(tmp_path))
     with open(path) as f:
         saved = json.load(f)
-    assert "num_processes" not in saved and "process_id" not in saved
+    assert not {"num_processes", "process_id", "coordinator_address"} & set(saved)
     assert saved["fused_heads"] is True and saved["rng_draw_bits"] == 16
+    assert saved["data_parallel"] == 2
     back = Config.load(path)
-    assert (back.num_processes, back.process_id, back.fused_heads) == (0, -1, True)
+    assert (back.num_processes, back.process_id, back.coordinator_address,
+            back.data_parallel, back.fused_heads) == (0, -1, "", 2, True)
     jcfg = JConfig.load(path)
-    assert jcfg.fused_heads and jcfg.rng_draw_bits == 16
+    assert jcfg.fused_heads and jcfg.rng_draw_bits == 16 and jcfg.data_parallel == 2
     with open(path, "w") as f:
-        json.dump(dict(saved, num_processes=4, process_id=3), f)
-    assert Config.load(path).num_processes == 0
-    jpath = JConfig(fused_heads=True, num_processes=2, process_id=0).save(str(tmp_path), "jax")
-    assert Config.load(jpath).fused_heads
+        json.dump(dict(saved, num_processes=4, process_id=3,
+                       coordinator_address="10.0.0.1:8476"), f)
+    again = Config.load(path)
+    assert (again.num_processes, again.coordinator_address) == (0, "")
+    jpath = JConfig(fused_heads=True, num_processes=2, process_id=0,
+                    coordinator_address="10.0.0.1:8476").save(str(tmp_path), "jax")
+    assert Config.load(jpath).fused_heads and Config.load(jpath).coordinator_address == ""
