@@ -63,6 +63,17 @@ not 0):
                a fresh Trainer that gives the dump's latents again (1e-6),
                and a resume from the stored epoch and rate (--restore true
                --max_epochs 4); the launch counters must show B1 and B3-B7
+  9a. bf16   - `compute_dtype="bfloat16"` (`bf16_phase`): each kernel
+               through its bf16 boundary against its plain version on the
+               p0 phase's first batch (forwards within one bfloat16 ulp + 1e-5,
+               gradients within 1e-4 of the largest plus an ulp, the JAX
+               output types); a bf16 step against the float32 step from the
+               same weights and draws at the default Config and at the
+               scaled one (B2 on its path): losses within 5e-2 relative,
+               finite gradients, float32 parameters and Adam state, the
+               same launches; the bf16 and float32 bare steps in turns (ms,
+               encounters/s, device-busy ms); `cli.p1 --compute_dtype
+               bfloat16` for two epochs beside the p1 phase's
   9b. dp     - data-parallel and multi-process runs through the entry points
                at the default Config on the p0 phase's pickles (`dp_phase`):
                `cli.p1.main --data_parallel 1` (one NCCL rank) and p1 under
@@ -72,11 +83,18 @@ not 0):
                and three p3 epochs (held to the band or to 10x the drift of
                one process nudged by 2^-24, which the trajectory amplifies
                alike), every rank's launch counts showing B1 and B3-B7 and
-               every file written once; two NCCL ranks where there are two
+               every file written once; the two-rank p1 run row-sharded
+               (`shard_cohort`, the default) against `--shard_cohort false`
+               bit for bit, each rank's cohort bytes both ways and each
+               epoch's relayout seconds, p3 sharded too; two NCCL ranks where there are two
                cards (else `"nccl_2": "skipped: 1 card"`); p2 and p4 at
                `--num_processes 2` as two processes on the card, the CSVs
-               and labels those of one process; each run's epoch seconds
-               and encounters/s
+               and labels those of one process; `cli.p2 --data_parallel 2`
+               (two gloo ranks, the latents row-sharded) against one
+               process: the suggestions and k identical, the float columns
+               within 1e-5 relative (`ref_s`, a spread of nearly equal logs,
+               within 1e-5 of `ref`); each run's epoch seconds and
+               encounters/s
  10. convert - the converter (`cli.convert.main`) on the p1 run's weight
                root: `to_torch` in directory mode, each tar into a fresh Net
                on the card (strict) whose validation latents equal the
@@ -117,7 +135,8 @@ not 0):
                descending mean SBP, the dl labels the argmax of the dumps'
                `cluster_pred`
 Then a `{"kernels": [...]}` line (`launches`: the p1 phase's count, the
-scaled phase's for the packed select; `launches_p3`: the p3 phase's), the
+scaled phase's for the packed select; `launches_p3`: the p3 phase's;
+`launches_bf16_step` and `launches_bf16_p1`: phase `bf16`'s), the
 card's name and power limit from nvidia-smi, and as the last line
 `{"ok": true, "device": {...}}`.
 
@@ -128,6 +147,7 @@ the trainers' run directories are temporary ones under build/.
 from __future__ import annotations
 
 import copy
+import csv
 import json
 import logging
 import os
@@ -575,7 +595,282 @@ def p1_phase(root: str, cohorts: dict, smi: str) -> dict:
         eval_s=json.dumps({k: [round(x, 4) for x in v] for k, v in eval_s.items()}),
         restore_err=f"{restore_err:.3g}", resumed_from=stored["epoch"], viz_feat=repr(viz),
         launches=json.dumps(launches), card=repr(smi))
-    return launches, dict(exp=exp, width=width, cohorts=cohorts, results=results)
+    return launches, dict(exp=exp, width=width, cohorts=cohorts, results=results,
+                          epoch_s=epoch_s)
+
+
+def _bf16_ulp(t):
+    """One bfloat16 ulp at each value of `t` (8 significant bits); the
+    smallest normal bfloat16 at 0."""
+    import torch
+
+    a = t.detach().float().abs()
+    ulp = torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8)
+    return torch.where(a > 0, ulp, torch.full_like(a, torch.finfo(torch.bfloat16).tiny))
+
+
+class _PlainKernels:
+    """While entered, every kernel wrapper runs its plain version on the
+    card's tensors too (its launch count still counts the calls)."""
+
+    def __enter__(self):
+        from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
+
+        self.saved = [(w, w._launch) for w in cb.KERNELS]
+        for w, _ in self.saved:
+            w._launch = w.plain
+        return self
+
+    def __exit__(self, *exc):
+        for w, launch in self.saved:
+            w._launch = launch
+
+
+def _step_draws(gen, dev, b: int, t_len: int, width: int = 32) -> dict:
+    """The fake stream's draws and the permutation of one step at (b, C, T)."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.data.loader import draw_bits, draw_dtype
+
+    return {"fake_bits": draw_bits((b, C, t_len), gen, dev, width),
+            "fake_noise": torch.rand((b, C, t_len), generator=gen, device=dev,
+                                     dtype=draw_dtype(width)),
+            "perm": torch.randperm(2 * b, generator=gen, device=dev)}
+
+
+def bf16_phase(run: dict, sdata, smi: str) -> dict:
+    """`compute_dtype="bfloat16"` on the card, on the p0 phase's pickles at
+    the default Config (B=256, T=354, H=128) and at the scaled one (B=4096,
+    T=48, `sdata`'s first batch) so that B2 is on the path:
+      * each kernel through its bf16 boundary (`cuda_interp.sci`,
+        `cuda_interp.rbf_push`, `cuda_lstm.bilstm_recurrence`) on bfloat16
+        inputs against the same boundary around the plain versions: the
+        outputs in the JAX types, forwards within one bfloat16 ulp of the
+        output plus 1e-5 (both round float32 values at most the kernels'
+        1e-5 apart; near 0, where an ulp is tiny, the 1e-5 is what is left),
+        gradients within 1e-4 of the largest element plus an ulp, in each
+        input's type;
+      * a bf16 train step against the float32 step from the same weights,
+        draws and dropout generator: every loss within 5e-2 relative (JAX's
+        bar), gradients finite, parameters and Adam state float32, each
+        kernel launched as often as in the float32 step;
+      * the bf16 and float32 bare steps in turns (20 timed after 2 of
+        warm-up, twice each): ms a step, encounters/s, device-busy ms
+        (`utils.profiling.device_profile`);
+      * `cli.p1 --compute_dtype bfloat16` for two epochs: epoch seconds
+        beside the p1 phase's, float32 dumps, finite losses.
+    Returns what it measured."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch import Config
+    from deep_interpolation_clustering_tpu_torch.cli import p1
+    from deep_interpolation_clustering_tpu_torch.data import ArrayDataset
+    from deep_interpolation_clustering_tpu_torch.info import COHORTS
+    from deep_interpolation_clustering_tpu_torch.models import Net
+    from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
+    from deep_interpolation_clustering_tpu_torch.ops import cuda_interp as ci
+    from deep_interpolation_clustering_tpu_torch.ops import cuda_lstm as cl
+    from deep_interpolation_clustering_tpu_torch.train import (
+        Trainer, build_inputs, gather_batch, make_optimizer, update,
+    )
+    from deep_interpolation_clustering_tpu_torch.train.steps import cast_batch
+    from deep_interpolation_clustering_tpu_torch.utils.profiling import device_profile
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    cfg = Config()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ds = ArrayDataset(cfg, run["cohorts"]["training"], "training")
+    data = {k: torch.as_tensor(v, device=dev) for k, v in ds.arrays().items()}
+    batch = gather_batch(data, torch.arange(B, device=dev))
+
+    # ---- each kernel through its bf16 boundary against its plain version
+    def boundary(name, fn, inputs, grad_of, want_dtype):
+        cots, res = None, {}
+        for plain in (False, True):
+            ins = [a.detach().clone().requires_grad_(i in grad_of)
+                   for i, a in enumerate(inputs)]
+            cb.reset_launch_counts()
+            if plain:
+                with _PlainKernels():
+                    outs = fn(*ins)
+            else:
+                outs = fn(*ins)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            if cots is None:
+                cots = [torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
+                        for o in outs]
+            torch.autograd.backward(outs, cots)
+            torch.cuda.synchronize()
+            launched = {w.name: w.launches for w in cb.KERNELS if w.launches}
+            res[plain] = (outs, [ins[i].grad for i in grad_of], launched)
+        (k_outs, k_grads, launched), (p_outs, p_grads, _) = res[False], res[True]
+        fwd = fwd_beyond = grad = 0.0
+        for a, b_ in zip(k_outs, p_outs):
+            a, b_ = a.detach(), b_.detach()
+            if a.dtype != want_dtype or b_.dtype != want_dtype:
+                raise AssertionError(f"bf16 {name}: outputs {a.dtype}, {b_.dtype}, "
+                                     f"expected {want_dtype}")
+            d = (a.float() - b_.float()).abs()
+            d = torch.where(torch.isnan(a.float()) & torch.isnan(b_.float()), 0.0, d)
+            beyond = (d - _bf16_ulp(b_)).clamp_min(0.0)  # what exceeds one ulp
+            if not float(beyond.max()) <= 1e-5:
+                raise AssertionError(f"bf16 {name}: forward beyond one bfloat16 ulp + 1e-5 "
+                                     f"by {float(beyond.max())}")
+            fwd = max(fwd, float(d.max()))
+            fwd_beyond = max(fwd_beyond, float(beyond.max()))
+        for i, a, b_ in zip(grad_of, k_grads, p_grads):
+            if a.dtype != inputs[i].dtype:
+                raise AssertionError(f"bf16 {name}: grad {i} {a.dtype}, input "
+                                     f"{inputs[i].dtype}")
+            d = (a.float() - b_.float()).abs()
+            lim = 1e-4 * float(b_.float().abs().max()) + _bf16_ulp(b_)
+            if not (bool(torch.isfinite(a.float()).all()) and bool((d <= lim).all())):
+                raise AssertionError(f"bf16 {name}: grad {i} max diff {float(d.max())}")
+            grad = max(grad, float(d.max()))
+        return dict(out_dtype=str(want_dtype).replace("torch.", ""), forward_max_diff=fwd,
+                    forward_max_beyond_ulp=fwd_beyond, grad_max_diff=grad, launched=launched)
+
+    ob16 = (batch["ob"] * batch["padding_mask"]).to(bf)
+    m16, t16 = batch["padding_mask"].to(bf), batch["timestamp"].to(bf)
+    k16 = torch.rand(C, generator=gen, device=dev).to(bf)
+    hours = cfg.hours_from_admission
+    checks = {
+        "sci": boundary("sci", lambda k, o, m, t: ci.sci(k, o, m, t, R, hours),
+                        [k16, ob16, m16, t16], (0, 1), bf),
+        # the fake stream's float32 ob beside bfloat16 planes: float32 out
+        "sci_f32_ob": boundary("sci_f32_ob", lambda k, o, m, t: ci.sci(k, o, m, t, R, hours),
+                               [k16, batch["ob"] * batch["padding_mask"], m16, t16], (0, 1),
+                               torch.float32),
+        "rbf_push": boundary(
+            "rbf_push", lambda k, p, m, t: ci.rbf_push(k, p, m, t, R, hours),
+            [k16, torch.randn((B, C, R), generator=gen, device=dev).to(bf), m16, t16],
+            (0, 1), bf),
+    }
+    bnd = 1.0 / np.sqrt(H)
+    uni = lambda *shape: ((torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bnd).to(bf)
+    lstm_ins = [torch.randn((R, 2 * B, 4 * H), generator=gen, device=dev).to(bf),
+                torch.randn((R, 2 * B, 4 * H), generator=gen, device=dev).to(bf),
+                uni(2, H, 4 * H), uni(2, 4 * H),
+                torch.zeros((2, 2 * B, H), device=dev, dtype=bf),
+                torch.zeros((2, 2 * B, H), device=dev, dtype=bf)]
+    checks["bilstm_recurrence"] = boundary("bilstm_recurrence", cl.bilstm_recurrence,
+                                           lstm_ins, tuple(range(6)), bf)
+    for name, want in (("sci", ("sci_forward", "sci_backward")), ("rbf_push", ("rbf_push",)),
+                       ("bilstm_recurrence", ("lstm_forward", "lstm_backward"))):
+        if not all(checks[name]["launched"].get(k) for k in want):
+            raise AssertionError(f"bf16 {name}: kernels not launched: "
+                                 f"{checks[name]['launched']}")
+
+    # ---- a bf16 step against the float32 step, at both configurations
+    def step_pair(cfg_x, batch_x, draws):
+        net32 = Net(cfg_x, generator=torch.Generator().manual_seed(1)).to(dev)
+        net16 = copy.deepcopy(net32)
+        out = {}
+        for dtype, net in (("float32", net32), ("bfloat16", net16)):
+            c = cfg_x.replace(compute_dtype=dtype)
+            opt = make_optimizer(c, net.parameters())
+            cb.reset_launch_counts()
+            inputs = build_inputs(c, cast_batch(c, batch_x), None, True, False, draws)
+            losses = update(net, opt, c, inputs, torch.Generator(device=dev).manual_seed(5))
+            torch.cuda.synchronize()
+            launches = {w.name: w.launches for w in cb.KERNELS}
+            if not all(bool(torch.isfinite(p.grad).all()) for p in net.parameters()
+                       if p.grad is not None):
+                raise AssertionError(f"bf16 step ({dtype}): gradients not finite")
+            kinds = {p.dtype for p in net.parameters()} | {
+                v.dtype for p in net.parameters() for v in opt.state[p].values()
+                if v.is_floating_point() and v.dim()}
+            if kinds != {torch.float32}:
+                raise AssertionError(f"bf16 step ({dtype}): parameters or Adam state {kinds}")
+            out[dtype] = ({k: float(v) for k, v in losses.items()}, launches)
+        (l32, n32), (l16, n16) = out["float32"], out["bfloat16"]
+        gap = {k: abs(l16[k] - v) / max(abs(v), 1e-30) for k, v in l32.items()}
+        if not max(gap.values()) <= 5e-2:
+            raise AssertionError(f"bf16 step: losses {l16} vs float32 {l32}")
+        if n16 != n32:
+            raise AssertionError(f"bf16 step launches {n16} differ from float32's {n32}")
+        return dict(loss_rel_gap=gap, loss_bf16=l16["loss"], loss_f32=l32["loss"],
+                    launches={k: v for k, v in n16.items() if v})
+
+    steps = {"default": step_pair(cfg, batch, _step_draws(gen, dev, B, T))}
+    scfg = Config(batch_size=SCALED_B, num_timestamps=SCALED_T)
+    sarr = {k: torch.as_tensor(v[:SCALED_B], device=dev) for k, v in sdata.arrays().items()}
+    steps["scaled"] = step_pair(scfg, sarr, _step_draws(gen, dev, SCALED_B, SCALED_T))
+    if not steps["scaled"]["launches"].get("fake_select_packed"):
+        raise AssertionError(f"bf16 scaled step: no packed select {steps['scaled']}")
+    del sarr
+
+    # ---- bare steps in turns, and the device's busy time a step
+    trainers = {dtype: Trainer(cfg.replace(compute_dtype=dtype), {"training": ds},
+                               os.path.join(os.path.dirname(run["results"]), f"bf16_{dtype}"),
+                               device=dev) for dtype in ("float32", "bfloat16")}
+    for tr in trainers.values():
+        tr.train_steps(2)
+    step_ms = {dtype: [] for dtype in trainers}
+    for _ in range(2):
+        for dtype, tr in trainers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_steps(OPTION_STEPS)
+            torch.cuda.synchronize()
+            step_ms[dtype].append(round((time.perf_counter() - t0) / OPTION_STEPS * 1e3, 3))
+    busy = {}
+    for dtype, tr in trainers.items():
+        stream = tr._stream()
+        prof = device_profile(lambda: tr.step(*next(stream)), 5)
+        busy[dtype] = dict(device_busy_ms=round(prof["device_busy_ms"] / 5, 4),
+                           device_events=prof["device_events_per_step"])
+        tr.close()
+    del trainers
+    timing = {dtype: dict(step_ms=v, encounters_per_s=[round(B / (x / 1e3), 1) for x in v],
+                          **busy[dtype]) for dtype, v in step_ms.items()}
+
+    # ---- the entry point: two bf16 epochs
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    lines = Lines()
+    port_log = logging.getLogger("dicl.torch")
+    port_log.addHandler(lines)
+    results = os.path.join(os.path.dirname(run["results"]), "bf16_p1")
+    cb.reset_launch_counts()
+    try:
+        exp = p1.main(run["width"] + ["--max_epochs", "3", "--compute_dtype", "bfloat16",
+                                      "--results_path", results])
+        torch.cuda.synchronize()
+    finally:
+        port_log.removeHandler(lines)
+    p1_launches = {w.name: w.launches for w in cb.KERNELS}
+    missing = [k for k in ("fake_select", "sci_forward", "sci_backward", "rbf_push",
+                           "lstm_forward", "lstm_backward") if not p1_launches[k]]
+    if missing:
+        raise AssertionError(f"bf16 p1: kernels never launched on the path: {missing}")
+    epochs = _epoch_lines("\n".join(lines.lines))[0]
+    with open(os.path.join(exp, "summary", "events.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len([r for r in rows if r["scope"] == "train"]) != 2 or not all(
+            np.isfinite(v) for r in rows for k, v in r.items() if k not in ("scope", "step")):
+        raise AssertionError(f"bf16 p1: summary rows {rows}")
+    for m in ("loss", "ae_mse"):
+        for cohort in COHORTS:
+            d = np.load(os.path.join(exp, "out_feat", m, f"{cohort}.npy"),
+                        allow_pickle=True).item()
+            for k in ("hidden", "rec_ob"):
+                if d[k].dtype != np.float32 or not np.isfinite(d[k]).all():
+                    raise AssertionError(f"bf16 p1 dump {m}/{cohort} {k}: {d[k].dtype}")
+    p1_bf16 = dict(epoch_s=[round(e, 4) for e, _ in epochs],
+                   encounters_per_s=[round(x, 1) for _, x in epochs],
+                   p1_phase_epoch_s=[round(e, 4) for e in run["epoch_s"]],
+                   launches=p1_launches)
+    say("bf16", batch=B, T=T, boundary=json.dumps(checks), steps=json.dumps(steps),
+        bare_steps=json.dumps(timing), p1=json.dumps(p1_bf16), card=repr(smi))
+    return dict(boundary=checks, steps=steps, timing=timing, p1=p1_bf16)
 
 
 def convert_phase(run: dict, smi: str) -> None:
@@ -670,6 +965,21 @@ def _epoch_lines(text: str) -> dict:
                          r"(?: \(rank (\d+) of \d+\))?", text):
         out.setdefault(int(m.group(3) or 0), []).append((float(m.group(1)),
                                                          float(m.group(2))))
+    return out
+
+
+def _cohort_lines(text: str) -> dict:
+    """From the trainer's log lines of a sharded run: {(cohort, rank):
+    (bytes a rank, bytes replicated)} and {rank: [seconds of each epoch's
+    relayout]}."""
+    import re
+
+    out = {"bytes": {}, "relayout_s": {}}
+    for m in re.finditer(r"cohort '(\w+)' row-sharded over \d+ ranks: (\d+) bytes "
+                         r"\([0-9.]+ MB\) a rank, (\d+) bytes .*\(rank (\d+)\)", text):
+        out["bytes"][m.group(1), int(m.group(4))] = (int(m.group(2)), int(m.group(3)))
+    for m in re.finditer(r"cohort relayout for epoch \d+ in ([0-9.]+) s \(rank (\d+)", text):
+        out["relayout_s"].setdefault(f"rank{m.group(2)}", []).append(float(m.group(1)))
     return out
 
 
@@ -880,7 +1190,7 @@ def dp_phase(run: dict, smi: str) -> dict:
     n_train = len(run["cohorts"]["training"]["encounter_id"])
     need = ("fake_select", "sci_forward", "sci_backward", "rbf_push", "lstm_forward",
             "lstm_backward")
-    report, seconds = {}, {}
+    report, seconds, texts = {}, {}, {}
 
     def results(name):
         return ["--results_path", os.path.join(root, name)]
@@ -890,6 +1200,7 @@ def dp_phase(run: dict, smi: str) -> dict:
         out, text = _captured_stderr(fn)
         torch.cuda.synchronize()
         seconds[name] = round(time.perf_counter() - t0, 3)
+        texts[name] = text
         epochs = _epoch_lines(text)
         report[name] = {f"rank{r}": [dict(epoch_s=round(s, 4), encounters_per_s=round(e, 1))
                                      for s, e in v] for r, v in sorted(epochs.items())}
@@ -964,6 +1275,18 @@ def dp_phase(run: dict, smi: str) -> dict:
     _held(drift["gloo_2"], drift["nudged"], "(b)")
     if _files(two) != _files(one):
         raise AssertionError("dp (b): the two-rank run's files are not the one-rank run's")
+    # (b) with every rank holding the whole cohort: the sharded run's bits
+    rep = timed("gloo_2_replicated", lambda: p1.main(
+        width + results("gloo_2_replicated") + ["--data_parallel", "2", "--shard_cohort",
+                                                "false"], backend="gloo"))
+    differ = _bit_differences(_run_files(rep), _run_files(two))
+    if differ or _files(rep) != _files(two):
+        raise AssertionError(f"dp (b): shard_cohort false differs from the sharded run: "
+                             f"{differ[:8]}")
+    p1_cohort = _cohort_lines(texts["gloo_2"])
+    if sorted(p1_cohort["bytes"]) != sorted((c, r) for c in COHORTS for r in (0, 1)) or \
+            _cohort_lines(texts["gloo_2_replicated"])["bytes"]:
+        raise AssertionError(f"dp (b): the sharded run's cohorts: {p1_cohort}")
 
     # (c) two NCCL ranks, one card each
     if torch.cuda.device_count() >= 2:
@@ -983,6 +1306,9 @@ def dp_phase(run: dict, smi: str) -> dict:
     p3_two = timed("p3_gloo_2", lambda: p3.main(p3_argv + results("p3_gloo_2")
                                                 + ["--data_parallel", "2"], backend="gloo"))
     launches["p3_gloo_2"] = ranks_launched("p3_gloo_2")
+    p3_cohort = _cohort_lines(texts["p3_gloo_2"])
+    if not p3_cohort["relayout_s"]:
+        raise AssertionError(f"dp (d): p3 at two ranks not sharded: {p3_cohort}")
     # the yardstick: one process with the weights nudged after the centre init
     p3_nudged = timed("p3_nudged", lambda: _nudged(
         ClusterTrainer, "init_centers", lambda: p3.main(p3_argv + results("p3_nudged"))))
@@ -1031,7 +1357,8 @@ def dp_phase(run: dict, smi: str) -> dict:
             raise AssertionError(f"dp (e): a p2/p4 process failed:\n{out[-4000:]}")
     single_results = os.path.join(root, "single")
     t0 = time.perf_counter()
-    p2.main(p2_argv + ["--results_path", single_results])
+    p2_one = p2.main(p2_argv + ["--results_path", single_results])
+    seconds["p2_single"] = round(time.perf_counter() - t0, 3)
     labels = p4.main(p4_argv + ["--results_path", single_results])
     seconds["p2p4_single"] = round(time.perf_counter() - t0, 3)
     plot = os.path.join("Pretrain", "opt_k", "ae_mse", "plot")
@@ -1056,12 +1383,59 @@ def dp_phase(run: dict, smi: str) -> dict:
             os.path.join(single_results, "Pretrain", "opt_k")):
         raise AssertionError("dp (e): the two processes' opt_k files are not one process's")
 
+    # (f) p2 --data_parallel 2: two gloo ranks on the card, the latents
+    # row-sharded, against one process
+    sharded_p2 = os.path.join(root, "p2_dp2")
+    shutil.copytree(os.path.join(single_results, "Pretrain", "out_feat"),
+                    os.path.join(sharded_p2, "Pretrain", "out_feat"))
+    p2_two = timed("p2_gloo_2", lambda: p2.main(
+        p2_argv + ["--results_path", sharded_p2, "--data_parallel", "2"], backend="gloo"))
+    n_valid = len(run["cohorts"]["validation"]["encounter_id"])
+    for n_rows in (n_train, n_valid):
+        if f"{n_rows} rows row-sharded over 2 ranks" not in texts["p2_gloo_2"]:
+            raise AssertionError(f"dp (f): {n_rows} rows not row-sharded")
+    p2_gap = {}
+    for name in ("gap_sts_v1.csv", "elbow.csv"):
+        with open(os.path.join(sharded_p2, plot, name)) as f:
+            got = list(csv.DictReader(f))
+        with open(os.path.join(single_results, plot, name)) as f:
+            want = list(csv.DictReader(f))
+        if len(got) != len(want) or [r.keys() for r in got] != [r.keys() for r in want]:
+            raise AssertionError(f"dp (f): {name} has other rows or columns")
+        for r, w in zip(got, want):
+            for key in w:
+                if key == "k":
+                    if r[key] != w[key]:
+                        raise AssertionError(f"dp (f): {name} k {r[key]} vs {w[key]}")
+                    continue
+                # ref_s is the spread of gap_b log inertias ~1e-3 apart: the
+                # logs' rounding (~1e-7 of |ref|) moves it by ~1e-4 of itself,
+                # so it is held to 1e-5 of the logs it spreads, |ref|
+                scale = abs(float(w["ref" if key == "ref_s" else key]))
+                rel = abs(float(r[key]) - float(w[key])) / max(scale, 1e-30)
+                p2_gap[f"{name}:{key}"] = max(p2_gap.get(f"{name}:{key}", 0.0), rel)
+                if not rel <= 1e-5:
+                    raise AssertionError(f"dp (f): {name} {key} at k={w['k']}: {r[key]} vs "
+                                         f"{w[key]}")
+    for method, keys in (("elbow", ("elbow_k",)), ("gap_sts", ("opt_k", "opt_k_argmax"))):
+        for key in keys:
+            if p2_two["ae_mse"][method][key] != p2_one["ae_mse"][method][key]:
+                raise AssertionError(f"dp (f): {method} {key} differs from one process")
+    cohort_bytes = {c: {f"rank{r}": dict(zip(("sharded", "replicated"), b))
+                        for (cc, r), b in sorted(p1_cohort["bytes"].items()) if cc == c}
+                    for c in COHORTS}
+
     say("dp", batch=B, T=T, train_encounters=n_train, note=repr(
             "two ranks share one card over gloo: a check of correctness, not of scaling"),
-        one_rank_bits="identical", step=json.dumps(step), drift=json.dumps(drift),
+        one_rank_bits="identical", shard_cohort_false_bits="identical",
+        cohort_bytes=json.dumps(cohort_bytes),
+        relayout_s=json.dumps({"p1": p1_cohort["relayout_s"],
+                               "p3": p3_cohort["relayout_s"]}),
+        p2_dp2_max_rel_diff=json.dumps(p2_gap), step=json.dumps(step), drift=json.dumps(drift),
         nccl_2=repr(nccl_2), epochs=json.dumps(report), seconds=json.dumps(seconds),
         rank_launches=json.dumps(launches), card=repr(smi))
-    return dict(step=step, drift=drift, epochs=report, seconds=seconds)
+    return dict(step=step, drift=drift, epochs=report, seconds=seconds,
+                cohort_bytes=cohort_bytes, relayout_s=p1_cohort["relayout_s"])
 
 
 def p2_phase(run: dict, smi: str, dev) -> None:
@@ -1095,10 +1469,10 @@ def p2_phase(run: dict, smi: str, dev) -> None:
             return out
         return wrapper
 
-    def checked_fit(generator, x, k, n_init=10):
+    def checked_fit(generator, x, k, n_init=10, sharded=False):
         if x.device.type != dev.type or generator.device.type != dev.type:
             raise AssertionError(f"p2 k-means on {x.device}, generator on {generator.device}")
-        return fit(generator, x, k, n_init=n_init)
+        return fit(generator, x, k, n_init=n_init, sharded=sharded)
 
     def counted_lloyd(*args):
         out = lloyd(*args)
@@ -2146,6 +2520,7 @@ def main() -> None:
 
     # ------------------------------------------------- 8, 9. p1 entry point, converter
     p1_launches, run = p1_phase(p1_root, cohorts_p1, smi)
+    bf16 = bf16_phase(run, sdata, smi)
     dp_phase(run, smi)
     convert_phase(run, smi)
 
@@ -2169,6 +2544,12 @@ def main() -> None:
             "launches": path_launches[w.name], "launches_p1": p1_launches[w.name],
             "launches_p3": p3_launches[w.name],
             "launches_main": launches[w.name], "launches_scaled": slaunches[w.name],
+            # one bf16 step's (B2's at the scaled configuration) and the bf16
+            # p1 entry point's
+            "launches_bf16_step": bf16["steps"][
+                "scaled" if w.name == "fake_select_packed" else "default"]["launches"].get(
+                    w.name, 0),
+            "launches_bf16_p1": bf16["p1"]["launches"][w.name],
             "max_abs_err": r["max_abs_err"],
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -302,13 +302,15 @@ def run_stage(body: Callable[[Config, torch.device], Any], cfg: Config, device: 
     rank 0's result (each process's own under `--num_processes`).
 
       * `--num_processes P` (> 0): this process is one rank of P
-        (`init_multihost`); with `data_parallel` (p1, p3) the ranks train
-        data-parallel, else (p2, p4) each computes the same result and rank
-        0 writes. `--data_parallel` must then be 0, -1 or P.
-      * `--data_parallel N` (> 0; -1 every visible card), p1 and p3 only:
-        N local ranks spawned here (`parallel.spawn`), one device each: card
-        r with NCCL, the CPU with gloo when `device="cpu"`. 1 is a one-rank
-        group. The CUDA kernels are built here once before the ranks start.
+        (`init_multihost`); with `data_parallel` (p1 and p3; p2 when
+        `--data_parallel` is set) the ranks train data-parallel or
+        row-shard p2's latents, else (p2, p4) each computes the same result
+        and rank 0 writes. `--data_parallel` must then be 0, -1 or P.
+      * `--data_parallel N` (> 0; -1 every visible card), with
+        `data_parallel`: N local ranks spawned here (`parallel.spawn`), one
+        device each: card r with NCCL, the CPU with gloo when
+        `device="cpu"`. 1 is a one-rank group. The CUDA kernels are built
+        here once before the ranks start.
       * otherwise one process without a group.
 
     `backend` (Python only, for tests and the smoke run): "gloo" lets ranks

@@ -8,10 +8,15 @@ DBSCAN (k-distance graph and eps sweep) or OPTICS; tables and plots go to
 
 Runs on the card; from Python, `main(argv, device="cpu")` runs on the CPU.
 OPTICS runs scikit-learn on the host and needs it installed. Under
-`--num_processes P` every process computes the same tables on its own card
-and rank 0 alone writes; the row-sharding of the latents over
-`--data_parallel` ranks (JAX `cluster/optk.py`) is not ported and that
-flag above 1 raises.
+`--data_parallel N` (N > 1) N ranks are spawned, one device each (the CPU
+with gloo when `device="cpu"`), every rank loads the dumps and keeps its
+contiguous block of each cohort's rows on its device, and the k-means sweeps
+run row-sharded over them (`cluster.optk.KSelection(shard=True)`, JAX
+`cluster/optk.py:130-146`); an array whose rows N does not divide stays
+whole on every rank, with a warning, as in JAX. DBSCAN and OPTICS run whole
+on every rank. Under `--num_processes P` every process computes the same
+tables on its own card (row-sharded too when `--data_parallel` is set). In
+every case rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -24,13 +29,15 @@ import torch
 
 from ..cluster import DbscanExplorer, KSelection, OpticsExplorer, load_feature_dumps
 from ..utils.logging import logger
-from .common import build_parser, config_from_args, data_parallel_ranks, run_stage
+from .common import build_parser, config_from_args, run_stage
 
 
 def main(argv: Optional[Sequence[str]] = None,
-         device: Optional[Union[str, torch.device]] = None) -> Dict[str, Dict]:
+         device: Optional[Union[str, torch.device]] = None,
+         backend: Optional[str] = None) -> Dict[str, Dict]:
     """Run p2; returns {metric: what the chosen explorer returned} (for
-    dbscan, {"k_distance": ..., "eps_sweep": [...]})."""
+    dbscan, {"k_distance": ..., "eps_sweep": [...]}). `backend="gloo"` lets
+    data-parallel ranks share a card."""
     parser = build_parser(__doc__)
     parser.add_argument("--stage", default="Pretrain", choices=["Pretrain", "Clustering"])
     parser.add_argument("--restore_metrics", nargs="+", default=["ae_mse", "loss"])
@@ -38,12 +45,8 @@ def main(argv: Optional[Sequence[str]] = None,
                         choices=["kmeans", "dbscan", "optics"])
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
-    if cfg.num_processes == 0 and data_parallel_ranks(cfg, device) > 1:
-        raise NotImplementedError(
-            f"--data_parallel {cfg.data_parallel}: p2's row-sharding of the latents over "
-            f"data-parallel ranks is not ported; run it on one card, or as "
-            f"--num_processes P (every process computes, rank 0 writes)")
-    return run_stage(functools.partial(_run, args=args), cfg, device, data_parallel=False)
+    return run_stage(functools.partial(_run, args=args), cfg, device, backend,
+                     data_parallel=cfg.data_parallel != 0)
 
 
 def _run(cfg, dev: torch.device, args) -> Dict[str, Dict]:
@@ -54,7 +57,8 @@ def _run(cfg, dev: torch.device, args) -> Dict[str, Dict]:
         out_path = os.path.join(exp_path, "opt_k", metric)
         train_h = data["training"]["hidden"]
         if args.cluster_algo == "kmeans":
-            out = KSelection(cfg, out_path, device=dev).select_opt_k(
+            out = KSelection(cfg, out_path, device=dev,
+                             shard=cfg.data_parallel != 0).select_opt_k(
                 train_h, data["validation"]["hidden"], seed=cfg.seed)
             for method, r in out.items():
                 logger.info("[%s] %s -> %s", metric, method,

@@ -16,6 +16,21 @@ restart by inertia (the first on ties). Draws come from an explicit
 seed gives another (equally valid) clustering. Run with TF32 off
 (`utils.device.resolve_device`): a TF32 distance can flip a borderline
 assignment, which is why JAX asks for `precision="highest"`.
+
+`sharded=True` fits rows that are row-sharded over the data-parallel ranks
+(p2 under `--data_parallel N`, as JAX row-shards them over its mesh): rank
+r holds rows [r*n, (r+1)*n) as `x`. The tolerance's variance comes from
+moments summed over ranks; k-means++ gathers the per-row potentials, so
+every rank's generator draws the same candidates from the same weights, and
+takes the candidate rows from their owners (`parallel.take_rows`); Lloyd's
+one-hot sums and counts are summed over ranks; the empty-cluster reseed
+orders the gathered distances; a sum over rows (a restart's potential, the
+inertia, the distortion) runs over the gathered per-row values, in one
+process's order. Every rank then holds the same centres and leaves the
+loop on the same round. Against one process only the one-hot sums (and the
+tolerance) are added in another order: on data whose sums are exact (a
+grid) the fit is one process's bit for bit, elsewhere within float32
+rounding. The labels are the rank's rows'.
 """
 
 from __future__ import annotations
@@ -25,6 +40,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .. import parallel
 
 
 class KMeansResult(NamedTuple):
@@ -43,27 +60,43 @@ def pairwise_sq_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(d, 0.0)
 
 
+def _gathered(t: torch.Tensor, sharded: bool, dim: int = 0) -> torch.Tensor:
+    """A per-row tensor (rows on `dim`) with every rank's rows, in order."""
+    if not sharded:
+        return t
+    return parallel.gather_rows(t.movedim(dim, 0)).movedim(0, dim)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor, sharded: bool) -> torch.Tensor:
+    return parallel.take_rows(x, idx) if sharded else x[idx]
+
+
 def _kmeanspp_init(generator: torch.Generator, x: torch.Tensor, k: int,
-                   n_init: int = 1) -> torch.Tensor:
+                   n_init: int = 1, sharded: bool = False) -> torch.Tensor:
     """Greedy k-means++ for `n_init` restarts at once: (n_init, k, D) centres,
     each a row of `x`. The first centre is uniform; each next one is the
     best by potential of `2 + floor(log k)` candidates drawn in proportion
     to the squared distance to the closest centre so far."""
     n, d = x.shape
+    if sharded:
+        n *= parallel.world_size()
     n_trials = 2 + int(math.floor(math.log(k))) if k > 1 else 1
     rows = torch.arange(n_init, device=x.device)
     first = torch.randint(0, n, (n_init,), generator=generator, device=x.device)
     centers = torch.zeros((n_init, k, d), dtype=x.dtype, device=x.device)
-    centers[:, 0] = x[first]
-    closest = pairwise_sq_dist(x, x[first]).T  # (I, N)
+    centers[:, 0] = _take(x, first, sharded)
+    closest = pairwise_sq_dist(x, centers[:, 0]).T  # (I, N): this rank's rows
+    closest_all = _gathered(closest, sharded, 1)  # every rank's
     for i in range(1, k):
-        cand_idx = torch.multinomial(torch.clamp_min(closest, 1e-30), n_trials,
+        cand_idx = torch.multinomial(torch.clamp_min(closest_all, 1e-30), n_trials,
                                      replacement=True, generator=generator)  # (I, T)
-        cand = x[cand_idx]  # (I, T, D)
+        cand = _take(x, cand_idx, sharded)  # (I, T, D)
         new_closest = torch.minimum(closest[:, :, None], pairwise_sq_dist(x, cand))
-        best = torch.argmin(torch.sum(new_closest, dim=1), dim=1)  # (I,)
+        new_all = _gathered(new_closest, sharded, 1)
+        best = torch.argmin(torch.sum(new_all, dim=1), dim=1)  # (I,)
         centers[:, i] = cand[rows, best]
         closest = new_closest[rows, :, best]
+        closest_all = new_all[rows, :, best]
     return centers
 
 
@@ -74,7 +107,8 @@ def _assign(x: torch.Tensor, centers: torch.Tensor) -> Tuple[torch.Tensor, torch
     return labels, torch.gather(dist, -1, labels[..., None])[..., 0]
 
 
-def _lloyd(x: torch.Tensor, centers: torch.Tensor, max_iter: int, tol
+def _lloyd(x: torch.Tensor, centers: torch.Tensor, max_iter: int, tol,
+           sharded: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Lloyd iterations from `centers` ((K, D), or (I, K, D) restarts):
     assign, update, reseed empty clusters from the farthest points, and
@@ -83,7 +117,7 @@ def _lloyd(x: torch.Tensor, centers: torch.Tensor, max_iter: int, tol
     single = centers.dim() == 2
     if single:
         centers = centers[None]
-    n = x.shape[0]
+    n = x.shape[0] * (parallel.world_size() if sharded else 1)
     n_init, k, _ = centers.shape
     shift = torch.full((n_init,), float("inf"), dtype=x.dtype, device=x.device)
     n_iter = torch.zeros((n_init,), dtype=torch.int64, device=x.device)
@@ -95,33 +129,48 @@ def _lloyd(x: torch.Tensor, centers: torch.Tensor, max_iter: int, tol
         one_hot = torch.nn.functional.one_hot(labels, k).to(x.dtype)  # (I, N, K)
         counts = torch.sum(one_hot, dim=1)  # (I, K)
         sums = torch.matmul(one_hot.transpose(1, 2), x)  # (I, K, D)
+        if sharded:
+            counts, sums = parallel.all_sum(counts), parallel.all_sum(sums)
         new_centers = sums / torch.clamp_min(counts, 1.0)[..., None]
         # empty clusters: the farthest points from their centres, in order
-        far_order = torch.argsort(-min_dist, dim=1, stable=True)
+        far_order = torch.argsort(-_gathered(min_dist, sharded, 1), dim=1, stable=True)
         empty = counts == 0
         empty_rank = torch.cumsum(empty.to(torch.int64), dim=1) - 1
-        reseed = x[torch.gather(far_order, 1, torch.clamp(empty_rank, 0, n - 1))]
+        reseed = _take(x, torch.gather(far_order, 1, torch.clamp(empty_rank, 0, n - 1)),
+                       sharded)
         new_centers = torch.where(empty[..., None], reseed, new_centers)
         new_shift = torch.sum(torch.square(new_centers - centers), dim=(1, 2))
         centers = torch.where(active[:, None, None], new_centers, centers)
         shift = torch.where(active, new_shift, shift)
         n_iter = n_iter + active.to(torch.int64)
     labels, min_dist = _assign(x, centers)
-    inertia = torch.sum(min_dist, dim=1)
+    inertia = torch.sum(_gathered(min_dist, sharded, 1), dim=1)
     if single:
         return centers[0], labels[0], inertia[0], n_iter[0]
     return centers, labels, inertia, n_iter
 
 
 def kmeans_fit(generator: torch.Generator, x: torch.Tensor, k: int, n_init: int = 10,
-               max_iter: int = 300, tol: float = 1e-4) -> KMeansResult:
+               max_iter: int = 300, tol: float = 1e-4, sharded: bool = False
+               ) -> KMeansResult:
     """Fit k-means on `x`'s device; the best of `n_init` restarts by
-    inertia (the first on ties)."""
+    inertia (the first on ties). `sharded`: `x` is this rank's block of
+    rows (the module docstring); the labels are its rows'."""
     x = x.to(torch.float32)
-    # sklearn scales tol by the mean per-feature population variance
-    tol_scaled = tol * torch.mean(torch.var(x, dim=0, correction=0))
-    centers0 = _kmeanspp_init(generator, x, k, n_init)
-    centers, labels, inertia, n_iter = _lloyd(x, centers0, max_iter, tol_scaled)
+    # sklearn scales tol by the mean per-feature population variance;
+    # sharded, from float64 moments summed over ranks
+    if sharded:
+        x64 = x.to(torch.float64)
+        moments = parallel.all_sum(torch.stack([torch.sum(x64, dim=0),
+                                                torch.sum(x64 * x64, dim=0)]))
+        n = x.shape[0] * parallel.world_size()
+        mean = moments[0] / n
+        var = torch.clamp_min(moments[1] / n - mean * mean, 0.0).to(torch.float32)
+    else:
+        var = torch.var(x, dim=0, correction=0)
+    tol_scaled = tol * torch.mean(var)
+    centers0 = _kmeanspp_init(generator, x, k, n_init, sharded)
+    centers, labels, inertia, n_iter = _lloyd(x, centers0, max_iter, tol_scaled, sharded)
     best = torch.argmin(inertia)
     return KMeansResult(centers[best], labels[best], inertia[best], n_iter[best])
 
@@ -130,16 +179,18 @@ def kmeans_predict(centers: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.argmin(pairwise_sq_dist(x.to(torch.float32), centers), dim=1)
 
 
-def kmeans_inertia(centers: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def kmeans_inertia(centers: torch.Tensor, x: torch.Tensor,
+                   sharded: bool = False) -> torch.Tensor:
     d = pairwise_sq_dist(x.to(torch.float32), centers)
-    return torch.sum(torch.min(d, dim=1).values)
+    return torch.sum(_gathered(torch.min(d, dim=1).values, sharded))
 
 
-def mean_min_distance(centers: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def mean_min_distance(centers: torch.Tensor, x: torch.Tensor,
+                      sharded: bool = False) -> torch.Tensor:
     """Mean distance to the closest centre, the elbow's 'distortion'
     (reference p2_clustering_optK.py:260-265)."""
     d = pairwise_sq_dist(x.to(torch.float32), centers)
-    return torch.mean(torch.sqrt(torch.min(d, dim=1).values))
+    return torch.mean(_gathered(torch.sqrt(torch.min(d, dim=1).values), sharded))
 
 
 def fit_kmeans_impl(cfg, seed: int, x, k: int, n_init: int) -> KMeansResult:

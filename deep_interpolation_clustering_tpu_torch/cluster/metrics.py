@@ -24,7 +24,13 @@ cost one host read of the cluster sizes a call, and only the Dunn index
 asks for them. Rows are not padded, so every label lies in [0, k).
 
 Functions take tensors (or arrays, which become CPU tensors) and compute on
-the device of `x`.
+the device of `x`. With `sharded=True`, `x` and `labels` are this rank's
+block of rows of data row-sharded over the data-parallel ranks (p2 under
+`--data_parallel N`): every rank gathers all rows, then takes its share of
+the blocked sweep's rows against all of them, and the shares are combined
+exactly (each rank's rows of the per-row sums in a zero buffer, summed over
+ranks; the per-pair extrema by a min and a max over ranks). The metrics
+are then one process's, computed from the same per-row sums.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from .kmeans import pairwise_sq_dist
 
 
@@ -85,27 +92,42 @@ def kth_neighbor_distance(x, k: int, block: int = 1024) -> torch.Tensor:
     return out
 
 
+def _all_rows(x, labels, sharded: bool):
+    """(x, labels) as tensors, every rank's rows when `sharded`."""
+    x = _rows(x)
+    labels = _labels(labels, x.device)
+    if sharded:
+        x, labels = parallel.gather_rows(x), parallel.gather_rows(labels)
+    return x, labels
+
+
 def pairwise_cluster_stats(x, labels, k: int, block: int = 1024,
-                           extrema: bool = True) -> PairwiseStats:
+                           extrema: bool = True, split: bool = False) -> PairwiseStats:
     """One blocked sweep over all pairwise distances; `extrema=False` skips
-    the per-pair min and max (and their host read)."""
+    the per-pair min and max (and their host read). `split`: `x` holds every
+    rank's rows and this rank sweeps its contiguous share of the (label-
+    sorted) rows, the shares combined exactly over ranks."""
     x = _rows(x)
     labels = _labels(labels, x.device)
     n = x.shape[0]
+    lo, hi = 0, n
+    if split and parallel.world_size() > 1:
+        share = -(-n // parallel.world_size())
+        lo, hi = min(n, parallel.rank() * share), min(n, (parallel.rank() + 1) * share)
     order = torch.argsort(labels, stable=True)
     xs, ls = x[order], labels[order]
     one_hot = F.one_hot(ls, k).to(torch.float32)  # (N, K)
     counts = torch.sum(one_hot, dim=0)
     x_sq = torch.sum(xs * xs, dim=1)
-    sums = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    sums = torch.zeros((n, k), dtype=torch.float32, device=x.device)
     pair_min = pair_max = None
     if extrema:
         ends = torch.cumsum(counts.to(torch.int64), 0).tolist()
         spans = list(zip([0] + ends[:-1], ends))  # each cluster's rows and columns
         pair_min = torch.full((k, k), float("inf"), device=x.device)
         pair_max = torch.full((k, k), float("-inf"), device=x.device)
-    for start in range(0, n, block):
-        stop = min(start + block, n)
+    for start in range(lo, hi, block):
+        stop = min(start + block, hi)
         dist = sq_dist_slab(xs[start:stop], xs, x_sq).sqrt_()  # (block, N)
         sums[start:stop] = dist @ one_hot
         if extrema:
@@ -125,16 +147,22 @@ def pairwise_cluster_stats(x, labels, k: int, block: int = 1024,
                     pair_min[c] = torch.minimum(pair_min[c], row_min[r0:r1].amin(0))
                     pair_max[c] = torch.maximum(pair_max[c], row_max[r0:r1].amax(0))
         del dist
+    if split:
+        sums = parallel.all_sum(sums)
+        if extrema:
+            pair_min, pair_max = parallel.all_min(pair_min), parallel.all_max(pair_max)
     out = torch.empty_like(sums)
     out[order] = sums
     return PairwiseStats(out, counts, pair_min, pair_max)
 
 
 # ----------------------------------------------------------- silhouette
-def silhouette_score(x, labels, k: int, block: int = 1024) -> torch.Tensor:
+def silhouette_score(x, labels, k: int, block: int = 1024,
+                     sharded: bool = False) -> torch.Tensor:
     """Mean silhouette coefficient (sklearn.metrics.silhouette_score)."""
-    stats = pairwise_cluster_stats(x, labels, k, block, extrema=False)
-    return _silhouette_from_stats(stats, _labels(labels, stats.sums.device), k)
+    x, labels = _all_rows(x, labels, sharded)
+    stats = pairwise_cluster_stats(x, labels, k, block, extrema=False, split=sharded)
+    return _silhouette_from_stats(stats, labels, k)
 
 
 def _silhouette_from_stats(stats: PairwiseStats, labels: torch.Tensor, k: int) -> torch.Tensor:
@@ -159,11 +187,10 @@ def _centers(x: torch.Tensor, labels: torch.Tensor, k: int):
     return one_hot, counts, (one_hot.T @ x) / torch.clamp_min(counts, 1.0)[:, None]
 
 
-def calinski_harabasz_score(x, labels, k: int) -> torch.Tensor:
+def calinski_harabasz_score(x, labels, k: int, sharded: bool = False) -> torch.Tensor:
     """(B/(k-1)) / (W/(n-k)) with squared Euclidean dispersions
     (sklearn.metrics.calinski_harabasz_score; internal_eval.py:131-138)."""
-    x = _rows(x)
-    labels = _labels(labels, x.device)
+    x, labels = _all_rows(x, labels, sharded)
     n = x.shape[0]
     _, counts, centers = _centers(x, labels, k)
     mean = torch.mean(x, dim=0)
@@ -172,11 +199,10 @@ def calinski_harabasz_score(x, labels, k: int) -> torch.Tensor:
     return (b / (k - 1)) / (w / (n - k))
 
 
-def davies_bouldin_score(x, labels, k: int) -> torch.Tensor:
+def davies_bouldin_score(x, labels, k: int, sharded: bool = False) -> torch.Tensor:
     """Mean over clusters of the worst (s_i + s_j) / d_ij ratio
     (sklearn.metrics.davies_bouldin_score; internal_eval.py:141-147)."""
-    x = _rows(x)
-    labels = _labels(labels, x.device)
+    x, labels = _all_rows(x, labels, sharded)
     one_hot, counts, centers = _centers(x, labels, k)
     dist_to_center = torch.sqrt(torch.sum(torch.square(x - centers[labels]), dim=1))
     s = (one_hot.T @ dist_to_center) / torch.clamp_min(counts, 1.0)  # (K,)
@@ -187,10 +213,11 @@ def davies_bouldin_score(x, labels, k: int) -> torch.Tensor:
     return torch.mean(torch.amax(ratio, dim=1))
 
 
-def dunn_index(x, labels, k: int, block: int = 1024) -> torch.Tensor:
+def dunn_index(x, labels, k: int, block: int = 1024, sharded: bool = False) -> torch.Tensor:
     """min inter-cluster nearest-point distance / max cluster diameter (the
     reference's O(n^2) Python double loop, internal_eval.py:37-109)."""
-    stats = pairwise_cluster_stats(x, labels, k, block)
+    x, labels = _all_rows(x, labels, sharded)
+    stats = pairwise_cluster_stats(x, labels, k, block, split=sharded)
     eye = torch.eye(k, dtype=torch.bool, device=stats.sums.device)
     min_inter = torch.amin(torch.where(eye, float("inf"), stats.pair_min))
     max_diam = torch.amax(torch.diagonal(stats.pair_max))
@@ -198,25 +225,26 @@ def dunn_index(x, labels, k: int, block: int = 1024) -> torch.Tensor:
 
 
 # -------------------------------------------------- gap-statistic inertia
-def _within_sums(x, labels, k: int, block: int):
-    stats = pairwise_cluster_stats(x, labels, k, block, extrema=False)
-    own = F.one_hot(_labels(labels, stats.sums.device), k).to(torch.float32)
+def _within_sums(x, labels, k: int, block: int, sharded: bool):
+    x, labels = _all_rows(x, labels, sharded)
+    stats = pairwise_cluster_stats(x, labels, k, block, extrema=False, split=sharded)
+    own = F.one_hot(labels, k).to(torch.float32)
     return torch.sum(stats.sums * own, dim=0), stats.counts  # (K,), (K,)
 
 
-def inertia_v1(x, labels, k: int, block: int = 1024) -> torch.Tensor:
+def inertia_v1(x, labels, k: int, block: int = 1024, sharded: bool = False) -> torch.Tensor:
     """W = mean over clusters of mean(full pairwise-distance matrix within
     the cluster, diagonal zeros included) (p2_clustering_optK.py:334-342)."""
-    per_cluster_sum, counts = _within_sums(x, labels, k, block)
+    per_cluster_sum, counts = _within_sums(x, labels, k, block, sharded)
     w = per_cluster_sum / torch.clamp_min(torch.square(counts), 1.0)
     present = counts > 0
     return torch.sum(torch.where(present, w, 0.0)) / torch.sum(present)
 
 
-def inertia_v2(x, labels, k: int, block: int = 1024) -> torch.Tensor:
+def inertia_v2(x, labels, k: int, block: int = 1024, sharded: bool = False) -> torch.Tensor:
     """Tibshirani W_k = sum_c D_c / (2 n_c), D_c the full within-cluster
     pairwise-distance sum (p2_clustering_optK.py:344-351)."""
-    per_cluster_sum, counts = _within_sums(x, labels, k, block)
+    per_cluster_sum, counts = _within_sums(x, labels, k, block, sharded)
     w = per_cluster_sum / (2.0 * torch.clamp_min(counts, 1.0))
     return torch.sum(torch.where(counts > 0, w, 0.0))
 
@@ -229,6 +257,9 @@ INTERNAL_METRICS = {
 }
 
 
-def compute_internal_metrics(names, x, labels, k: int) -> Dict[str, float]:
-    """The named metrics as floats (one host read each)."""
-    return {name: float(INTERNAL_METRICS[name](x, labels, k)) for name in names}
+def compute_internal_metrics(names, x, labels, k: int, sharded: bool = False
+                             ) -> Dict[str, float]:
+    """The named metrics as floats (one host read each); `sharded` as the
+    module docstring says."""
+    return {name: float(INTERNAL_METRICS[name](x, labels, k, sharded=sharded))
+            for name in names}

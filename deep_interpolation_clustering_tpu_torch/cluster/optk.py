@@ -15,7 +15,14 @@ argmax-gap fallback.
 Inputs: a host array (what `cli.p2` passes) is moved to the device given to
 `KSelection` or `DbscanExplorer`; a tensor stays on its device. Under a
 multi-process launch every rank computes the same tables and rank 0 alone
-writes files (`parallel.is_main_process`). Random draws:
+writes files (`parallel.is_main_process`). `KSelection(shard=True)` in a
+group of D ranks (p2 under `--data_parallel N`, JAX `optk.py:130-146`)
+row-shards the latents instead: rank r keeps rows [r*n/D, (r+1)*n/D) of
+each array on its device, and the k-means fits, the distortions, the gap
+inertias and the internal metrics run split by rows (`cluster.kmeans`,
+`cluster.metrics`), each reference cohort drawn at the full shape and
+sliced; an array whose rows D does not divide stays whole on every rank, as
+in JAX, with a warning. The tables are one process's. Random draws:
   * every k-means fit gets a `torch.Generator` on its data's device, seeded
     from (seed, stream, k, b) by `np.random.SeedSequence` (a hash, not an
     arithmetic composition that could make a reference fit's seed equal
@@ -36,6 +43,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config
 from ..info import LEGEND_INFO
 from ..parallel import is_main_process
@@ -136,30 +144,49 @@ def _relabel_legend(ax):
 
 class KSelection:
     """k-means-based K selection (reference `KM`, p2:226-410), on the card
-    unless `device="cpu"`."""
+    unless `device="cpu"`; `shard=True` row-shards the latents over the
+    ranks of the process group (the module docstring)."""
 
-    def __init__(self, cfg: Config, out_path: str, device: Device = None):
+    def __init__(self, cfg: Config, out_path: str, device: Device = None,
+                 shard: bool = False):
         self.cfg = cfg
         self.out_path = os.path.join(out_path, "plot")
         self.device = resolve_device(device)
+        self.shard = shard and parallel.world_size() > 1
         if is_main_process():
             os.makedirs(self.out_path, exist_ok=True)
+
+    def _put_rows(self, x, shard: Optional[bool] = None):
+        """(this rank's rows of `x` on the device, whether they are a
+        block of row-sharded data): the whole array unless sharding, or when
+        the ranks do not divide its rows (JAX `_put_rows`). `shard` given:
+        that decision, taken for an array of the same shape."""
+        if self.shard if shard is None else shard:
+            d = parallel.world_size()
+            if len(x) % d == 0:
+                n = len(x) // d
+                if shard is None:
+                    logger.info("%d rows row-sharded over %d ranks: %d a rank", len(x), d, n)
+                return _on(x[parallel.rank() * n:(parallel.rank() + 1) * n], self.device), True
+            logger.warning("%d rows not divisible by %d ranks: running unsharded",
+                           len(x), d)
+        return _on(x, self.device), False
 
     # ------------------------------------------------------------ elbow
     def elbow(self, train_feat, valid_feat, seed: int = 0, plot: bool = True) -> Dict:
         """Distortion (mean min distance to a centre) for K=2..k_max on train
         and valid (reference p2:254-274), plus the Kneedle elbow."""
         ks = list(range(2, self.cfg.k_max + 1))
-        train = _on(train_feat, self.device)
-        valid = _on(valid_feat, self.device)
+        train, train_sh = self._put_rows(train_feat)
+        valid, valid_sh = self._put_rows(valid_feat)
         train_d, valid_d = [], []
         for k in ks:
             logger.info("elbow: running K=%d", k)
             result = kmeans_fit(_generator(train.device, seed, _ELBOW, k), train, k,
-                                n_init=self.cfg.n_init)
+                                n_init=self.cfg.n_init, sharded=train_sh)
             centers = torch.as_tensor(result.centers, device=train.device)
-            train_d.append(float(mean_min_distance(centers, train)))
-            valid_d.append(float(mean_min_distance(centers, valid)))
+            train_d.append(float(mean_min_distance(centers, train, train_sh)))
+            valid_d.append(float(mean_min_distance(centers, valid, valid_sh)))
         knee = kneedle(np.array(ks), np.array(train_d), "convex", "decreasing")
         out = {"k": ks, "train": train_d, "valid": valid_d, "elbow_k": knee}
         if is_main_process():
@@ -226,29 +253,30 @@ class KSelection:
             lo, rng_width = torch.stack([data.min(), data.max() - data.min()]).tolist()
         else:
             lo, rng_width = float(data.min()), float(data.max() - data.min())
-        data_dev = _on(data, self.device)
+        data_dev, sharded = self._put_rows(data)
         rng = np.random.RandomState(seed)
         rows: List[Dict] = []
         for k in range(2, cfg.k_max + 1):
             logs = []
             for b in range(cfg.gap_b):
+                # drawn at the full shape on every rank, then this rank's rows
                 if on_device:
                     draw = _generator(data.device, seed, _DRAW, k, b)
                     ref = torch.rand(data.shape, generator=draw, device=data.device) \
                         * rng_width + lo
                 else:
-                    ref = _on(rng.random_sample(data.shape).astype(np.float32) * rng_width
-                              + lo, self.device)
+                    ref = rng.random_sample(data.shape).astype(np.float32) * rng_width + lo
+                ref, _ = self._put_rows(ref, sharded)
                 r = kmeans_fit(_generator(ref.device, seed, _REF, k, b), ref, k,
-                               n_init=cfg.n_init)
-                logs.append(np.log(float(inertia(ref, r.labels, k))))
+                               n_init=cfg.n_init, sharded=sharded)
+                logs.append(np.log(float(inertia(ref, r.labels, k, sharded=sharded))))
             ref_mean, ref_std = float(np.mean(logs)), float(np.std(logs))
             ref_s = float(np.sqrt(1 + 1 / cfg.gap_b) * ref_std)
             r = kmeans_fit(_generator(data_dev.device, seed, _DATA, k), data_dev, k,
-                           n_init=cfg.n_init)
-            act = float(np.log(float(inertia(data_dev, r.labels, k))))
+                           n_init=cfg.n_init, sharded=sharded)
+            act = float(np.log(float(inertia(data_dev, r.labels, k, sharded=sharded))))
             row = {"k": k, "gap": ref_mean - act, "ref": ref_mean, "act": act, "ref_s": ref_s}
-            row.update(compute_internal_metrics(names, data_dev, r.labels, k))
+            row.update(compute_internal_metrics(names, data_dev, r.labels, k, sharded))
             logger.info("k: %d, gap: %.4f, ref: %.4f, act: %.4f, ref_s: %.4f",
                         k, row["gap"], ref_mean, act, ref_s)
             rows.append(row)

@@ -12,13 +12,14 @@ one log line.
 `data_parallel`, `num_processes`, `process_id` and `coordinator_address`
 are read: p1 and p3 train data-parallel over the ranks they give, p2 and p4
 compute on every rank and write on rank 0, p0 writes on rank 0
-(`parallel/`, `cli/common.run_stage`). Like the JAX `Config`, `save` leaves
+(`parallel/`, `cli/common.run_stage`); p2 row-shards the latents over
+`--data_parallel` ranks. Like the JAX `Config`, `save` leaves
 the last three out of `config.json` and `load` drops them from a file that
-has them. `shard_cohort` (row-sharded cohort storage) is not ported: each
-rank keeps the whole cohort on its device, the JAX `shard_cohort=False`
-path, whose results are the same.
-Tuple fields come back from JSON as lists and are made tuples again. `compute_dtype` is read:
-the port computes in float32 only, and any other value raises.
+has them. `shard_cohort` (on by default, as in JAX) row-shards each cohort
+over the data-parallel ranks (`parallel.cohort`).
+Tuple fields come back from JSON as lists and are made tuples again.
+`compute_dtype` is "float32" or "bfloat16": the train step's forward in
+that type, gradients and optimizer state in float32 (`train.steps`).
 
 Matmul precision: the port runs float32 matmuls in full float32 on the
 card (TF32 off, `utils.device.resolve_device`); that is its counterpart of
@@ -41,7 +42,7 @@ log = logging.getLogger("dicl.torch")
 _IGNORED = (
     # TPU / XLA / mesh switches: no counterpart on the card
     "use_pallas", "use_pallas_bwd", "use_pallas_lstm", "matmul_precision",
-    "eval_matmul_precision", "epoch_scan_unroll", "prng_impl", "shard_cohort",
+    "eval_matmul_precision", "epoch_scan_unroll", "prng_impl",
     "compilation_cache_dir", "perf_profile", "fused_epoch", "device_data",
     "sci_share_weights",
 )
@@ -67,6 +68,11 @@ class Config:
     # each: 0 = no group, -1 = every visible card, N = N ranks (1 is a
     # one-rank group); with num_processes set, 0, -1 or num_processes
     data_parallel: int = 0
+    # data-parallel ranks store each cohort row-sharded, B/D columns of
+    # every batch block a rank, and re-lay it out once an epoch with one
+    # all_to_all (`parallel.cohort`); False: every rank holds the whole
+    # cohort. The results are the same bits either way.
+    shard_cohort: bool = True
     # cooperating processes, one rank each (0 = single-process), this
     # process's rank, and rank 0's "host:port" (empty: torchrun's env://)
     num_processes: int = 0
@@ -162,7 +168,10 @@ class Config:
     # bit width of the random draws of the fake sample and the
     # augmentation: 16 draws 16-bit select keys, float16 noise and normals
     rng_draw_bits: int = 32
-    # the forward's compute dtype: the port computes in float32 only
+    # the train step's forward dtype: "bfloat16" runs it on bfloat16 copies
+    # of the float parameters and batch planes (the kernels compute float32
+    # inside); gradients, optimizer state and BatchNorm statistics stay
+    # float32, and eval forwards and dumps run in float32
     compute_dtype: str = "float32"
 
     # ---- K selection (p2) ---------------------------------------------
@@ -221,6 +230,7 @@ class Config:
         "stopping_mode": ("delta", "count", "patience"),
         "kmeans_impl": ("device", "sklearn"),
         "dbscan_impl": ("device", "sklearn"),
+        "compute_dtype": ("float32", "bfloat16"),
     }
     _MIN_ONE = ("eval_interval", "batch_size", "num_timestamps", "max_epochs")
 
@@ -232,9 +242,6 @@ class Config:
         for name in self._MIN_ONE:
             if getattr(self, name) < 1:
                 raise ValueError(f"Config.{name}={getattr(self, name)} must be >= 1")
-        if self.compute_dtype != "float32":
-            raise ValueError(f"Config.compute_dtype={self.compute_dtype!r}: the port "
-                             f"computes in float32 only")
         if self.data_parallel < -1:
             raise ValueError(f"Config.data_parallel={self.data_parallel} must be >= -1")
         if self.k_max < 2:  # the K sweeps run 2..k_max
@@ -252,10 +259,6 @@ class Config:
         if unknown:
             raise ValueError(f"Config: unknown fields {unknown}")
         ignored = sorted(k for k in d if k in _IGNORED)
-        if "shard_cohort" in ignored:
-            log.info("Config: shard_cohort is not ported: each data-parallel rank keeps "
-                     "the whole cohort on its device (the JAX shard_cohort=False path, "
-                     "with the same results)")
         if ignored:
             log.info("Config: ignoring fields the port does not read: %s",
                      ", ".join(ignored))

@@ -104,8 +104,9 @@ def make_fake_ob(
     `bits` ((B, C, T) int32 bit patterns) and `noise` ((B, C, T) in [0, 1))
     are drawn from `generator` unless given; `draw_bits_width=16` draws
     16-bit keys and float16 noise (the JAX `draw_bits=16`). The noise is
-    converted to `ob`'s type. The select is the kernel of
-    `ops/cuda_select.py` on the card (`use_kernel=False`: its plain version).
+    float32, as in JAX, so a bfloat16 `ob` comes back float32. The select
+    is the kernel of `ops/cuda_select.py` on the card (`use_kernel=False`:
+    its plain version).
     """
     n_valid = torch.sum(padding_mask, dim=2).to(torch.int32)  # (B, C)
     num_perm = torch.where(n_valid > 0, torch.clamp(n_valid // 2, min=1),
@@ -115,7 +116,7 @@ def make_fake_ob(
     if noise is None:
         noise = torch.rand(ob.shape, generator=generator, device=ob.device,
                            dtype=draw_dtype(draw_bits_width))
-    noise = noise.to(ob.dtype)
+    noise = noise.to(torch.float32)
     selected = fake_select_mask(bits, n_valid, num_perm, use_kernel=use_kernel)
     if scale != 0:
         noise = noise * scale - scale / 2
@@ -134,11 +135,12 @@ def augment_batch(
     """Gaussian train-time jitter on observations (std `ob_std`) and
     timestamps (std 0.01), re-masked (reference dataloader.py:196-217).
     `noise` is the (2, B, C, T) standard normal draw, drawn if not given
-    (in float16 with `draw_bits_width=16`) and converted to `ob`'s type."""
+    (in float16 with `draw_bits_width=16`) and converted to float32, as in
+    JAX (a bfloat16 `ob` comes back float32)."""
     if noise is None:
         noise = torch.randn((2,) + tuple(ob.shape), generator=generator,
                             device=ob.device, dtype=draw_dtype(draw_bits_width))
-    noise = noise.to(ob.dtype)
+    noise = noise.to(torch.float32)
     ob_n = (ob + noise[0] * ob_std) * padding_mask
     ts_n = (timestamp + noise[1] * 0.01) * padding_mask
     return ob_n, ts_n

@@ -15,6 +15,13 @@ exclusive config flags because the Pallas forward carries its own XLA-replay
 VJP; PyTorch needs no such split.) `RBFFunction` runs K4 forward and takes
 its backward by PyTorch autodiff of the plain formula, as the JAX package
 takes XLA autodiff of `_rbf_jnp_reference`.
+
+The kernels and their plain versions take float32 only. `sci` and
+`rbf_push` upcast every float input (the bfloat16 `compute_dtype`) outside
+the autograd functions, so the backward kernel sees float32 cotangents and
+the gradient of a bfloat16 input comes back bfloat16, and cast the output to
+the inputs' common type, which is the type the JAX functions return; the
+reference grid is float32.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from . import _cuda_build as cb
 from .interpolation import TRANSIENT_KAPPA, reference_times
-from .numerics import softplus
+from .numerics import result_type, softplus
 from .rbf import RBF_NORM_EPS
 
 _MAX_REF_POINTS = 8  # the kernels unroll R up to this
@@ -278,15 +285,24 @@ class RBFFunction(torch.autograd.Function):
 
 
 # ------------------------------------------------------------ public entries
+def _float32(*xs: torch.Tensor):
+    """The inputs upcast to float32, and their common type (the output's)."""
+    return [x.to(torch.float32) for x in xs], result_type(*xs)
+
+
 def sci(kernel: torch.Tensor, ob: torch.Tensor, mask: torch.Tensor,
         ts: torch.Tensor, ref_points: int, hours_look_ahead: float) -> torch.Tensor:
-    """SCI of one stream through K2/K3 -> (B, R, 3C)."""
-    ref_t = reference_times(ref_points, hours_look_ahead, ob.dtype, ob.device)
-    return SCIFunction.apply(kernel, ob, mask, ts, ref_t)
+    """SCI of one stream through K2/K3 -> (B, R, 3C), in the inputs' common
+    type (computed in float32)."""
+    ins, dtype = _float32(kernel, ob, mask, ts)
+    ref_t = reference_times(ref_points, hours_look_ahead, torch.float32, ob.device)
+    return SCIFunction.apply(*ins, ref_t).to(dtype)
 
 
 def rbf_push(kernel: torch.Tensor, proj: torch.Tensor, mask: torch.Tensor,
              ts: torch.Tensor, ref_points: int, hours_look_ahead: float) -> torch.Tensor:
-    """Gaussian RBF push through K4 -> (B, C, T)."""
-    ref_t = reference_times(ref_points, hours_look_ahead, ts.dtype, ts.device)
-    return RBFFunction.apply(kernel, proj, mask, ts, ref_t)
+    """Gaussian RBF push through K4 -> (B, C, T), in the inputs' common type
+    (computed in float32)."""
+    ins, dtype = _float32(kernel, proj, mask, ts)
+    ref_t = reference_times(ref_points, hours_look_ahead, torch.float32, ts.device)
+    return RBFFunction.apply(*ins, ref_t).to(dtype)

@@ -8,7 +8,11 @@ The interface is the JAX `bilstm_recurrence_pallas`'s: pre-projected gates
 `xg_f`, `xg_b` (T, B, 4H), the backward direction not flipped; `w_hhT`
 (2, H, 4H); `b_hh` (2, 4H); `h0`, `c0` (2, B, H) -> `ys_f`, `ys_b`, `cs_f`,
 `cs_b` (T, B, H), time-aligned. Gate order [i|f|g|o]; gates
-`(xg + h W_hh^T) + b_hh` in that association order. float32 only.
+`(xg + h W_hh^T) + b_hh` in that association order. The kernels and their
+plain versions take float32 only; `bilstm_recurrence` upcasts other float
+inputs (the bfloat16 `compute_dtype`) at its boundary and casts the outputs
+to the caller's type, as the JAX `bilstm_forward` does around its Pallas
+pair (`ops/lstm.py:84-99`).
 
 The plain forward is the step loop of the port's `ops/lstm.py`; the plain
 backward is PyTorch autograd of it. `LSTMRecurrence` holds the kernel pair
@@ -23,7 +27,7 @@ gates differ from B6's by float32 rounding.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -245,9 +249,17 @@ class LSTMRecurrence(torch.autograd.Function):
 
 
 def bilstm_recurrence(xgf: torch.Tensor, xgb: torch.Tensor, w_hhT: torch.Tensor,
-                      b_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor
+                      b_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
+                      out_dtype: Optional[torch.dtype] = None, use_kernel: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The recurrence through B6/B7 (plain versions for CPU tensors). The
-    inputs are made contiguous: the decoder's `h0`/`c0` are slices of the
-    encoder's state."""
-    return LSTMRecurrence.apply(*(a.contiguous() for a in (xgf, xgb, w_hhT, b_hh, h0, c0)))
+    """The recurrence through B6/B7 (plain versions for CPU tensors;
+    `use_kernel=False`: the plain forward on any device, autograd its
+    backward). Every input is upcast to float32 outside the autograd
+    function, so the kernels see float32 values and cotangents and the
+    gradient of a bfloat16 input comes back bfloat16; the outputs are cast
+    to `out_dtype` (default `xgf`'s type). The inputs are made contiguous:
+    the decoder's `h0`/`c0` are slices of the encoder's state."""
+    out_dtype = out_dtype or xgf.dtype
+    ins = [a.to(torch.float32).contiguous() for a in (xgf, xgb, w_hhT, b_hh, h0, c0)]
+    outs = LSTMRecurrence.apply(*ins) if use_kernel else recurrence_plain(*ins)
+    return tuple(o.to(out_dtype) for o in outs)

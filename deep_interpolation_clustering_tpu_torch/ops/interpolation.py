@@ -19,7 +19,7 @@ from typing import List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
-from .numerics import logsumexp, softplus
+from .numerics import logsumexp, matmul, softplus
 
 # kappa: sharpening factor of the transient (high-pass) channel
 # (reference interpolation_layer.py:71,80)
@@ -135,6 +135,6 @@ def cci_forward(kernel: torch.Tensor, rep: torch.Tensor) -> torch.Tensor:
     w_sm = torch.exp(w - den)
 
     mean = torch.mean(y, dim=1, keepdim=True)  # per-channel time mean (:111-112)
-    smooth = torch.matmul(w_sm * (y - mean), kernel) + mean  # (:113)
+    smooth = matmul(w_sm * (y - mean), kernel) + mean  # (:113)
     y_trans = y_trans_in - smooth  # residual high-pass (:122-123)
     return torch.cat([smooth, intensity, y_trans], dim=-1)

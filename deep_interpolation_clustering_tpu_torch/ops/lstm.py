@@ -1,8 +1,9 @@
 """Bidirectional one-layer LSTM (counterpart of the JAX
 `ops/lstm.py::bilstm_forward`).
 
-The input projections `x W_ih^T + b_ih` are `torch.matmul`, hoisted out of
-the recurrence as the JAX package hoists them. The recurrence itself, both
+The input projections `x W_ih^T + b_ih` are one product each, hoisted out
+of the recurrence as the JAX package hoists them (in the operands' common
+type, `numerics.matmul`). The recurrence itself, both
 directions over the R=6 reference points, is `ops/cuda_lstm.py`: on the card
 the hand-written kernels B6 (forward) and B7 (backward) whenever the step's
 `use_kernels` is on, as for the other kernels. The JAX config's
@@ -23,6 +24,7 @@ from torch import nn
 
 from . import cuda_lstm
 from .nn import uniform_
+from .numerics import matmul
 
 
 class LSTMWeights(nn.Module):
@@ -65,22 +67,22 @@ def bilstm_forward(
 
     Returns `(output (T, B, 2H), hidden (2, B, H), cell (2, B, H))` in
     torch's layout: output concatenates [fwd, bwd] per step, time-aligned;
-    hidden/cell stack the final state of each direction (fwd first).
+    hidden/cell stack the final state of each direction (fwd first), all in
+    `x`'s type (the recurrence computes in float32, JAX `ops/lstm.py:84-99`).
     `(h0, c0)`, each `(2, B, H)`, seed the two directions.
     `use_kernel=False` takes the plain recurrence on any device.
     """
     w_ih_f, w_hh_f, b_ih_f, b_hh_f = weights.direction(reverse=False)
     w_ih_b, w_hh_b, b_ih_b, b_hh_b = weights.direction(reverse=True)
     # input projections hoisted out of the recurrence
-    xg_f = torch.matmul(x, w_ih_f.T) + b_ih_f  # (T, B, 4H)
-    xg_b = torch.matmul(x, w_ih_b.T) + b_ih_b
+    xg_f = matmul(x, w_ih_f.T) + b_ih_f  # (T, B, 4H)
+    xg_b = matmul(x, w_ih_b.T) + b_ih_b
     w_hhT = torch.stack([w_hh_f.T, w_hh_b.T])  # (2, H, 4H)
     b_hh = torch.stack([b_hh_f, b_hh_b])
     zeros = x.new_zeros((2, x.shape[1], weights.hidden))
-    recurrence = cuda_lstm.bilstm_recurrence if use_kernel else cuda_lstm.recurrence_plain
-    ys_f, ys_b, cs_f, cs_b = recurrence(xg_f, xg_b, w_hhT, b_hh,
-                                        zeros if h0 is None else h0,
-                                        zeros if c0 is None else c0)
+    ys_f, ys_b, cs_f, cs_b = cuda_lstm.bilstm_recurrence(
+        xg_f, xg_b, w_hhT, b_hh, zeros if h0 is None else h0, zeros if c0 is None else c0,
+        out_dtype=x.dtype, use_kernel=use_kernel)
     output = torch.cat([ys_f, ys_b], dim=-1)
     # final states: the fwd stream ends at T-1, the bwd stream at 0
     return output, torch.stack([ys_f[-1], ys_b[0]]), torch.stack([cs_f[-1], cs_b[0]])

@@ -13,6 +13,11 @@ then the masked squared deviations give the variance), so the running
 statistics are the same on every rank; dropout draws its mask at the
 global shape from the generator every rank seeds alike and keeps the
 rank's rows. In a world of one the single-device code runs unchanged.
+
+Under the bfloat16 `compute_dtype` a product of mixed operands takes their
+common type, as `jnp` gives it (`numerics.matmul`), and the dropout mask is
+drawn from a float32 uniform whatever the input's type, so that a bfloat16
+step draws the float32 step's masks.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from .. import parallel
+from .numerics import matmul
 
 BN_EPS = 1e-5  # torch BatchNorm1d default
 BN_MOMENTUM = 0.1  # torch BatchNorm1d default
@@ -51,7 +57,7 @@ class Linear(nn.Module):
         uniform_(self.bias, -bound, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight.T + self.bias
+        return matmul(x, self.weight.T) + self.bias
 
 
 class BatchNorm(nn.Module):
@@ -129,11 +135,10 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
         raise ValueError("dropout in train mode needs an explicit generator")
     d = parallel.world_size()
     if d == 1:
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=x.dtype) < 1.0 - rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     else:
         u = torch.rand((d * x.shape[0],) + tuple(x.shape[1:]), generator=generator,
-                       device=x.device, dtype=x.dtype)
+                       device=x.device)
         keep = parallel.segment_rows(u, segments or [x.shape[0]]) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
@@ -211,10 +216,11 @@ def heads_apply_fused(
     x_cat = torch.cat(xs, dim=0)  # (N, in)
     w1 = torch.cat([fc1.weight for fc1 in fc1s], dim=0)
     b1 = torch.cat([fc1.bias for fc1 in fc1s])
-    hid = x_cat @ w1.T + b1  # (N, HS)
+    hid = matmul(x_cat, w1.T) + b1  # (N, HS)
 
     if train:
-        seg = torch.zeros((len(heads), row_off[-1]), dtype=hid.dtype, device=hid.device)
+        # float32, as JAX builds it: under bfloat16 the sums come out float32
+        seg = torch.zeros((len(heads), row_off[-1]), dtype=torch.float32, device=hid.device)
         for i in range(len(heads)):
             seg[i, row_off[i]:row_off[i + 1]] = 1.0
         masks = [m for _, _, m in heads]
@@ -227,10 +233,10 @@ def heads_apply_fused(
         if parallel.world_size() > 1:
             counts = [parallel.all_sum(c) if isinstance(c, torch.Tensor)
                       else c * parallel.world_size() for c in counts]
-        sums = parallel.all_sum_grad(seg @ hid)  # (heads, HS): each head's column sums
+        sums = parallel.all_sum_grad(matmul(seg, hid))  # (heads, HS): each head's column sums
         mean_blocks = [sums[i, cols[i]:cols[i + 1]] / counts[i] for i in range(len(heads))]
         mean_vec = torch.cat(mean_blocks)
-        sq = parallel.all_sum_grad(seg @ torch.square(hid - mean_vec))
+        sq = parallel.all_sum_grad(matmul(seg, torch.square(hid - mean_vec)))
         var_blocks = [sq[i, cols[i]:cols[i + 1]] / counts[i] for i in range(len(heads))]
         var_vec = torch.cat(var_blocks)
         with torch.no_grad():
@@ -259,5 +265,5 @@ def heads_apply_fused(
 
     w2 = torch.block_diag(*[fc2.weight.T for fc2 in fc2s])  # (HS, OS)
     b2 = torch.cat([fc2.bias for fc2 in fc2s])
-    out = y @ w2 + b2  # (N, OS)
+    out = matmul(y, w2) + b2  # (N, OS)
     return [out[row_off[i]:row_off[i + 1], outs[i]:outs[i + 1]] for i in range(len(heads))]

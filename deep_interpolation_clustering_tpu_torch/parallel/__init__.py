@@ -1,10 +1,14 @@
 """Data-parallel and multi-process runs on `torch.distributed`
 (counterpart of the JAX `parallel/`): the world of ranks and its
-collectives (`mesh`), process groups and their launch (`multihost`).
-Row-sharded cohort storage (the JAX `parallel/cohort.py`) is not ported:
-every rank keeps the whole cohort on its device."""
+collectives (`mesh`), process groups and their launch (`multihost`), and
+row-sharded cohort storage (`cohort.ShardedCohort`, the JAX
+`parallel/cohort.py`): with `shard_cohort` each rank stores its B/D columns
+of every batch and the trainers re-lay the storage out once an epoch."""
 
+from .cohort import ShardedCohort
 from .mesh import (
+    all_max,
+    all_min,
     all_sum,
     all_sum_grad,
     all_sum_grads_,
@@ -18,6 +22,7 @@ from .mesh import (
     replicated,
     segment_rows,
     shard_rows,
+    take_rows,
     world_size,
 )
 from .multihost import (
@@ -32,6 +37,9 @@ from .multihost import (
 )
 
 __all__ = [
+    "ShardedCohort",
+    "all_max",
+    "all_min",
     "all_sum",
     "all_sum_grad",
     "all_sum_grads_",
@@ -53,5 +61,6 @@ __all__ = [
     "shard_rows",
     "shutdown",
     "spawn",
+    "take_rows",
     "world_size",
 ]

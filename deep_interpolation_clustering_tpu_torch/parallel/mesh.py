@@ -17,11 +17,16 @@ code reduces over the batch:
   * a gather of rows with autograd (`gather_rows`), as an `all_reduce` over
     a zero-filled (D, rows, ...) buffer in which each rank fills its own
     slot: exact, since x + 0 = x;
-  * a broadcast from rank 0 (`broadcast_`).
+  * a broadcast from rank 0 (`broadcast_`);
+  * for row-sharded data (p2's latents), rows at global indices fetched
+    from their owners (`take_rows`, the same zero-filled sum) and an
+    elementwise min or max over ranks (`all_min`, `all_max`).
 
-Every collective is an `all_reduce` (sum) or a `broadcast`, which NCCL and
-gloo both offer for CUDA tensors and gloo for CPU tensors, so one code path
-serves NCCL, gloo on the CPU and gloo on ranks that share one card.
+Every collective here is an `all_reduce` (a sum, or p2's min and max) or a
+`broadcast`, which NCCL and gloo both offer for CUDA tensors and gloo for
+CPU tensors, so one code path serves NCCL, gloo on the CPU and gloo on
+ranks that share one card (`cohort` adds the epoch relayout's
+`all_to_all_single`).
 
 Without a process group, or in a group of one rank, `world_size()` is 1 and
 every helper returns its input: the single-device code runs unchanged, bit
@@ -61,14 +66,18 @@ def shard_rows(n: int) -> slice:
     return slice(r * k, (r + 1) * k)
 
 
-def all_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over ranks, detached from autograd (`t` itself in a
-    world of one)."""
+def _all_reduce(t: torch.Tensor, op) -> torch.Tensor:
     if world_size() == 1:
         return t
     out = t.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out)
+    dist.all_reduce(out, op=op)
     return out
+
+
+def all_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over ranks, detached from autograd (`t` itself in a
+    world of one)."""
+    return _all_reduce(t, dist.ReduceOp.SUM)
 
 
 class _AllSum(torch.autograd.Function):
@@ -155,6 +164,31 @@ def segment_rows(t: torch.Tensor, counts: Sequence[int]) -> torch.Tensor:
         parts.append(t[off + r * n: off + (r + 1) * n])
         off += n * d
     return torch.cat(parts)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows at global indices `idx` (any shape) of a row-sharded array
+    whose rank r holds rows [r*n, (r+1)*n) as `x` (n, ...): each rank fills
+    the rows it holds into a zero buffer and the buffers are summed, which
+    is exact. `x[idx]` itself in a world of one."""
+    if world_size() == 1:
+        return x[idx]
+    n = x.shape[0]
+    local = idx - rank() * n
+    mine = (local >= 0) & (local < n)
+    out = torch.zeros(tuple(idx.shape) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[mine] = x[local[mine]]
+    return all_sum(out)
+
+
+def all_min(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise minimum of `t` over ranks."""
+    return _all_reduce(t, dist.ReduceOp.MIN)
+
+
+def all_max(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of `t` over ranks."""
+    return _all_reduce(t, dist.ReduceOp.MAX)
 
 
 def all_sum_grads_(params: Iterable[torch.nn.Parameter]) -> None:

@@ -13,6 +13,16 @@ draws; the fake/real permutation stays global. The losses a rank computes
 are its shares (`models.losses`); `update` sums the gradients over ranks
 before the global-norm clip, so every rank takes the same optimizer step,
 and `update` and `eval_step` return the global losses.
+
+`compute_dtype="bfloat16"` (the JAX `_compute_cast`): `train_step` casts the
+batch's float planes and `update` runs the forward on bfloat16 copies of
+the float parameters, made through autograd, so the gradients land float32
+on the float32 parameters; the losses come back float32, the BatchNorm
+running statistics stay float32 buffers, and the clip and the optimizer
+run in float32. Mixed operands then meet as in JAX: the fake stream's
+`ob` is float32 (float32 noise in a bfloat16 plane), so at the default
+Config the encoder, decoder and heads compute in float32 against bfloat16
+weights. Eval forwards and dumps stay float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -153,13 +163,41 @@ def build_inputs(
     return out
 
 
+def compute_dtype(cfg: Config) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def cast_batch(cfg: Config, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The batch's float planes in `cfg.compute_dtype` (the batch itself
+    under float32)."""
+    dtype = compute_dtype(cfg)
+    if dtype == torch.float32:
+        return batch
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+
+
+def compute_params(net: Net, cfg: Config) -> Optional[Dict[str, torch.Tensor]]:
+    """The float parameters cast to `cfg.compute_dtype` through autograd, by
+    name, for `torch.func.functional_call`; None under float32."""
+    dtype = compute_dtype(cfg)
+    if dtype == torch.float32:
+        return None
+    return {n: p.to(dtype) if p.is_floating_point() else p
+            for n, p in net.named_parameters()}
+
+
 def forward_and_losses(net: Net, cfg: Config, inputs: Dict[str, Any], train: bool,
-                       generator: Optional[torch.Generator], use_kernels: bool = True):
-    net_out = net(
-        inputs["x"], inputs["fake_x"], inputs["fake_perm_idx"], inputs["positive_x"],
-        train=train, generator=generator, sample_mask=inputs["sample_mask"],
-        use_kernels=use_kernels,
-    )
+                       generator: Optional[torch.Generator], use_kernels: bool = True,
+                       params: Optional[Dict[str, torch.Tensor]] = None):
+    """The forward and the losses; with `params`, the forward runs on those
+    tensors in place of the net's parameters (the buffers stay the net's)."""
+    args = (inputs["x"], inputs["fake_x"], inputs["fake_perm_idx"], inputs["positive_x"])
+    kwargs = dict(train=train, generator=generator, sample_mask=inputs["sample_mask"],
+                  use_kernels=use_kernels)
+    if params is None:
+        net_out = net(*args, **kwargs)
+    else:
+        net_out = torch.func.functional_call(net, params, args, kwargs, strict=False)
     losses = compute_losses(
         cfg, inputs["ob"], inputs["padding_mask"], net_out, inputs["aux_label"],
         inputs["future_vital_mask"], inputs["fake_det_label"],
@@ -171,12 +209,16 @@ def forward_and_losses(net: Net, cfg: Config, inputs: Dict[str, Any], train: boo
 def update(net: Net, opt: torch.optim.Optimizer, cfg: Config, inputs: Dict[str, Any],
            generator: Optional[torch.Generator], use_kernels: bool = True
            ) -> Dict[str, torch.Tensor]:
-    """forward -> losses -> backward -> global-norm clip -> optimizer step.
-    `generator` draws the dropout masks. Returns the detached losses.
+    """forward (in `cfg.compute_dtype`) -> losses -> backward -> global-norm
+    clip -> optimizer step. `inputs` are `build_inputs` of the batch in the
+    compute dtype (`train_step` casts it). `generator` draws the dropout
+    masks. Returns the detached float32 losses.
     `use_kernels=False` runs the plain versions of every kernel, on any
     device (how `chip_smoke.py` holds the kernels' step against a plain one)."""
     opt.zero_grad(set_to_none=True)
-    _, losses = forward_and_losses(net, cfg, inputs, True, generator, use_kernels)
+    _, losses = forward_and_losses(net, cfg, inputs, True, generator, use_kernels,
+                                   compute_params(net, cfg))
+    losses = {k: v.to(torch.float32) for k, v in losses.items()}
     losses["loss"].backward()
     parallel.all_sum_grads_(net.parameters())
     if cfg.grad_clip and cfg.grad_clip > 0:
@@ -198,8 +240,9 @@ def global_losses(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def train_step(net: Net, opt: torch.optim.Optimizer, cfg: Config,
                batch: Dict[str, torch.Tensor], generator: torch.Generator,
                denoise: bool = False) -> Dict[str, torch.Tensor]:
-    """One training step on a batch."""
-    inputs = build_inputs(cfg, batch, generator, True, denoise)
+    """One training step on a batch (its float planes cast to
+    `cfg.compute_dtype` first)."""
+    inputs = build_inputs(cfg, cast_batch(cfg, batch), generator, True, denoise)
     return update(net, opt, cfg, inputs, generator)
 
 

@@ -18,9 +18,15 @@ A step's losses stay on the device until its epoch ends; the host fetches
 them then, and every `log_*_freq` batches for the log, as JAX does.
 
 Data-parallel (`parallel.world_size()` D > 1, one rank a device): every
-rank holds the whole cohort (the JAX `shard_cohort=False` path), shuffles
-it alike (`RandomState(seed + epoch)`) and takes its B/D rows of each
-global batch, the padded tail's included; the step's draws, moments,
+rank shuffles alike (`RandomState(seed + epoch)`) and takes its B/D rows of
+each global batch, the padded tail's included. With `shard_cohort` (the
+default, as in JAX) a rank stores only those rows of each cohort
+(`parallel.cohort.ShardedCohort`, cohort/D bytes a rank): the training
+cohort is re-laid out into the epoch's order once an epoch (one
+`all_to_all` a plane) and each step slices its block, and an eval pass
+reads the cohort in its identity order; with `shard_cohort=False` every
+rank holds the whole cohort and gathers its rows each step. Both give the
+same bits; the step's draws, moments,
 losses and gradient sum are global ones (`steps`), so the ranks take the
 same step and hold the same weights, which `train_one_epoch` checks bit
 for bit at each epoch's end. Rank 0's weights are broadcast at start. An
@@ -48,6 +54,7 @@ from ..config import Config
 from ..data.loader import ArrayDataset
 from ..info import COHORT2SCOPE, METRICS, MIN_MAX_VALUES
 from ..models.net import Net
+from ..parallel.cohort import ShardedCohort
 from ..utils.device import resolve_device
 from ..utils.logging import logger, timer
 from . import checkpoint as ckpt
@@ -55,7 +62,9 @@ from .optim import LRSchedule, make_optimizer, set_learning_rate
 from .steps import eval_step, gather_batch, train_step
 from .summary import Summary
 
-Batch = Tuple[torch.Tensor, Optional[torch.Tensor]]
+# (rows, sample mask): the rows are an index tensor into the replicated
+# cohort, or with a sharded cohort the block's number
+Batch = Tuple[Union[torch.Tensor, int], Optional[torch.Tensor]]
 
 
 class Trainer:
@@ -87,6 +96,9 @@ class Trainer:
         # batch draws (fake select bits and noise, permutation, dropout)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self._cohorts: Dict[str, Dict[str, torch.Tensor]] = {}
+        # the JAX `_shard_cohort`: row-sharded storage on a group of ranks
+        self.shard_cohort = self.world > 1 and cfg.shard_cohort
+        self._blocks: Dict[str, ShardedCohort] = {}
         self.epoch = 1
         self.flag_dict = ckpt.FlagDict(METRICS)
         self.weight_paths = ckpt.weight_dirs(os.path.join(exp_path, "weight"), METRICS,
@@ -95,19 +107,49 @@ class Trainer:
         if self.main:
             cfg.save(exp_path)
         n_train = len(datasets["training"]) if "training" in datasets else 0
-        if n_train:
-            self.cohort_data("training")  # uploaded once, kept on the device
+        if n_train:  # uploaded once, kept on the device
+            if self.shard_cohort:
+                self.cohort_blocks("training")
+            else:
+                self.cohort_data("training")
         n_params = sum(p.numel() for p in self.net.parameters())
         logger.info("trainable params: %d; train samples: %d; ratio %.3f",
                     n_params, n_train, n_params / max(n_train, 1))
 
     def cohort_data(self, cohort: str) -> Dict[str, torch.Tensor]:
+        """The whole cohort on the device (the replicated storage)."""
         if cohort not in self._cohorts:
             self._cohorts[cohort] = {
                 k: torch.as_tensor(v, device=self.device)
                 for k, v in self.datasets[cohort].arrays().items()
             }
         return self._cohorts[cohort]
+
+    def cohort_blocks(self, cohort: str) -> ShardedCohort:
+        """This rank's row-sharded storage of the cohort, made once (JAX
+        `_cohort_block_data`)."""
+        if cohort not in self._blocks:
+            arrays = self.datasets[cohort].arrays()
+            blocks = ShardedCohort(arrays, self.cfg.batch_size, self.device)
+            whole = sum(v.nbytes for v in arrays.values())
+            logger.info("cohort '%s' row-sharded over %d ranks: %d bytes (%.1f MB) a rank, "
+                        "%d bytes (%.1f MB) in all, which each rank holds replicated "
+                        "(rank %d)", cohort, self.world, blocks.nbytes_per_device(),
+                        blocks.nbytes_per_device() / 2**20, whole, whole / 2**20,
+                        parallel.rank())
+            self._blocks[cohort] = blocks
+        return self._blocks[cohort]
+
+    def _relayout(self, blocks: ShardedCohort, order: np.ndarray, what: str) -> None:
+        """`blocks.ensure(order)`, its seconds logged when it moved storage."""
+        if np.array_equal(order, blocks.order):
+            return
+        t0 = time.perf_counter()
+        blocks.ensure(order)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        logger.info("cohort relayout for %s in %.4f s (rank %d of %d)", what,
+                    time.perf_counter() - t0, parallel.rank(), self.world)
 
     # ------------------------------------------------------------- train
     def train(self) -> Dict[str, float]:
@@ -139,16 +181,26 @@ class Trainer:
         return last_valid
 
     def _epoch_batches(self, epoch: int) -> List[Batch]:
-        """The epoch's shuffled batches as (index tensor, sample mask) on the
+        """The epoch's shuffled batches as (rows, sample mask) on the
         device, this rank's rows of each. Full batches have no mask; a short
         final batch is padded to the batch size by cyclically repeating its
         real rows (`parallel.pad_batch_to`: finite values everywhere, as the
-        JAX `_tail_train_step`), its mask 1 on them."""
+        JAX `_tail_train_step`), its mask 1 on them. A sharded cohort is
+        first re-laid out into the epoch's order; its batches are then the
+        block numbers (the tail block holds the same padded rows)."""
         n, bs = len(self.datasets["training"]), self.cfg.batch_size
         order = np.arange(n)
         np.random.RandomState(self.cfg.seed + epoch).shuffle(order)
         n_full = n // bs * bs
         rows = parallel.shard_rows(bs)
+        if self.shard_cohort:
+            blocks = self.cohort_blocks("training")
+            self._relayout(blocks, blocks.epoch_order(order), f"epoch {epoch}")
+            sharded: List[Batch] = [(k, None) for k in range(n_full // bs)]
+            if n_full < n:
+                sharded.append((n_full // bs, torch.as_tensor(blocks.tail_mask()[rows],
+                                                              device=self.device)))
+            return sharded
         idx = torch.as_tensor(order[:n_full], device=self.device)
         batches: List[Batch] = [(i[rows], None) for i in idx.reshape(-1, bs)]
         if n_full < n:
@@ -157,11 +209,15 @@ class Trainer:
                             torch.as_tensor(tail["sample_mask"][rows], device=self.device)))
         return batches
 
-    def step(self, idx: torch.Tensor, sample_mask: Optional[torch.Tensor] = None
+    def step(self, idx: Union[torch.Tensor, int], sample_mask: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        """One train step on the encounters `idx`; `sample_mask` (B,) leaves
-        the padded rows of a tail batch out of the losses and BatchNorm."""
-        batch = gather_batch(self.cohort_data("training"), idx)
+        """One train step on the encounters `idx` (with a sharded cohort,
+        the block `idx`); `sample_mask` (B,) leaves the padded rows of a
+        tail batch out of the losses and BatchNorm."""
+        if self.shard_cohort:
+            batch = self.cohort_blocks("training").block(idx)
+        else:
+            batch = gather_batch(self.cohort_data("training"), idx)
         if sample_mask is not None:
             batch["sample_mask"] = sample_mask
         losses = train_step(self.net, self.opt, self.cfg, batch, self.generator,
@@ -238,22 +294,33 @@ class Trainer:
         `eval_one_epoch`); the dumps ({key: [array]} with `__index__`) hold
         exactly the cohort's N rows. One fetch at the end; with
         `device_dumps` the dumps stay on the device as tensors (for a
-        consumer that runs there: p3's k-means and label delta)."""
+        consumer that runs there: p3's k-means and label delta). A sharded
+        cohort is read in its identity order (JAX `ensure(identity_order())`),
+        the last block's padding masked by `eval_mask`."""
         cfg = self.cfg
-        data = self.cohort_data(ds.cohort)
         n, b = len(ds), cfg.batch_size
         n_batches = ds.num_batches(b)
         rows = parallel.shard_rows(b)
+        if self.shard_cohort:
+            blocks = self.cohort_blocks(ds.cohort)
+            self._relayout(blocks, blocks.identity_order(), f"{scope} eval")
+        else:
+            data = self.cohort_data(ds.cohort)
         pending = []
         for i in range(1, n_batches + 1):
             start = (i - 1) * b
             idx = np.arange(start, min(start + b, n))
             mask = None
-            if len(idx) < b:
-                padded, _ = parallel.pad_batch_to({"idx": idx}, b)
-                idx = padded["idx"]
-                mask = torch.as_tensor(padded["sample_mask"][rows], device=self.device)
-            batch = gather_batch(data, torch.as_tensor(idx[rows], device=self.device))
+            if self.shard_cohort:
+                if len(idx) < b:
+                    mask = torch.as_tensor(blocks.eval_mask[i - 1][rows], device=self.device)
+                batch = blocks.block(i - 1)
+            else:
+                if len(idx) < b:
+                    padded, _ = parallel.pad_batch_to({"idx": idx}, b)
+                    idx = padded["idx"]
+                    mask = torch.as_tensor(padded["sample_mask"][rows], device=self.device)
+                batch = gather_batch(data, torch.as_tensor(idx[rows], device=self.device))
             losses, outputs = eval_step(self.net, cfg, batch, self.generator, denoise,
                                         mask, dump_keys)
             pending.append((losses, outputs))

@@ -77,10 +77,16 @@ def test_config_dec_fields_load_from_a_jax_config(tmp_path, caplog):
 
 
 def test_config_compute_dtype_other_than_float32_raises(tmp_path):
-    with pytest.raises(ValueError, match="float32 only"):
-        Config.load(JConfig(compute_dtype="bfloat16").save(str(tmp_path / "bf16")))
-    with pytest.raises(ValueError, match="float32 only"):
-        Config(compute_dtype="bfloat16")
+    """A JAX bfloat16 config.json loads as bfloat16; a value other than the
+    two the port computes in still raises, naming both."""
+    bf16 = Config.load(JConfig(compute_dtype="bfloat16").save(str(tmp_path / "bf16")))
+    assert bf16.compute_dtype == "bfloat16"
+    assert Config(compute_dtype="bfloat16").compute_dtype == "bfloat16"
+    for other in ("float16", "float64"):
+        with pytest.raises(ValueError, match=r"'float32', 'bfloat16'"):
+            Config(compute_dtype=other)
+    with pytest.raises(ValueError, match=r"'float32', 'bfloat16'"):
+        Config.load(JConfig(compute_dtype="float16").save(str(tmp_path / "f16")))
     assert Config.load(JConfig().save(str(tmp_path / "f32"))).compute_dtype == "float32"
     for bad in (dict(stopping_mode="never"), dict(kmeans_impl="gpu")):
         with pytest.raises(ValueError):

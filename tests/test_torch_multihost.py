@@ -317,12 +317,6 @@ def test_p1_rejects_a_world_it_cannot_make(tmp_path, monkeypatch, argv, match):
     assert os.listdir(tmp_path) == []
 
 
-def test_p2_row_sharding_is_not_ported(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="row-sharding"):
-        p2.main(["--data_parallel", "2"], device="cpu")
-
-
 @pytest.mark.parametrize("local_rank, backend, want", [
     (None, "nccl", 1), ("1", "gloo", 0), ("0", "nccl", 0), ("1", "nccl", None),
 ], ids=["rank_modulo_cards", "gloo_shares", "local_rank", "nccl_past_the_cards"])

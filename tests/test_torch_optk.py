@@ -59,7 +59,8 @@ def same_fits(monkeypatch):
     call count; returns the counts."""
     calls = {"port": 0, "jax": 0}
 
-    def port_fit(generator, x, k, n_init=10):
+    def port_fit(generator, x, k, n_init=10, sharded=False):
+        assert not sharded  # one process: the whole latents
         assert isinstance(generator, torch.Generator) and isinstance(x, torch.Tensor)
         calls["port"] += 1
         return kmeans_fit_sklearn(x.cpu().numpy(), k, n_init=n_init, random_state=calls["port"])

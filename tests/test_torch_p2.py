@@ -73,7 +73,8 @@ def _copy(results, tmp_path, name):
 def same_fits(monkeypatch):
     calls = {"port": 0, "jax": 0}
 
-    def port_fit(generator, x, k, n_init=10):
+    def port_fit(generator, x, k, n_init=10, sharded=False):
+        assert not sharded  # one process: the whole latents
         calls["port"] += 1
         return kmeans_fit_sklearn(x.cpu().numpy(), k, n_init=n_init, random_state=calls["port"])
 
@@ -176,3 +177,28 @@ def test_p2_without_device_raises_when_no_card(p1_run, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         p2.main(SWEEP + ["--results_path", p1_run])
+
+
+def test_p2_data_parallel_two_is_one_process(p1_run, tmp_path, capfd):
+    """`--data_parallel 2`: two gloo CPU ranks, each keeping its block of
+    the latents' rows, with the device k-means on both sides (no injected
+    fits), against one process on the grid latents: `elbow.csv` and
+    `gap_sts_v1.csv` the same text, the suggestions the same."""
+    one, two = _copy(p1_run, tmp_path, "one"), _copy(p1_run, tmp_path, "two")
+    argv = SWEEP + ["--restore_metrics", "ae_mse"]
+    want = p2.main(argv + ["--results_path", one], device="cpu")
+    capfd.readouterr()
+    got = p2.main(argv + ["--results_path", two, "--data_parallel", "2"], device="cpu")
+    logs = capfd.readouterr().err
+    n_train = len(np.load(os.path.join(one, "Pretrain", "out_feat", "ae_mse", "training.npy"),
+                          allow_pickle=True).item()["hidden"])
+    # each rank row-shards the training latents twice (elbow, gap)
+    assert logs.count(f"{n_train} rows row-sharded over 2 ranks: {n_train // 2} a rank") == 4
+    plot = os.path.join("Pretrain", "opt_k", "ae_mse", "plot")
+    assert _tree(os.path.join(one, plot)) == _tree(os.path.join(two, plot))
+    for name in ("elbow.csv", "gap_sts_v1.csv", "gap_sts_v1.csv.fp"):
+        with open(os.path.join(one, plot, name)) as f, open(os.path.join(two, plot, name)) as g:
+            assert f.read() == g.read(), name
+    for method in ("elbow", "gap_sts"):
+        for key in ("elbow_k", "opt_k", "opt_k_argmax"):
+            assert got["ae_mse"][method].get(key) == want["ae_mse"][method].get(key)

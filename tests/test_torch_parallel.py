@@ -13,7 +13,10 @@ Two spawns of two ranks each (`parallel.spawn`, each with a timeout):
     ragged tail that leaves rank 1's share all padding) and an eval pass
     against one process (invariant 1), the ranks bit-identical (invariant
     3), rank 1 writing nothing; then `ClusterTrainer.init_centers` and one
-    DEC epoch (KL and triplet terms) at 2 ranks against one process.
+    DEC epoch (KL and triplet terms) at 2 ranks against one process; then
+    two epochs under `compute_dtype="bfloat16"`, each validated and
+    checkpointed: finite losses, float32 checkpoints that the JAX `Config.load`
+    and checkpoint reader take.
 
 Tolerances (invariant 1, the JAX package's sharded-vs-single band,
 tests/test_trainer.py and tests/test_multihost.py): losses within 1e-5,
@@ -480,6 +483,22 @@ def _dec(cfg, ds, exp, pre):
                 n_changed=n_changed, metrics=metrics, sd=sd)
 
 
+def _bf16(cfg, cohorts, exp):
+    """Two bfloat16 epochs, each validated and checkpointed (rank 0 writes)."""
+    tr = Trainer(cfg, {c: ArrayDataset(cfg, d, c) for c, d in cohorts.items()}, exp,
+                 device="cpu")
+    rows = []
+    for _ in range(2):
+        train = tr.train_one_epoch()
+        valid, _ = tr.eval_one_epoch("valid", tr.datasets["validation"], False, ("hidden",))
+        tr.aly_pred("valid", dict(valid))
+        rows.append((train, valid))
+        tr.epoch += 1
+    dtypes = {str(p.dtype) for p in tr.net.parameters()}
+    tr.close()
+    return dict(rows=rows, dtypes=dtypes)
+
+
 def _trainer_rank(r, address, cohorts, root, pre):
     _world(r, address)
     try:
@@ -490,7 +509,10 @@ def _trainer_rank(r, address, cohorts, root, pre):
         tr.close()
         dec = _dec(dcfg, {c: ArrayDataset(dcfg, d, c) for c, d in cohorts.items()},
                    os.path.join(root, f"p3_rank{r}"), pre)
-        return dict(losses=losses, valid=valid, dumps=dumps, sd=sd, moments=moments, dec=dec)
+        bf16 = _bf16(cfg.replace(compute_dtype="bfloat16"), cohorts,
+                     os.path.join(root, "p1_bf16"))
+        return dict(losses=losses, valid=valid, dumps=dumps, sd=sd, moments=moments, dec=dec,
+                    bf16=bf16)
     finally:
         parallel.shutdown()
 
@@ -570,3 +592,28 @@ def test_dec_init_centers_and_epoch_two_ranks(trainer_run):
     _running_band(a["sd"], one["sd"])
     for k in a["sd"]:
         np.testing.assert_array_equal(a["sd"][k], b["sd"][k], err_msg=k)
+
+
+def test_bf16_epochs_two_ranks_write_float32_checkpoints(trainer_run):
+    from deep_interpolation_clustering_tpu import Config as JConfig
+    from deep_interpolation_clustering_tpu.train.checkpoint import load_checkpoint
+
+    a, b = (o["bf16"] for o in trainer_run["ranks"])
+    assert a["rows"] == b["rows"] and len(a["rows"]) == 2
+    assert all(np.isfinite(v) for row in a["rows"] for part in row for v in part.values())
+    assert a["dtypes"] == {"torch.float32"}
+    exp = os.path.join(trainer_run["root"], "p1_bf16")
+    assert JConfig.load(os.path.join(exp, "config.json")).compute_dtype == "bfloat16"
+    for metric in ("loss", "ae_mse"):
+        _, params, state, _, _ = load_checkpoint(os.path.join(exp, "weight", metric,
+                                                              "checkpoint.npz"))
+        leaves = [np.asarray(v) for v in _leaves((params, state))]
+        assert leaves and {v.dtype for v in leaves} == {np.dtype(np.float32)}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [v for x in tree.values() for v in _leaves(x)]
+    if isinstance(tree, (list, tuple)):
+        return [v for x in tree for v in _leaves(x)]
+    return [tree]
