@@ -29,7 +29,8 @@ not 0):
                `rng_draw_bits=16` beside the default, in turns
   5. scaled  - the trainer at B=4096, T=48 (the 100k-encounter scale
                configuration) runs two epochs of a cohort with a ragged
-               368-encounter tail; the second is timed and counted
+               368-encounter tail, fused (the default: replays of captured
+               CUDA graphs); the second is timed and counted
   6. plain   - one train step with the kernels and one with their plain
                versions, from the same weights and draws, must agree; so
                must one masked tail step at the scaled configuration, one
@@ -63,7 +64,26 @@ not 0):
                a fresh Trainer that gives the dump's latents again (1e-6),
                and a resume from the stored epoch and rate (--restore true
                --max_epochs 4); the launch counters must show B1 and B3-B7
-  9a. bf16   - `compute_dtype="bfloat16"` (`bf16_phase`): each kernel
+               (the epochs and eval passes are fused: each launch a graph
+               replays counts once)
+  9a. fused  - the fused epoch (`fused_phase`): two epochs replayed from
+               captured CUDA graphs against two stepped, bit for bit in the
+               per-batch losses, parameters, BatchNorm buffers, optimizer
+               and generator state, at the default Config on the p0
+               phase's 2,100 encounters (the 52-row masked tail; a fused
+               validation pass's dumps equal too) and at B=4096, T=48 (the
+               368-row tail), in float32 and bfloat16, the hand-kernel
+               launches of a replayed epoch equal to the stepped epoch's;
+               p3 with `eval_interval=3` and `pipeline_delta` (a stop found
+               one epoch late, the speculative epoch rolled back) against
+               `eval_interval=1`: the same stop epoch, deltas, weights and
+               optimizer state, and five epochs deferred, pipelined and
+               stepped against undeferred; the stepped and the replayed
+               step in turns at both widths and in bf16 (ms, device-busy
+               ms, device operations, idle share, capture seconds, graph
+               memory, the peak memory at B=4096), `cli.p1 --fused_epoch
+               false` against the default, three epochs each
+  9b. bf16   - `compute_dtype="bfloat16"` (`bf16_phase`): each kernel
                through its bf16 boundary against its plain version on the
                p0 phase's first batch (forwards within one bfloat16 ulp + 1e-5,
                gradients within 1e-4 of the largest plus an ulp, the JAX
@@ -74,7 +94,7 @@ not 0):
                same launches; the bf16 and float32 bare steps in turns (ms,
                encounters/s, device-busy ms); `cli.p1 --compute_dtype
                bfloat16` for two epochs beside the p1 phase's
-  9b. dp     - data-parallel and multi-process runs through the entry points
+  9c. dp     - data-parallel and multi-process runs through the entry points
                at the default Config on the p0 phase's pickles (`dp_phase`):
                `cli.p1.main --data_parallel 1` (one NCCL rank) and p1 under
                torchrun (env://) bit for bit against one process; two ranks sharing the card over gloo
@@ -136,7 +156,8 @@ not 0):
                `cluster_pred`
 Then a `{"kernels": [...]}` line (`launches`: the p1 phase's count, the
 scaled phase's for the packed select; `launches_p3`: the p3 phase's;
-`launches_bf16_step` and `launches_bf16_p1`: phase `bf16`'s), the
+`launches_bf16_step` and `launches_bf16_p1`: phase `bf16`'s;
+`launches_fused_epoch`: one replayed epoch's, phase `fused`), the
 card's name and power limit from nvidia-smi, and as the last line
 `{"ok": true, "device": {...}}`.
 
@@ -148,6 +169,7 @@ from __future__ import annotations
 
 import copy
 import csv
+import gc
 import json
 import logging
 import os
@@ -871,6 +893,383 @@ def bf16_phase(run: dict, sdata, smi: str) -> dict:
     say("bf16", batch=B, T=T, boundary=json.dumps(checks), steps=json.dumps(steps),
         bare_steps=json.dumps(timing), p1=json.dumps(p1_bf16), card=repr(smi))
     return dict(boundary=checks, steps=steps, timing=timing, p1=p1_bf16)
+
+
+def _graph_vs_stepped(cfg, ds, root: str, tag: str, dev, eval_too: bool = False) -> dict:
+    """Two trainers from one seed on `ds`: one replays the captured steps
+    (`Trainer._dispatch_fused_epoch`), the other steps eagerly over the same
+    batches; two epochs, the second at another rate (written in place into
+    the rate tensor the graph reads). Raises unless the per-batch losses,
+    the parameters, BatchNorm buffers, optimizer state, generator state and
+    update counts are equal bit for bit and the second epoch's hand-kernel
+    launches equal; with `eval_too`, a fused validation pass's metrics and
+    dumps against a stepped one's. Returns what it measured."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
+    from deep_interpolation_clustering_tpu_torch.train import Trainer
+    from deep_interpolation_clustering_tpu_torch.train.optim import set_learning_rate
+
+    fused = Trainer(cfg, ds, os.path.join(root, tag + "_graph"), device=dev)
+    stepped = Trainer(cfg.replace(fused_epoch=False), ds, os.path.join(root, tag + "_step"),
+                      device=dev)
+    out = {"epoch_s": {"graph": [], "stepped": []}}
+    for epoch, lr in ((1, cfg.init_lr), (2, cfg.init_lr * cfg.lr_decay_rate)):
+        for tr in (fused, stepped):
+            set_learning_rate(tr.opt, lr)
+        torch.cuda.synchronize()
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        table, keys = fused._dispatch_fused_epoch()
+        torch.cuda.synchronize()
+        out["epoch_s"]["graph"].append(time.perf_counter() - t0)
+        graph_launches = {w.name: w.launches for w in cb.KERNELS}
+        cb.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [stepped.step(*b) for b in stepped._epoch_batches(stepped.epoch)]
+        torch.cuda.synchronize()
+        out["epoch_s"]["stepped"].append(time.perf_counter() - t0)
+        stepped_launches = {w.name: w.launches for w in cb.KERNELS}
+        want = torch.stack([torch.stack([l[k] for k in keys]) for l in losses])
+        if not torch.equal(table, want):
+            raise AssertionError(f"fused {tag} epoch {epoch}: losses differ from the "
+                                 f"stepped epoch's by {float((table - want).abs().max())}")
+        if epoch == 2:  # the first epoch's count holds the graphs' warm-up too
+            if graph_launches != stepped_launches:
+                raise AssertionError(f"fused {tag}: a replayed epoch launched "
+                                     f"{graph_launches}, the stepped one {stepped_launches}")
+            out["launches_epoch"] = graph_launches
+        for tr in (fused, stepped):
+            tr.epoch += 1
+    states = []
+    for tr in (fused, stepped):
+        st = dict(tr.net.state_dict())
+        for i, p in enumerate(tr.net.parameters()):
+            st.update({f"opt.{i}.{k}": v for k, v in tr.opt.state[p].items()})
+        states.append(st)
+    differ = [k for k in states[1] if not torch.equal(states[0][k], states[1][k])]
+    if differ or states[0].keys() != states[1].keys():
+        raise AssertionError(f"fused {tag}: the graphed run's state differs at {differ[:8]}")
+    if not torch.equal(fused.generator.get_state(), stepped.generator.get_state()):
+        raise AssertionError(f"fused {tag}: the generators' states differ")
+    if fused.num_updates != stepped.num_updates:
+        raise AssertionError(f"fused {tag}: updates {fused.num_updates}, {stepped.num_updates}")
+    out["tensors_equal"] = len(states[1])
+    if eval_too:
+        valid = ds["validation"]
+        m_graph, d_graph = fused.eval_one_epoch("valid", valid, False)
+        m_step, d_step = stepped.eval_one_epoch("valid", valid, False)
+        differ = [k for k in d_step if not np.array_equal(d_graph[k][0], d_step[k][0])]
+        if m_graph != m_step or differ or set(d_graph) != set(d_step):
+            raise AssertionError(f"fused {tag} eval: metrics {m_graph} vs {m_step}, dumps "
+                                 f"differ at {differ}")
+        out["eval_dumps_equal"] = sorted(k for k in d_step if k != "__index__")
+    out["graphs"] = {"/".join(str(x) for x in key if x is not None): dict(
+        capture_s=round(g.capture_seconds, 4), pool_bytes=g.pool_bytes, replays=g.replays)
+        for key, g in fused._graphs.items()}
+    out["epoch_s"] = {k: [round(x, 4) for x in v] for k, v in out["epoch_s"].items()}
+    for tr in (fused, stepped):
+        tr.close()
+    return out
+
+
+def _logged_epochs(fn) -> tuple:
+    """Run `fn()` with the port's log lines collected; returns (fn's
+    result, [(epoch seconds, encounters/s)] from its epoch lines)."""
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    lines = Lines()
+    port_log = logging.getLogger("dicl.torch")
+    port_log.addHandler(lines)
+    try:
+        out = fn()
+    finally:
+        port_log.removeHandler(lines)
+    return out, _epoch_lines("\n".join(lines.lines)).get(0, [])
+
+
+# each kernel wrapper's device kernels (csrc/*.cu), a call launching one of
+# each group: B1 and B2 share one kernel template and its looping form, B7
+# launches four kernels
+DEVICE_KERNELS = {
+    ("fake_select", "fake_select_packed"): [("fake_select_kernel", "fake_select_loop_kernel")],
+    ("sci_forward",): [("sci_fwd_kernel",)],
+    ("sci_backward",): [("sci_bwd_kernel",)],
+    ("rbf_push",): [("rbf_push_kernel",)],
+    ("lstm_forward",): [("lstm_fwd_kernel",)],
+    ("lstm_backward",): [("lstm_gate_products_kernel",), ("lstm_bwd_kernel",),
+                         ("lstm_dw_partial_kernel",), ("lstm_dw_reduce_kernel",)],
+}
+
+
+def _replay_launches(prof: dict, counted: dict, tag: str) -> dict:
+    """The hand kernels that the profiler saw run in each replay
+    (`device_profile`'s `hand_kernels` over replays of the graph), by
+    device kernel; raises unless each wrapper's count for a replay
+    (`GraphedStep.launches`, recorded at capture) is what ran."""
+    seen, bad = {}, {}
+    for wrappers, groups in DEVICE_KERNELS.items():
+        want = sum(counted.get(w, 0) for w in wrappers)
+        for names in groups:
+            key = "|".join(names)
+            seen[key] = sum(h["calls_per_step"] for h in prof["hand_kernels"]
+                            for name in names if name + "<" in h["name"] or name + "(" in h["name"])
+            if seen[key] != want:
+                bad[key] = (seen[key], want)
+    if bad:
+        raise AssertionError(f"fused {tag}: kernels run a replay (profiled, counted): {bad}")
+    return seen
+
+
+def _optimizer_steps(cfg, dev, start: str, make_card=None) -> float:
+    """Four steps of the card's optimizer (`make_card`, by default
+    `make_optimizer` on CUDA parameters) against the CPU's (torch's
+    defaults, a float rate) over the Net's parameters at `cfg`'s width,
+    from random or from zero parameters (the first step's parameters are
+    then the update itself), from the same gradients, the rate changed by
+    `set_learning_rate` before the third. Returns the largest difference
+    of a parameter or state tensor over its largest value, and whether
+    every element was within 1e-6 of itself plus 1e-6 of that value."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.models.net import Net
+    from deep_interpolation_clustering_tpu_torch.train.optim import (
+        make_optimizer, set_learning_rate,
+    )
+
+    torch.manual_seed(0)
+    init = [p.detach().clone() for p in Net(cfg).parameters()]
+    if start == "zero":
+        init = [torch.zeros_like(t) for t in init]
+    cpu = [torch.nn.Parameter(t.clone()) for t in init]
+    card = [torch.nn.Parameter(t.to(dev)) for t in init]
+    opt_cpu, opt_card = make_optimizer(cfg, cpu), (make_card or make_optimizer)(cfg, card)
+    g = torch.Generator().manual_seed(1)
+    worst, within = 0.0, True
+    for step in range(4):
+        if step == 2:
+            for opt in (opt_cpu, opt_card):
+                set_learning_rate(opt, cfg.init_lr / 7)
+        for pc, pg in zip(cpu, card):
+            pc.grad = torch.randn(pc.shape, generator=g)
+            pg.grad = pc.grad.to(dev)
+        opt_cpu.step()
+        opt_card.step()
+        for pc, pg in zip(cpu, card):
+            pairs = [(pg, pc)] + [(opt_card.state[pg][k], v)
+                                  for k, v in opt_cpu.state[pc].items()]
+            for got, want in pairs:
+                got, want = got.detach().cpu().double(), want.detach().double()
+                top = float(want.abs().max())
+                diff = (got - want).abs()
+                within &= not bool((diff > 1e-6 * want.abs() + 1e-6 * top).any())
+                if top > 0:
+                    worst = max(worst, float(diff.max()) / top)
+    return worst, within
+
+
+def _optimizer_check(cfg, dev) -> dict:
+    """The card's optimizer (`make_optimizer` on CUDA parameters: a tensor
+    rate; Adam capturable on float64 step counts, SGD fused, RMSprop
+    capturable) against the CPU's, for adam, sgd and rmsprop from random
+    and from zero parameters (`_optimizer_steps`); raises unless each is
+    within the bound. Beside them, unchecked, the two Adams the card's is
+    not: the capturable one on its own float32 step counts and the fused
+    one, from zero parameters. Returns each run's largest difference over
+    the largest value."""
+    import torch
+
+    out, bad = {}, []
+    for optimizer in ("adam", "sgd", "rmsprop"):
+        for start in ("random", "zero"):
+            worst, within = _optimizer_steps(cfg.replace(optimizer=optimizer), dev, start)
+            out[f"{optimizer}/{start}"] = worst
+            if not within:
+                bad.append(f"{optimizer}/{start}")
+    if bad:
+        raise AssertionError(f"fused: the card's optimizer differs from the CPU's past 1e-6: "
+                             f"{bad} {out}")
+
+    def other_adam(**kw):
+        def make(c, params):
+            lr = torch.tensor(c.init_lr, dtype=torch.float32, device=params[0].device)
+            return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=c.weight_decay_rate, amsgrad=True, **kw)
+        return make
+
+    for name, kw in (("adam_capturable_f32", dict(capturable=True)),
+                     ("adam_fused", dict(fused=True, capturable=True))):
+        out[f"{name}/zero (unchecked)"] = _optimizer_steps(
+            cfg.replace(optimizer="adam"), dev, "zero", other_adam(**kw))[0]
+    return out
+
+
+def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
+    """Phase `fused`: the fused epoch (`fused_epoch`, the default), each
+    epoch replayed from captured CUDA graphs of the step
+    (`train/graphs.py`):
+      * the card's optimizer against the CPU's (`_optimizer_check`);
+      * graph against stepped, two epochs, bit for bit (`_graph_vs_stepped`)
+        at the default Config on the p1 phase's cohort (2,100 encounters:
+        8 full batches and the 52-row masked tail; with a fused validation
+        pass's dumps) and at the scaled one (B=4096, T=48: 3 batches and the
+        368-row tail), in float32 and in bfloat16; the hand-kernel launches
+        of a replayed epoch equal the stepped epoch's;
+      * p3 (`ClusterTrainer` from the p1 run, k-means centres, the count
+        rule firing at the first comparable epoch): `eval_interval=3` with
+        `pipeline_delta` (its lagged count stops the run inside the next
+        epoch, which is rolled back) against `eval_interval=1`: the same
+        stop epoch, delta history, weights and optimizer state; and five
+        epochs without a stop, deferred and pipelined against undeferred
+        and against stepped;
+      * timings, in turns within this call: the stepped and the replayed
+        step (`utils.profiling.step_turns`) at both widths and in bf16, the
+        device-busy ms, operations and idle share of each
+        (`device_profile`), the hand kernels the profiler saw run in each
+        replay held to the launches counted at capture
+        (`_replay_launches`), the seconds of each graph's warm-up and
+        capture and the memory it added to the trainer's one graph pool,
+        the peak memory allocated and reserved at B=4096, T=48, and
+        `cli.p1` epochs with `--fused_epoch false` and with the default.
+    Returns what it measured."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch import Config
+    from deep_interpolation_clustering_tpu_torch.cli import p1
+    from deep_interpolation_clustering_tpu_torch.cli.common import (
+        build_parser, config_from_args, make_datasets,
+    )
+    from deep_interpolation_clustering_tpu_torch.train import ClusterTrainer, Trainer
+    from deep_interpolation_clustering_tpu_torch.utils import profiling
+
+    root = os.path.join(os.path.dirname(run["results"]), "fused")
+    cfg = config_from_args(build_parser("p1").parse_args(run["width"]))
+    ds = make_datasets(cfg)
+    opt_err = _optimizer_check(cfg, dev)
+    say("fused", check="card optimizer vs the CPU's, 4 steps, a rate change",
+        max_err_over_max=json.dumps(opt_err), bound=1e-6, card=repr(smi))
+    if len(ds["training"]) % B == 0:
+        raise AssertionError("fused: the p1 cohort has no tail")
+    scfg = Config(batch_size=SCALED_B, num_timestamps=SCALED_T)
+    sds = {"training": sdata}
+    bits = {}
+    for tag, cfg_x, ds_x in (("default", cfg, ds), ("scaled", scfg, sds),
+                             ("default_bf16", cfg.replace(compute_dtype="bfloat16"), ds),
+                             ("scaled_bf16", scfg.replace(compute_dtype="bfloat16"), sds)):
+        if tag == "scaled":
+            torch.cuda.synchronize()
+            gc.collect()  # the default width's trainers and graphs
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        bits[tag] = _graph_vs_stepped(cfg_x, ds_x, root, tag, dev, eval_too=tag == "default")
+        if tag == "scaled":
+            bits[tag]["peak_bytes"] = torch.cuda.max_memory_allocated()
+            bits[tag]["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+        say("fused", check="graph vs stepped, bit for bit", config=tag,
+            batch=cfg_x.batch_size, T=cfg_x.num_timestamps,
+            encounters=len(ds_x["training"]), **{k: json.dumps(v) for k, v in bits[tag].items()},
+            card=repr(smi))
+
+    # ---- p3: the deferred and pipelined cadences against the unlagged loop
+    dec_cfg = cfg.replace(loss="ae_mse_sup_fake_detect_kl", log_train_freq=1000,
+                          log_valid_freq=1000)
+    dec = {}
+
+    def dec_run(name, **kw):
+        tr = ClusterTrainer(dec_cfg.replace(**kw), ds, os.path.join(root, "dec_" + name),
+                            pretrain_exp_path=run["exp"], device=dev)
+        t0 = time.perf_counter()
+        _, epochs = _logged_epochs(tr.train)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        tr.close()
+        st = dict(tr.net.state_dict())
+        for i, p in enumerate(tr.net.parameters()):
+            st.update({f"opt.{i}.{k}": v for k, v in tr.opt.state[p].items()})
+        dec[name] = dict(epoch=tr.epoch, deltas=list(tr.delta_history), train_s=round(seconds, 4),
+                         epoch_s=[round(s, 4) for s, _ in epochs])
+        return st
+
+    def same(a, b, what):
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ or a.keys() != b.keys():
+            raise AssertionError(f"fused p3 {what}: weights or optimizer state differ at "
+                                 f"{differ[:8]}")
+
+    stop = dict(stopping_delta=None, stopping_mode="count", stopping_count=10**9,
+                max_epochs=6)
+    ref = dec_run("stop_ref", eval_interval=1, **stop)
+    piped = dec_run("stop_piped", eval_interval=3, pipeline_delta=True, **stop)
+    same(ref, piped, "stop under pipeline_delta")
+    if (dec["stop_ref"]["epoch"], dec["stop_ref"]["deltas"]) != (
+            dec["stop_piped"]["epoch"], dec["stop_piped"]["deltas"]):
+        raise AssertionError(f"fused p3 stop: {dec['stop_piped']} against {dec['stop_ref']}")
+    run5 = dict(stopping_delta=0.0, max_epochs=6)
+    ref = dec_run("ref", eval_interval=1, **run5)
+    for name, kw in (("deferred", dict(eval_interval=3)),
+                     ("piped", dict(eval_interval=3, pipeline_delta=True)),
+                     ("stepped", dict(eval_interval=1, fused_epoch=False))):
+        same(ref, dec_run(name, **kw, **run5), name)
+        if dec[name]["deltas"] != dec["ref"]["deltas"] or len(dec["ref"]["deltas"]) != 5:
+            raise AssertionError(f"fused p3 {name}: deltas {dec[name]['deltas']} against "
+                                 f"{dec['ref']['deltas']}")
+    say("fused", check="p3 deferred and pipelined cadences against the unlagged loop",
+        runs=json.dumps(dec), card=repr(smi))
+
+    # ---- timings, in turns
+    timing = {}
+    for tag, cfg_x, ds_x in (("default", cfg, ds), ("scaled", scfg, sds),
+                             ("default_bf16", cfg.replace(compute_dtype="bfloat16"), ds)):
+        tr = Trainer(cfg_x.replace(fused_epoch=False), {"training": ds_x["training"]},
+                     os.path.join(root, "timing_" + tag), device=dev)
+        tr.train_steps(2)  # warm-up
+        stream = tr._stream()
+        step = lambda: tr.step(*next(stream))  # noqa: E731
+        replay = profiling.graphed_step(tr)
+        replay()  # warm-up and capture
+        graph = tr._graphs[("train", False)]
+        n = 4 if tag == "scaled" else 10
+        turns = profiling.step_turns({"stepped": step, "graphed": replay}, 3, n)
+        prof = {name: profiling.device_profile(fn, 5 if name == "stepped" else 20)
+                for name, fn in (("stepped", step), ("graphed", replay))}
+        tr.close()
+        measured = _replay_launches(prof["graphed"], graph.launches, tag)
+        median = {k: float(np.median(v)) for k, v in turns.items()}
+        timing[tag] = dict(
+            step_ms_turns={k: [round(x, 4) for x in v] for k, v in turns.items()},
+            encounters_per_s={k: round(cfg_x.batch_size / v * 1e3, 1) for k, v in median.items()},
+            device_busy_ms={k: round(p["device_busy_ms"] / p["window_steps"], 4)
+                            for k, p in prof.items()},
+            device_ops_per_step={k: p["device_events_per_step"] for k, p in prof.items()},
+            idle_share={k: round(1.0 - p["device_busy_ms"] / p["window_steps"] / median[k], 4)
+                        for k, p in prof.items()},
+            # within the profiled window itself (the profiler slows the host)
+            idle_share_profiled={k: round(p["device_idle_share"], 4) for k, p in prof.items()},
+            hand_kernel_ms={k: round(sum(h["ms_per_step"] for h in p["hand_kernels"]), 4)
+                            for k, p in prof.items()},
+            capture_s=round(graph.capture_seconds, 4), pool_bytes=graph.pool_bytes,
+            launches_per_replay=graph.launches, profiled_launches_per_replay=measured)
+        say("fused", timing=tag, batch=cfg_x.batch_size, T=cfg_x.num_timestamps,
+            **{k: json.dumps(v) for k, v in timing[tag].items()}, card=repr(smi))
+
+    # cli.p1 epochs: stepped, then fused (the default), three epochs each
+    p1_epochs = {}
+    for name, extra in (("stepped", ["--fused_epoch", "false"]), ("fused", [])):
+        argv = run["width"] + ["--max_epochs", "4", "--results_path",
+                               os.path.join(root, "p1_" + name)] + extra
+        _, epochs = _logged_epochs(lambda: p1.main(argv))
+        if len(epochs) != 3:
+            raise AssertionError(f"fused cli.p1 {name}: {len(epochs)} epoch lines")
+        p1_epochs[name] = [round(s, 4) for s, _ in epochs]
+    say("fused", check="cli.p1 epoch seconds", epoch_s=json.dumps(p1_epochs),
+        encounters=len(ds["training"]), card=repr(smi))
+    return dict(bits=bits, dec=dec, timing=timing, p1_epochs=p1_epochs)
 
 
 def convert_phase(run: dict, smi: str) -> None:
@@ -2520,6 +2919,7 @@ def main() -> None:
 
     # ------------------------------------------------- 8, 9. p1 entry point, converter
     p1_launches, run = p1_phase(p1_root, cohorts_p1, smi)
+    fused = fused_phase(run, sdata, smi, dev)
     bf16 = bf16_phase(run, sdata, smi)
     dp_phase(run, smi)
     convert_phase(run, smi)
@@ -2550,6 +2950,11 @@ def main() -> None:
                 "scaled" if w.name == "fake_select_packed" else "default"]["launches"].get(
                     w.name, 0),
             "launches_bf16_p1": bf16["p1"]["launches"][w.name],
+            # one epoch replayed from the captured steps (phase `fused`: the
+            # default Config's, the scaled one's for the packed select)
+            "launches_fused_epoch": fused["bits"][
+                "scaled" if w.name == "fake_select_packed" else "default"][
+                    "launches_epoch"].get(w.name, 0),
             "max_abs_err": r["max_abs_err"],
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -167,7 +167,7 @@ def optimizer_to_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
     kind = type(opt).__name__
     named = list(net.named_parameters())
     leaves = [np.asarray(count, np.int32),
-              np.asarray(opt.param_groups[0]["lr"], np.float32)]
+              np.asarray(float(opt.param_groups[0]["lr"]), np.float32)]
     if kind == "Adam":
         steps = [float(opt.state[p]["step"]) for _, p in named if "step" in opt.state[p]]
         leaves.append(np.asarray(int(max(steps, default=0)), np.int32))
@@ -192,9 +192,17 @@ def optimizer_from_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
     count = int(leaves[0])
     step = float(leaves[2]) if kind == "Adam" else float(count)
     moments = [_per_param(net, vec) for vec in leaves[head:]]
+    # a capturable or fused optimizer keeps its step count on the parameters'
+    # device; a step count the optimizer already holds keeps its dtype (the
+    # card's Adam counts in float64)
+    group = opt.param_groups[0]
+    on_device = group.get("capturable", False) or group.get("fused", False)
     for name, p in net.named_parameters():
         st = {key: m[name].to(p.device) for key, m in zip(vectors, moments)}
         if kind != "SGD":
-            st["step"] = torch.tensor(step, dtype=torch.float32)
+            old = opt.state.get(p, {}).get("step")
+            st["step"] = torch.tensor(
+                step, dtype=torch.float32 if old is None else old.dtype,
+                device=p.device if on_device else "cpu")
         opt.state[p] = st
     return count

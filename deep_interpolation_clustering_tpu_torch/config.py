@@ -17,6 +17,10 @@ compute on every rank and write on rank 0, p0 writes on rank 0
 the last three out of `config.json` and `load` drops them from a file that
 has them. `shard_cohort` (on by default, as in JAX) row-shards each cohort
 over the data-parallel ranks (`parallel.cohort`).
+`fused_epoch` (on by default, as in JAX) runs each epoch as replays of
+captured CUDA graphs on one card (`train/graphs.py`), and `pipeline_delta`
+lags p3's changed-label fetch one epoch under `eval_interval > 1`
+(`train/cluster_trainer.py`).
 Tuple fields come back from JSON as lists and are made tuples again.
 `compute_dtype` is "float32" or "bfloat16": the train step's forward in
 that type, gradients and optimizer state in float32 (`train.steps`).
@@ -42,9 +46,13 @@ log = logging.getLogger("dicl.torch")
 _IGNORED = (
     # TPU / XLA / mesh switches: no counterpart on the card
     "use_pallas", "use_pallas_bwd", "use_pallas_lstm", "matmul_precision",
-    "eval_matmul_precision", "epoch_scan_unroll", "prng_impl",
-    "compilation_cache_dir", "perf_profile", "fused_epoch", "device_data",
+    "eval_matmul_precision", "prng_impl", "compilation_cache_dir", "perf_profile",
     "sci_share_weights",
+    # the scan's unroll lets XLA co-schedule steps (not bit-preserving even
+    # in JAX); a CUDA graph replays one step at a time
+    "epoch_scan_unroll",
+    # the port's cohorts always live on the device (uploaded once a run)
+    "device_data",
 )
 # per-process topology: never written to, nor read from, a config.json
 # (the JAX `Config._RUNTIME_ONLY`)
@@ -123,9 +131,10 @@ class Config:
     stopping_count: int = 0
     stopping_patience: int = 20
     update_interval: int = 1
-    # read and without effect: in the JAX package it lags the delta fetch of
-    # the fused epoch's deferred cadence, bit-identical to the plain loop by
-    # construction; the port has no fused epoch, so its loop is that plain one
+    # under the fused epoch's deferred cadence (eval_interval > 1), fetch
+    # each epoch's changed-label count one epoch late, while the next epoch
+    # runs; a stop found late rolls the speculative epoch back, so the stop
+    # epoch, the deltas and the weights are those of the unlagged loop
     pipeline_delta: bool = False
     kmeans_n_init: int = 20
     # "device": k-means on the latents' device (cluster/kmeans.py);
@@ -163,8 +172,13 @@ class Config:
     weight_decay_rate: float = 4e-4
     early_stopping: int = 50
     # validate, checkpoint and test early stop every k-th epoch and at the
-    # last one; between, "step" and "warmup" still step the rate
+    # last one; between, "step" and "warmup" still step the rate (and the
+    # fused epochs' losses are fetched at the next eval)
     eval_interval: int = 1
+    # run each epoch (and eval pass) on one card as replays of captured CUDA
+    # graphs of the step, one per batch (`train/graphs.py`; JAX's one
+    # lax.scan an epoch); False steps eagerly. Data-parallel ranks step.
+    fused_epoch: bool = True
     # bit width of the random draws of the fake sample and the
     # augmentation: 16 draws 16-bit select keys, float16 noise and normals
     rng_draw_bits: int = 32

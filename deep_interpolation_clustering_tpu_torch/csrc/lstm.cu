@@ -99,6 +99,34 @@ namespace {
 constexpr int kMaxHidden = 256;     // the widest recurrence either kernel takes
 constexpr int kSmemLimit = 232448;  // the most shared memory a Hopper block can have
 
+// cudaFuncSetAttribute once for each kernel, size and device (the attribute
+// is the current device's): a launch made while a CUDA graph is captured then
+// sets no attribute (the graph's warm-up, which runs the same launches first,
+// has set it)
+cudaError_t set_smem_once(const void* kernel, int bytes) {
+  constexpr int kSlots = 32;
+  static const void* done[kSlots];
+  static int done_bytes[kSlots];
+  static int done_device[kSlots];
+  static int n_done = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n_done; ++i) {
+    if (done[i] == kernel && done_device[i] == device && done_bytes[i] >= bytes) {
+      return cudaSuccess;
+    }
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && n_done < kSlots) {
+    done[n_done] = kernel;
+    done_bytes[n_done] = bytes;
+    done_device[n_done] = device;
+    ++n_done;
+  }
+  return err;
+}
+
 __device__ __forceinline__ float sigmoid_acc(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
@@ -902,8 +930,7 @@ extern "C" int dicl_lstm_fwd(const void* xgf, const void* xgb, const void* w_hhT
   // in registers; two items a warp (H > 128) leave no registers for that
   const auto kernel = threads / 32 >= n_items ? lstm_fwd_kernel<1, kFwdTailIters>
                                               : lstm_fwd_kernel<2, 0>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
+  cudaError_t err = set_smem_once(reinterpret_cast<const void*>(kernel), smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((batch + kRows - 1) / kRows, 2);
   kernel<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
@@ -957,8 +984,7 @@ extern "C" int dicl_lstm_bwd(
   // that at H = 256 (512 threads); the kernel keeps them in registers
   const auto kernel = threads * (kBwdPairCap / 2) >= n_slots ? lstm_bwd_kernel<kBwdPairCap / 2>
                                                              : lstm_bwd_kernel<kBwdPairCap>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bwd_smem_bytes(hidden));
+  err = set_smem_once(reinterpret_cast<const void*>(kernel), bwd_smem_bytes(hidden));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((batch + kBwdRows - 1) / kBwdRows, 2);
   kernel<<<grid, threads, bwd_smem_bytes(hidden), s>>>(

@@ -8,7 +8,10 @@ imported, so the package imports on a machine without CUDA.
 
 `KernelWrapper` is the single entry of one kernel: a tensor on the CPU takes
 the kernel's plain PyTorch version; a tensor on a CUDA device launches the
-kernel on PyTorch's current stream or raises. It counts its launches.
+kernel on PyTorch's current stream or raises. It counts its launches. A
+call made while a CUDA graph is being captured launches nothing: it counts
+in `captured`, and the graph (`train/graphs.py`) adds the launches it
+recorded to `launches` on each replay (`captured_counts`, `add_launches`).
 """
 
 from __future__ import annotations
@@ -150,6 +153,7 @@ class KernelWrapper:
         self.plain = plain
         self._launch = launch
         self.launches = 0
+        self.captured = 0  # calls recorded into a CUDA graph being captured
 
     def __call__(self, *args):
         devices = {a.device.type for a in args if isinstance(a, torch.Tensor)}
@@ -159,7 +163,10 @@ class KernelWrapper:
             raise ValueError(f"{self.name}: tensors on {sorted(devices)}; "
                              "expected all on the CPU or all on one CUDA device")
         out = self._launch(*args)
-        self.launches += 1
+        if torch.version.cuda is not None and torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         return out
 
 
@@ -174,3 +181,14 @@ def register(w: KernelWrapper) -> KernelWrapper:
 def reset_launch_counts() -> None:
     for w in KERNELS:
         w.launches = 0
+
+
+def captured_counts() -> Dict[str, int]:
+    """Each kernel's calls recorded into CUDA graphs so far."""
+    return {w.name: w.captured for w in KERNELS}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of one replay of a graph that recorded `counts`."""
+    for w in KERNELS:
+        w.launches += counts.get(w.name, 0)

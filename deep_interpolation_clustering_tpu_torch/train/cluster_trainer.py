@@ -19,17 +19,26 @@ dumps (every rank holds the whole cohort's), rank 0 fits the centres and
 broadcasts them, so every rank steps the same centres and counts the same
 label delta.
 
-This is the JAX loop's branch without the fused epoch (`fused_epoch=False`
-there): a validation pass every epoch for the delta, and every
-`eval_interval`-th epoch (and at the last) the schedule step, checkpoints
-and summary row of `aly_pred`. The JAX fused epoch's deferred and pipelined
-cadence (`pipeline_delta`) is not ported (ROADMAP.md A2).
+The loop is the JAX one (clustering_trainer.py `train`): a validation pass
+every epoch for the delta, and every `eval_interval`-th epoch (and at the
+last) the schedule step, checkpoints and summary row of `aly_pred`. With
+`eval_interval > 1` and the fused epoch, the cadence is deferred: the
+epochs between evals are dispatched with no host read but the
+changed-label count (counted on the device), their train and validation
+losses fetched at the next eval, where their summary rows are written. With
+`pipeline_delta` too, that count is read one epoch late, while the next
+epoch runs; when the late count stops the run, the speculative epoch is
+rolled back (`_snapshot`: the parameters, buffers, optimizer state, the
+generator's state and the update count, written back in place), so the stop
+epoch, the delta history and the weights are those of the unlagged loop.
+A stop between evals makes the stopping epoch's weights checkpoint
+candidates (`stop_candidacy`), as in JAX.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,7 +51,16 @@ from ..data.loader import ArrayDataset
 from ..info import COHORT2SCOPE
 from ..utils.logging import logger, timer
 from . import checkpoint as ckpt
+from .graphs import restore_, snapshot
 from .trainer import Trainer, _fmt
+
+
+def _host_means(metrics: Dict[str, object]) -> Dict[str, float]:
+    """Each metric as a host float: a float as it is, per-batch losses on
+    the device (a deferred eval's) by their mean over batches."""
+    return {k: v if isinstance(v, float)
+            else float(np.mean(torch.as_tensor(v).cpu().numpy(), dtype=np.float64))
+            for k, v in metrics.items()}
 
 
 class ClusterTrainer(Trainer):
@@ -122,20 +140,43 @@ class ClusterTrainer(Trainer):
         return valid_prev
 
     # ----------------------------------------------------------- epochs
+    def _dispatch_pred_cluster(self, scope: str, ds: ArrayDataset,
+                               prev_pred: Optional[torch.Tensor], denoise: bool = False,
+                               defer_losses: bool = False):
+        """One eval pass over `ds` for the labels (argmax of `cluster_pred`)
+        and the count of them that changed from `prev_pred`, both left on
+        the device (JAX `_dispatch_pred_cluster`). Returns (count or None,
+        labels, metrics); with `defer_losses` the metrics of a fused pass
+        are its per-batch losses on the device."""
+        metrics, dumps = self.eval_one_epoch(scope, ds, denoise, dump_keys=("cluster_pred",),
+                                             device_dumps=True, defer_losses=defer_losses)
+        labels = torch.argmax(dumps["cluster_pred"][0], dim=1)
+        count = None if prev_pred is None else torch.sum(labels != prev_pred)
+        return count, labels, metrics
+
+    @staticmethod
+    def _resolve_delta(count: Optional[torch.Tensor], n_rows: Optional[int]
+                       ) -> Tuple[float, Optional[int]]:
+        """(delta, n_changed) from a dispatched count: the one host read of a
+        DEC epoch (1.0, None without a previous prediction)."""
+        if count is None:
+            return 1.0, None
+        n_changed = int(count)
+        return n_changed / n_rows, n_changed
+
     def generate_pred_cluster(self, scope: str, ds: ArrayDataset,
-                              prev_pred: Optional[torch.Tensor], denoise: bool = False
+                              prev_pred: Optional[torch.Tensor], denoise: bool = False,
+                              defer_losses: bool = False
                               ) -> Tuple[float, Optional[int], torch.Tensor, Dict[str, float]]:
         """One eval pass over `ds`: the labels (argmax of `cluster_pred`, on
         the device), and `delta`, the share of them that changed from
         `prev_pred` (1.0 without one). Returns (delta, n_changed, labels,
         metrics); the count is the one value the host reads."""
-        metrics, dumps = self.eval_one_epoch(scope, ds, denoise, dump_keys=("cluster_pred",),
-                                             device_dumps=True)
-        labels = torch.argmax(dumps["cluster_pred"][0], dim=1)
-        if prev_pred is None:
-            return 1.0, None, labels, metrics
-        n_changed = int(torch.sum(labels != prev_pred))
-        return n_changed / prev_pred.shape[0], n_changed, labels, metrics
+        count, labels, metrics = self._dispatch_pred_cluster(scope, ds, prev_pred, denoise,
+                                                             defer_losses)
+        delta, n_changed = self._resolve_delta(
+            count, None if prev_pred is None else int(prev_pred.shape[0]))
+        return delta, n_changed, labels, metrics
 
     def _should_stop(self, delta: float, n_changed: Optional[int]) -> Optional[str]:
         """The stop reason under `stopping_mode`, or None: "delta" is the
@@ -159,46 +200,160 @@ class ClusterTrainer(Trainer):
                             f"for {self._since_improve} checks")
         return None
 
+    def _drained(self, epoch: int, valid_losses=None, delta=None) -> None:
+        """A deferred DEC epoch's validation row: its losses, fetched now,
+        with its delta (none for an epoch whose eval wrote its own)."""
+        if valid_losses is None:
+            return
+        vm = _host_means(valid_losses)
+        vm["delta"] = delta
+        self.summary.add_summary(epoch, scope="valid", **vm)
+        logger.info("Epoch %d valid %s", epoch, _fmt(vm))
+        self._last_valid = vm
+
+    def _snapshot(self):
+        """What a dispatched epoch changes: device copies of the parameters,
+        buffers and optimizer state, the generator's state and the update
+        count (JAX `_snapshot` of the carries)."""
+        return snapshot(self._mutable_state()), self.generator.get_state(), self.num_updates
+
+    def _rollback(self, snap) -> None:
+        """Undo the epochs dispatched since `snap`, in place (the captured
+        graphs keep their addresses)."""
+        tensors, gen_state, num_updates = snap
+        restore_(tensors, self._mutable_state())
+        self.generator.set_state(gen_state)
+        self.num_updates = num_updates
+
     def train(self) -> Dict[str, float]:
         """Centre init, then the DEC epochs until `max_epochs` or a stop;
-        returns the last validation metrics (with `delta`)."""
+        returns the last validation metrics (with `delta`). The JAX loop,
+        with its deferred cadence under `eval_interval > 1` and the fused
+        epoch, and `pipeline_delta`'s lagged count with its rollback."""
         cfg = self.cfg
-        valid_ds = self.datasets["validation"]
+        train_ds, valid_ds = self.datasets["training"], self.datasets["validation"]
         valid_prev = self.init_centers()
-        last_valid: Dict[str, float] = {}
+        self._last_valid: Dict[str, float] = {}
         self._best_delta = float("inf")
         self._since_improve = 0
         self.delta_history = []
+        # deferred epochs: (epoch, train handles, n_batches, validation loss
+        # handles, delta), drained at each eval (`_drain`, `_drained`)
+        pending: List[tuple] = []
+        # pipeline_delta: the one epoch whose count is dispatched, not read
+        inflight: Optional[dict] = None
+
+        def resolve_inflight():
+            """Read the lagged epoch's count; log, record and test it as the
+            unlagged loop does at that epoch. Returns (stop reason, epoch)."""
+            nonlocal inflight
+            rec, inflight = inflight, None
+            delta, n_changed = self._resolve_delta(rec["count"], rec["n_rows"])
+            pending.append((rec["epoch"], rec["handles"], rec["nb"], rec["vh"], delta))
+            logger.info("Epoch %d: valid delta of label change: %s", rec["epoch"], delta)
+            self.delta_history.append(delta)
+            stop_msg = None
+            if rec["epoch"] % cfg.update_interval == 0:
+                stop_msg = self._should_stop(delta, n_changed)
+            return stop_msg, rec["epoch"]
+
+        def stop_candidacy(host_metrics=None, delta=None):
+            """A stop between evals: the stopping epoch's weights become
+            checkpoint candidates. A stepped epoch's metrics were never
+            written: their row (with the rate) is written here; a deferred
+            epoch's row was written by `_drain`."""
+            if host_metrics is not None:
+                vm = _host_means(host_metrics)
+                vm["delta"] = delta
+                vm["lr"] = self.lr_schedule.lr
+                self.summary.add_summary(self.epoch, scope="valid", **vm)
+                self._last_valid = vm
+            if self._last_valid:
+                self._ckpt_candidacy(self._last_valid)
+
         with timer("Duration of training"):
             while self.epoch < cfg.max_epochs:
                 is_eval = (cfg.eval_interval <= 1 or self.epoch % cfg.eval_interval == 0
                            or self.epoch + 1 >= cfg.max_epochs)
-                logger.info("==> Epoch %d train %s", self.epoch, _fmt(self.train_one_epoch()))
-                delta, n_changed, valid_pred, valid_metrics = self.generate_pred_cluster(
-                    "valid", valid_ds, valid_prev)
-                logger.info("Epoch %d: valid delta of label change: %s", self.epoch, delta)
-                valid_metrics["delta"] = delta
+                defer = cfg.eval_interval > 1 and self._can_fuse(train_ds)
+                # at an eval nothing would hide the lagged read: resolve it
+                # first, so that a stop cancels this epoch entirely
+                if inflight is not None and is_eval:
+                    stop_msg, stopped_epoch = resolve_inflight()
+                    if stop_msg:
+                        self.epoch = stopped_epoch
+                        self._drain(pending)
+                        stop_candidacy()
+                        logger.info("Early stopping as %s.", stop_msg)
+                        break
+                if defer:
+                    n_batches = train_ds.num_batches(cfg.batch_size)
+                    rollback = None
+                    if cfg.pipeline_delta and not is_eval:
+                        rollback = self._snapshot()
+                    handles = self._dispatch_fused_epoch()
+                else:
+                    logger.info("==> Epoch %d train %s", self.epoch,
+                                _fmt(self.train_one_epoch()))
+
                 if is_eval:
-                    last_valid = valid_metrics
+                    if defer:
+                        pending.append((self.epoch, handles, n_batches, None, None))
+                    self._drain(pending)
+                    delta, n_changed, valid_pred, valid_metrics = self.generate_pred_cluster(
+                        "valid", valid_ds, valid_prev)
+                    logger.info("Epoch %d: valid delta of label change: %s", self.epoch, delta)
+                    valid_metrics["delta"] = delta
+                    self._last_valid = valid_metrics
                     self.aly_pred("valid", valid_metrics)
-                elif cfg.lr_decay_mode != "plateau":
+                elif defer and cfg.pipeline_delta:
+                    # dispatch this epoch's count, then read the last one's
+                    # while the card works on this one
+                    count, valid_pred, vh = self._dispatch_pred_cluster(
+                        "valid", valid_ds, valid_prev, defer_losses=True)
+                    rec = {"epoch": self.epoch, "count": count,
+                           "n_rows": None if valid_prev is None else int(valid_prev.shape[0]),
+                           "handles": handles, "nb": n_batches, "vh": vh}
+                    if inflight is not None:
+                        stop_msg, stopped_epoch = resolve_inflight()
+                        if stop_msg:
+                            # the speculative epoch is undone: the weights
+                            # are those after the stopping epoch
+                            self._rollback(rollback)
+                            self.epoch = stopped_epoch
+                            self._drain(pending)
+                            stop_candidacy()
+                            logger.info("Early stopping as %s.", stop_msg)
+                            break
+                    inflight = rec
+                    if self.epoch % cfg.update_interval == 0:
+                        valid_prev = valid_pred
+                    if cfg.lr_decay_mode != "plateau":
+                        self._step_schedule(None)
+                    self.epoch += 1
+                    continue
+                else:
+                    delta, n_changed, valid_pred, vh = self.generate_pred_cluster(
+                        "valid", valid_ds, valid_prev, defer_losses=True)
+                    if defer:
+                        pending.append((self.epoch, handles, n_batches, vh, delta))
+                    logger.info("Epoch %d: valid delta of label change: %s", self.epoch, delta)
                     # plateau steps on a validation loss, at evals only
-                    self._step_schedule(None)
+                    if cfg.lr_decay_mode != "plateau":
+                        self._step_schedule(None)
                 self.delta_history.append(delta)
+
                 if self.epoch % cfg.update_interval == 0:
                     stop_msg = self._should_stop(delta, n_changed)
                     if stop_msg:
-                        if not is_eval:
-                            # a stop between evals: the stopping epoch's
-                            # row and checkpoint candidacy (aly_pred's,
-                            # without stepping the schedule again)
-                            valid_metrics["lr"] = self.lr_schedule.lr
-                            self.summary.add_summary(self.epoch, scope="valid",
-                                                     **valid_metrics)
-                            last_valid = valid_metrics
-                            self._ckpt_candidacy(valid_metrics)
+                        self._drain(pending)
+                        if not is_eval:  # an eval's stop ran aly_pred already
+                            stop_candidacy(None if defer else vh, delta)
                         logger.info("Early stopping as %s.", stop_msg)
                         break
                     valid_prev = valid_pred
                 self.epoch += 1
-        return last_valid
+            if inflight is not None:  # the last epoch is an eval, which resolved it
+                resolve_inflight()
+            self._drain(pending)
+        return self._last_valid

@@ -11,6 +11,23 @@ first gradient where optax's trace starts at zero; with dampening 0 both
 give that gradient as the first step's momentum. `LRSchedule` is the JAX
 package's epoch-level rate controller; the trainer writes its rate into the
 optimizer's param groups.
+
+On a CUDA device the optimizer is one that a CUDA graph can step
+(`train/graphs.py`): the rate is a 0-d device tensor that
+`set_learning_rate` writes in place, so a captured step reads each epoch's
+rate, and the step count lives on the device. Adam is torch's
+`capturable=True` one, given float64 step counts (`card_adam_state`): it
+then takes the bias corrections 1 - beta^t in double precision, as the
+default Adam does on the host, and its state and update are the CPU's to
+rounding. With its float32 step counts it takes beta^t in float32, where
+0.999 is 0.99900001: 1 - beta2^t comes out 1.3e-5 too small and every
+step 6.4e-6 too long, the same way for every element; torch's fused Adam
+takes (1 - beta2) in float32 instead, which leaves its second moments
+1.3e-5 below the CPU's. SGD is `fused=True` (the foreach one would read a
+tensor rate to the host); RMSprop, which has no bias correction, is
+`capturable=True`. The stepped and the graphed paths on the card use this
+same optimizer. On the CPU the rate stays a float and the optimizers are
+torch's defaults.
 """
 
 from __future__ import annotations
@@ -23,17 +40,36 @@ from ..config import Config
 
 
 def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+    params = list(params)
     wd = cfg.weight_decay_rate
+    lr, card = cfg.init_lr, {}
+    on_card = bool(params) and params[0].device.type == "cuda"
+    if on_card:
+        lr = torch.tensor(cfg.init_lr, dtype=torch.float32, device=params[0].device)
+        card = {"sgd": dict(fused=True)}.get(cfg.optimizer, dict(capturable=True))
     if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=cfg.init_lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=wd, amsgrad=True)
+        opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                               weight_decay=wd, amsgrad=True, **card)
+        if on_card:
+            for p in params:
+                opt.state[p] = card_adam_state(p)
+        return opt
     if cfg.optimizer == "sgd":
-        return torch.optim.SGD(params, lr=cfg.init_lr, momentum=0.9, nesterov=True,
-                               weight_decay=wd)
+        return torch.optim.SGD(params, lr=lr, momentum=0.9, nesterov=True,
+                               weight_decay=wd, **card)
     if cfg.optimizer == "rmsprop":
-        return torch.optim.RMSprop(params, lr=cfg.init_lr, alpha=0.99, eps=1e-8, momentum=0.9,
-                                   weight_decay=wd)
+        return torch.optim.RMSprop(params, lr=lr, alpha=0.99, eps=1e-8, momentum=0.9,
+                                   weight_decay=wd, **card)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+def card_adam_state(p: torch.Tensor, step: float = 0.0) -> dict:
+    """A fresh state of the card's amsgrad Adam for `p` at `step`: zero
+    moments and a float64 step count on `p`'s device (the capturable Adam
+    takes its bias corrections in the step count's dtype)."""
+    zeros = lambda: torch.zeros_like(p, memory_format=torch.preserve_format)  # noqa: E731
+    return {"step": torch.tensor(step, dtype=torch.float64, device=p.device),
+            "exp_avg": zeros(), "exp_avg_sq": zeros(), "max_exp_avg_sq": zeros()}
 
 
 def clip_grad_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
@@ -51,8 +87,13 @@ def clip_grad_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Give every param group the rate: in place into a tensor rate (no host
+    sync; a captured step reads it), else as the float."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 class LRSchedule:

@@ -17,6 +17,21 @@ eval pass pads its last batch the same way and masks it out of the losses.
 A step's losses stay on the device until its epoch ends; the host fetches
 them then, and every `log_*_freq` batches for the log, as JAX does.
 
+The fused epoch (`fused_epoch`, on by default as in JAX; JAX
+`_train_one_epoch_fused`, `_eval_one_epoch_fused`): on one rank each epoch
+uploads its (n_batches, B) index matrix once and replays captured steps
+(`graphs.GraphedStep`: a full-batch graph and the masked tail's), the
+losses stacking on the device; the batch log lines and `train_batch`
+summary rows are written after the epoch, at the same steps. An eval pass
+replays an eval-forward graph whose outputs are copied into the epoch's
+device buffers: one fetch, or none with `device_dumps`, and with
+`defer_losses` its per-batch losses stay on the device too. Under
+`eval_interval > 1` `train()` dispatches the epochs between evals and
+fetches their losses at the next eval (JAX `train()`'s `drain`). Fused and
+stepped epochs give the same bits (`tests/test_torch_fused.py`). Ranks of a
+data-parallel group take the stepped path: their collectives are not
+captured.
+
 Data-parallel (`parallel.world_size()` D > 1, one rank a device): every
 rank shuffles alike (`RandomState(seed + epoch)`) and takes its B/D rows of
 each global batch, the padded tail's included. With `shard_cohort` (the
@@ -58,6 +73,7 @@ from ..parallel.cohort import ShardedCohort
 from ..utils.device import resolve_device
 from ..utils.logging import logger, timer
 from . import checkpoint as ckpt
+from .graphs import GraphedStep, SharedPool
 from .optim import LRSchedule, make_optimizer, set_learning_rate
 from .steps import eval_step, gather_batch, train_step
 from .summary import Summary
@@ -99,6 +115,12 @@ class Trainer:
         # the JAX `_shard_cohort`: row-sharded storage on a group of ranks
         self.shard_cohort = self.world > 1 and cfg.shard_cohort
         self._blocks: Dict[str, ShardedCohort] = {}
+        # the fused epoch's steps, by (what, cohort, masked, ...); the loss
+        # names each one stacks
+        self._graphs: Dict[tuple, GraphedStep] = {}
+        self._graph_pool = SharedPool()  # one memory pool for all of them
+        self._loss_keys: Dict[tuple, List[str]] = {}
+        self._said_stepped = False
         self.epoch = 1
         self.flag_dict = ckpt.FlagDict(METRICS)
         self.weight_paths = ckpt.weight_dirs(os.path.join(exp_path, "weight"), METRICS,
@@ -159,12 +181,24 @@ class Trainer:
         if cfg.restore:
             self.load_weight()
         last_valid: Dict[str, float] = {}
+        # eval_interval > 1: fused epochs dispatched and not yet fetched; the
+        # epochs between evals need nothing from the device (the shuffle is
+        # the host's, "step" and "warmup" rates are closed-form, checkpoints
+        # and early stop wait for an eval), so their losses are fetched at
+        # the next eval
+        pending: List[tuple] = []
         with timer("Duration of training"):
             while self.epoch < cfg.max_epochs:
                 is_eval = (cfg.eval_interval <= 1 or self.epoch % cfg.eval_interval == 0
                            or self.epoch + 1 >= cfg.max_epochs)
-                logger.info("==> Epoch %d train %s", self.epoch, _fmt(self.train_one_epoch()))
+                if cfg.eval_interval > 1 and self._can_fuse(self.datasets["training"]):
+                    pending.append((self.epoch, self._dispatch_fused_epoch(),
+                                    self.datasets["training"].num_batches(cfg.batch_size)))
+                else:
+                    logger.info("==> Epoch %d train %s", self.epoch,
+                                _fmt(self.train_one_epoch()))
                 if is_eval:
+                    self._drain(pending)
                     last_valid, _ = self.eval_one_epoch(
                         "valid", self.datasets["validation"], cfg.denoise)
                     early_stop = self.aly_pred("valid", last_valid)["early_stop"]
@@ -178,7 +212,45 @@ class Trainer:
                 if early_stop:
                     logger.info("======== best model: %s", self.flag_dict.to_dict())
                     break
+            self._drain(pending)  # every eval already drained; the last epoch is one
         return last_valid
+
+    def _drain(self, pending: List[tuple]) -> None:
+        """Fetch the dispatched epochs' losses and write their log lines and
+        summary rows (JAX `train()`'s `drain`). Each entry is (epoch,
+        handles, n_batches, *more), `more` going to `_drained`."""
+        if not pending:
+            return
+        for epoch, handles, n_batches, *more in pending:
+            logger.info("==> Epoch %d train %s", epoch,
+                        _fmt(self._finalize_fused_epoch(epoch, handles, n_batches)))
+            self._drained(epoch, *more)
+        first = pending[0][0]
+        logger.info("epochs %d-%d fetched (deferred, eval_interval %d)", first,
+                    pending[-1][0], self.cfg.eval_interval)
+        pending.clear()
+
+    def _drained(self, epoch: int, *more) -> None:
+        """What a trainer writes for a drained epoch beside its train row:
+        nothing here."""
+
+    def _can_fuse(self, ds: ArrayDataset) -> bool:
+        """The fused train epoch's precondition (JAX `_can_fuse`: the switch
+        and a full batch), here also one rank: a data-parallel group steps
+        (its collectives are not captured). Where the switch is on and the
+        epoch steps all the same, the log says why, once."""
+        cfg = self.cfg
+        if not cfg.fused_epoch:
+            return False
+        why = None
+        if len(ds) < cfg.batch_size:
+            why = f"{len(ds)} encounters, fewer than a batch of {cfg.batch_size}"
+        elif self.world > 1:
+            why = f"{self.world} data-parallel ranks, whose collectives are not captured"
+        if why and not self._said_stepped:
+            logger.info("fused_epoch: the epochs step eagerly: %s", why)
+            self._said_stepped = True
+        return why is None
 
     def _epoch_batches(self, epoch: int) -> List[Batch]:
         """The epoch's shuffled batches as (rows, sample mask) on the
@@ -249,6 +321,15 @@ class Trainer:
         writes them as the summary's `train` row. Every `log_train_freq`
         batches one step's losses are fetched for the log."""
         t0 = time.perf_counter()
+        if self._can_fuse(self.datasets["training"]):
+            n = len(self.datasets["training"])
+            out = self._finalize_fused_epoch(self.epoch, self._dispatch_fused_epoch(),
+                                             self.datasets["training"].num_batches(
+                                                 self.cfg.batch_size))
+            seconds = time.perf_counter() - t0
+            logger.info("epoch %d trained in %.4f s, %.1f encounters/s (fused)", self.epoch,
+                        seconds, n / seconds)
+            return out
         batches = self._epoch_batches(self.epoch)
         n_batches = len(batches)
         losses = []
@@ -260,7 +341,7 @@ class Trainer:
                             100.0 * i / n_batches, _fmt(fetched))
                 self.summary.add_summary(self.epoch * n_batches + i, scope="train_batch",
                                          **fetched)
-        out = _batch_means(losses)  # the fetch ends the epoch's device work
+        out = _batch_means(_loss_table(losses))  # the fetch ends the epoch's device work
         seconds = time.perf_counter() - t0
         logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s", self.epoch, seconds,
                     len(self.datasets["training"]) / seconds,
@@ -283,10 +364,79 @@ class Trainer:
             raise RuntimeError(f"data-parallel ranks drifted apart after epoch {self.epoch}: "
                                f"{differ[:8]}")
 
+    # ------------------------------------------------------ fused epoch
+    def _mutable_state(self) -> List[torch.Tensor]:
+        """What a train step changes in place: the parameters, the BatchNorm
+        buffers and the optimizer's state tensors."""
+        out = list(self.net.parameters()) + list(self.net.buffers())
+        for p in self.net.parameters():
+            out += [v for _, v in sorted(self.opt.state.get(p, {}).items())
+                    if isinstance(v, torch.Tensor)]
+        return out
+
+    def _graph(self, key: tuple, fn, masked: bool, warmup: int) -> GraphedStep:
+        if key not in self._graphs:
+            self._graphs[key] = GraphedStep(fn, self.cfg.batch_size, self.device, masked,
+                                            self.generator, self._mutable_state, warmup,
+                                            self._graph_pool)
+        return self._graphs[key]
+
+    def _train_graph(self, masked: bool) -> GraphedStep:
+        """The captured train step over the training cohort: the full batch,
+        or the masked tail (`sample_mask` from the graph's mask buffer)."""
+        key = ("train", masked)
+        data, cfg = self.cohort_data("training"), self.cfg
+
+        def fn(rows, mask):
+            batch = gather_batch(data, rows)
+            if mask is not None:
+                batch["sample_mask"] = mask
+            losses = train_step(self.net, self.opt, cfg, batch, self.generator, cfg.denoise)
+            self._loss_keys[key] = list(losses)
+            return {"losses": torch.stack(list(losses.values()))}
+
+        # two warm-up steps: the first makes the optimizer's state
+        return self._graph(key, fn, masked, warmup=2)
+
+    def _dispatch_fused_epoch(self) -> Tuple[torch.Tensor, List[str]]:
+        """Replay the epoch's steps with no host sync: the batches of
+        `_epoch_batches` (its index matrix uploaded once, the tail padded),
+        each batch's rows copied into the graph's buffer, its losses into the
+        epoch's (n_batches, K) table on the device. Returns (the table, the
+        loss names)."""
+        batches = self._epoch_batches(self.epoch)
+        table = None
+        for i, (rows, mask) in enumerate(batches):
+            out = self._train_graph(mask is not None)(rows, mask)["losses"]
+            if table is None:
+                table = torch.empty((len(batches),) + tuple(out.shape), dtype=out.dtype,
+                                    device=self.device)
+            table[i].copy_(out)
+        self.num_updates += len(batches)
+        return table, self._loss_keys[("train", mask is not None)]
+
+    def _finalize_fused_epoch(self, epoch: int, handles: Tuple[torch.Tensor, List[str]],
+                              n_batches: int) -> Dict[str, float]:
+        """Fetch a dispatched epoch's losses and write its batch log lines and
+        `train_batch` rows (at the steps the stepped epoch logs them) and its
+        `train` row (JAX `_finalize_fused_epoch`)."""
+        table, keys = handles
+        table = table.cpu().numpy()
+        for i in range(1, table.shape[0] + 1):
+            if i % self.cfg.log_train_freq == 1:
+                fetched = {k: float(table[i - 1, j]) for j, k in enumerate(keys)}
+                logger.info("%d-[%d/%d (%.0f%%)]: train-%s", epoch, i, n_batches,
+                            100.0 * i / n_batches, _fmt(fetched))
+                self.summary.add_summary(epoch * n_batches + i, scope="train_batch",
+                                         **fetched)
+        out = _batch_means((table, keys))
+        self.summary.add_summary(epoch, scope="train", **out)
+        return out
+
     # -------------------------------------------------------------- eval
     def eval_one_epoch(self, scope: str, ds: ArrayDataset, denoise: bool,
                        dump_keys: Optional[Tuple[str, ...]] = None,
-                       device_dumps: bool = False
+                       device_dumps: bool = False, defer_losses: bool = False
                        ) -> Tuple[Dict[str, float], Dict[str, list]]:
         """Every encounter of `ds` once, in order, in batches of B: the last
         one padded to B by repeating its real rows, `sample_mask` 1 on them.
@@ -296,8 +446,14 @@ class Trainer:
         `device_dumps` the dumps stay on the device as tensors (for a
         consumer that runs there: p3's k-means and label delta). A sharded
         cohort is read in its identity order (JAX `ensure(identity_order())`),
-        the last block's padding masked by `eval_mask`."""
+        the last block's padding masked by `eval_mask`. On one rank with
+        `fused_epoch` the pass replays captured eval steps
+        (`_eval_one_epoch_fused`); there `defer_losses` (with `device_dumps`)
+        returns the per-batch losses as device tensors, unfetched."""
         cfg = self.cfg
+        if cfg.fused_epoch and self.world == 1:
+            return self._eval_one_epoch_fused(scope, ds, denoise, dump_keys, device_dumps,
+                                              defer_losses)
         n, b = len(ds), cfg.batch_size
         n_batches = ds.num_batches(b)
         rows = parallel.shard_rows(b)
@@ -306,21 +462,20 @@ class Trainer:
             self._relayout(blocks, blocks.identity_order(), f"{scope} eval")
         else:
             data = self.cohort_data(ds.cohort)
+            idx, tail_mask = self._eval_rows(n, b)
+            idx = torch.as_tensor(idx, device=self.device)
         pending = []
         for i in range(1, n_batches + 1):
-            start = (i - 1) * b
-            idx = np.arange(start, min(start + b, n))
             mask = None
+            tail = i == n_batches and n % b != 0
             if self.shard_cohort:
-                if len(idx) < b:
+                if tail:
                     mask = torch.as_tensor(blocks.eval_mask[i - 1][rows], device=self.device)
                 batch = blocks.block(i - 1)
             else:
-                if len(idx) < b:
-                    padded, _ = parallel.pad_batch_to({"idx": idx}, b)
-                    idx = padded["idx"]
-                    mask = torch.as_tensor(padded["sample_mask"][rows], device=self.device)
-                batch = gather_batch(data, torch.as_tensor(idx[rows], device=self.device))
+                if tail:
+                    mask = torch.as_tensor(tail_mask[rows], device=self.device)
+                batch = gather_batch(data, idx[i - 1][rows])
             losses, outputs = eval_step(self.net, cfg, batch, self.generator, denoise,
                                         mask, dump_keys)
             pending.append((losses, outputs))
@@ -328,12 +483,83 @@ class Trainer:
                 logger.info("%d-[%d/%d (%.0f%%)]: %s-%s", self.epoch, i, n_batches,
                             100.0 * i / n_batches, scope,
                             _fmt({k: float(v) for k, v in losses.items()}))
-        metrics = _batch_means([losses for losses, _ in pending])
+        metrics = _batch_means(_loss_table([losses for losses, _ in pending]))
         dumps: Dict[str, list] = defaultdict(list)
         for k in pending[0][1]:
             out = parallel.gather_blocks(torch.cat([o[k] for _, o in pending]),
                                          n_batches)[:n]
             dumps[k].append(out if device_dumps else out.cpu().numpy())
+        dumps["__index__"].append(np.arange(n))
+        return metrics, dumps
+
+    @staticmethod
+    def _eval_rows(n: int, b: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """An eval pass's rows over `n` encounters in order: the (n_batches,
+        b) index matrix, the last batch padded to b by repeating its real
+        rows (`parallel.pad_batch_to`), and that batch's sample mask (None
+        when b divides n)."""
+        n_batches, n_full = -(-n // b), n // b
+        idx = np.arange(n_batches * b).reshape(n_batches, b)
+        mask = None
+        if n_full < n_batches:
+            padded, _ = parallel.pad_batch_to({"idx": np.arange(n_full * b, n)}, b)
+            idx[n_full] = padded["idx"]
+            mask = padded["sample_mask"]
+        return idx, mask
+
+    def _eval_graph(self, cohort: str, denoise: bool, dump_keys: Optional[Tuple[str, ...]],
+                    masked: bool) -> GraphedStep:
+        """The captured eval forward over `cohort`: its losses stacked and the
+        per-encounter outputs (`dump_keys` of them when given)."""
+        key = ("eval", cohort, denoise, dump_keys, masked)
+        data, cfg = self.cohort_data(cohort), self.cfg
+
+        def fn(rows, mask):
+            losses, outputs = eval_step(self.net, cfg, gather_batch(data, rows),
+                                        self.generator, denoise, mask, dump_keys)
+            self._loss_keys[key] = list(losses)
+            return {"__losses__": torch.stack(list(losses.values())), **outputs}
+
+        return self._graph(key, fn, masked, warmup=1)
+
+    def _eval_one_epoch_fused(self, scope: str, ds: ArrayDataset, denoise: bool,
+                              dump_keys: Optional[Tuple[str, ...]], device_dumps: bool,
+                              defer_losses: bool) -> Tuple[Dict[str, object], Dict[str, list]]:
+        """The fused eval pass (JAX `_eval_one_epoch_fused`): the batches of
+        the stepped pass (the last padded by repeating its real rows, its
+        mask 1 on them) through the eval graphs, each replay's losses and
+        outputs copied into the pass's device buffers. The dumps are fetched
+        once, or with `device_dumps` stay on the device; with `defer_losses`
+        too the metrics are the per-batch losses on the device ({name: (n_batches,)})."""
+        n, b = len(ds), self.cfg.batch_size
+        n_batches, n_full = ds.num_batches(b), n // b
+        idx, mask = self._eval_rows(n, b)
+        idx = torch.as_tensor(idx, device=self.device)
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=self.device)
+        table, bufs = None, {}
+        for i in range(n_batches):
+            tail = i == n_full
+            out = self._eval_graph(ds.cohort, denoise, dump_keys, tail)(
+                idx[i], mask if tail else None)
+            if table is None:
+                table = torch.empty((n_batches,) + tuple(out["__losses__"].shape),
+                                    device=self.device)
+                bufs = {k: torch.empty((n_batches * b,) + tuple(v.shape[1:]), dtype=v.dtype,
+                                       device=self.device)
+                        for k, v in out.items() if k != "__losses__"}
+            table[i].copy_(out["__losses__"])
+            for k, buf in bufs.items():
+                buf[i * b:(i + 1) * b].copy_(out[k])
+        keys = self._loss_keys[("eval", ds.cohort, denoise, dump_keys, tail)]
+        if defer_losses and device_dumps:
+            metrics: Dict[str, object] = {k: table[:, j] for j, k in enumerate(keys)}
+        else:
+            metrics = _batch_means((table.cpu().numpy(), keys))
+            logger.info("%d: %s-%s", self.epoch, scope, _fmt(metrics))
+        dumps: Dict[str, list] = defaultdict(list)
+        for k, buf in bufs.items():
+            dumps[k].append(buf[:n] if device_dumps else buf[:n].cpu().numpy())
         dumps["__index__"].append(np.arange(n))
         return metrics, dumps
 
@@ -463,6 +689,10 @@ class Trainer:
             self.lr_schedule.lr = meta["lr"]
             self.lr_schedule.num_steps = epoch
         set_learning_rate(self.opt, self.lr_schedule.lr)
+        # the optimizer's state tensors are new objects: the train steps are
+        # captured again (the eval steps read the parameters and buffers,
+        # which `load_state_dict` copied in place)
+        self._graphs = {k: g for k, g in self._graphs.items() if k[0] != "train"}
         for d in self.weight_paths.values():
             p = os.path.join(d, ckpt.CKPT_NAME)
             if os.path.exists(p):
@@ -488,10 +718,16 @@ class Trainer:
         self.summary.close()
 
 
-def _batch_means(losses: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
-    """The mean over batches of each loss, fetched from the device at once."""
+def _loss_table(losses: List[Dict[str, torch.Tensor]]) -> Tuple[np.ndarray, List[str]]:
+    """The per-batch losses as one (batches, losses) table, fetched from the
+    device at once, and the loss names."""
     keys = list(losses[0])
-    table = torch.stack([torch.stack([l[k] for k in keys]) for l in losses]).cpu().numpy()
+    return torch.stack([torch.stack([l[k] for k in keys]) for l in losses]).cpu().numpy(), keys
+
+
+def _batch_means(table_keys: Tuple[np.ndarray, List[str]]) -> Dict[str, float]:
+    """The mean over batches of each loss of a `_loss_table`."""
+    table, keys = table_keys
     return {k: float(np.mean(table[:, j], dtype=np.float64)) for j, k in enumerate(keys)}
 
 

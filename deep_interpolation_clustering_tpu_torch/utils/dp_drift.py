@@ -3,19 +3,25 @@
     python -m deep_interpolation_clustering_tpu_torch.utils.dp_drift [--n_total 3000] [--dropout 0.2] [--epochs 2]
 
 At the default `Config` width (B=256, T=354, H=128) on a synthetic cohort
-of `--n_total` encounters at T=354 (70% training), three `Trainer` runs
-take the same steps over `--epochs` shuffled epochs, without eval or
-schedule: one process; one process whose initial weights are nudged by
-2^-24 of themselves (random signs, seed 0), the size of a float32
-summation-order difference; and two ranks sharing the card over gloo. For
-each of the last two it prints, per step, the largest loss difference from
-the first run, the largest parameter difference and the number of
-parameter elements beyond 1e-4; then the largest latent and `rec_ob`
-differences of a validation pass, and the parameter tensors that drift
-most. If two ranks drift no further than the nudged process, the drift is
-the trajectory's amplification of float32 noise, not a fault of the
-data-parallel path. Needs one CUDA card; prints the card's name and power
-limit.
+of `--n_total` encounters at T=354 (70% training), `Trainer` runs take the
+same steps over `--epochs` shuffled epochs, stepped, without eval or
+schedule: one process with the port's optimizer ("one"); that process with
+its initial weights nudged by 2^-24 of themselves (random signs, seeds 0, 1
+and 2), the size of a float32 summation-order difference, once; with every
+gradient element nudged so at every step (fresh signs each step), which is
+where two ranks' gradient sums differ from one process's; with torch's
+default Adam (a float rate, the step count on the host: the port's Adam
+rounded another way) and with the capturable Adam on its own float32 step
+counts (bias corrections in float32: every step 6.4e-6 longer) in place of
+the port's, each also nudged (seeds 0 and 1) against itself; and two ranks
+sharing the card over gloo.
+For each it prints, per step, the largest loss difference from its
+reference, the largest parameter difference and the number of parameter
+elements beyond 1e-4; then the largest latent and `rec_ob` differences of a
+validation pass, and the parameter tensors that drift most. If two ranks
+drift no further than the nudged processes, the drift is the trajectory's
+amplification of float32 noise, not a fault of the data-parallel path.
+Needs one CUDA card; prints the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import json
 import os
 import subprocess
 import tempfile
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,23 +44,64 @@ from .device import resolve_device
 
 NUDGE = 2.0 ** -24
 
+# (name, run's options, the run it is held against)
+RUNS = [("one", {}, None)]
+RUNS += [(f"nudged_s{i}", dict(nudge=i), "one") for i in range(3)]
+RUNS += [("grad_nudged", dict(grad_nudge=True), "one")]
+for _adam_kind in ("default", "capturable_f32"):
+    RUNS += [(f"{_adam_kind}_adam", dict(adam=_adam_kind), "one")]
+    RUNS += [(f"{_adam_kind}_adam_nudged_s{i}", dict(adam=_adam_kind, nudge=i),
+              f"{_adam_kind}_adam") for i in range(2)]
+
 
 def _flat(net) -> np.ndarray:
     return torch.cat([p.detach().reshape(-1) for p in net.parameters()]).cpu().numpy()
 
 
-def run(argv, exp: str, device, epochs: int, nudge: bool = False) -> dict:
+def _adam(kind: str, cfg: Config, params) -> torch.optim.Optimizer:
+    """torch's default Adam ("default") or the capturable one on its own
+    float32 step counts ("capturable_f32", a tensor rate) with the port's
+    hyperparameters."""
+    params = list(params)
+    kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay_rate, amsgrad=True)
+    if kind == "default":
+        return torch.optim.Adam(params, lr=cfg.init_lr, **kw)
+    lr = torch.tensor(cfg.init_lr, dtype=torch.float32, device=params[0].device)
+    return torch.optim.Adam(params, lr=lr, capturable=True, **kw)
+
+
+def _nudge_grads(net, seed: int) -> None:
+    """Every gradient element, at every backward, times 1 +- 2^-24 (signs
+    drawn afresh each time from a generator of its own)."""
+    gens = {}
+
+    def hook(g):
+        gen = gens.setdefault(g.device, torch.Generator(g.device).manual_seed(seed))
+        sign = torch.randint(0, 2, g.shape, generator=gen, device=g.device).to(g.dtype) * 2 - 1
+        return g + g * sign * NUDGE
+
+    for p in net.parameters():
+        p.register_hook(hook)
+
+
+def run(argv, exp: str, device, epochs: int, nudge: Optional[int] = None,
+        grad_nudge: bool = False, adam: Optional[str] = None) -> dict:
     """The steps of `epochs` epochs from the seed's weights (nudged with
-    `nudge`): each step's losses and parameters, then a validation pass's
-    latents and reconstructions."""
+    the seed `nudge`; the gradients nudged at every step with `grad_nudge`;
+    with `adam`, that Adam in place of the port's): each step's losses and
+    parameters, then a validation pass's latents and reconstructions."""
     cfg = config_from_args(build_parser("dp_drift").parse_args(argv))
     tr = Trainer(cfg, make_datasets(cfg), exp, device=device)
-    if nudge:
-        g = torch.Generator().manual_seed(0)
+    if adam:
+        tr.opt = _adam(adam, cfg, tr.net.parameters())
+    if nudge is not None:
+        g = torch.Generator().manual_seed(nudge)
         with torch.no_grad():
             for p in tr.net.parameters():
                 sign = torch.randint(0, 2, p.shape, generator=g).to(p.device, p.dtype) * 2 - 1
                 p.add_(p * sign * NUDGE)
+    if grad_nudge:
+        _nudge_grads(tr.net, 0)
     losses, params = [], []
     for epoch in range(1, epochs + 1):
         for idx, mask in tr._epoch_batches(epoch):
@@ -117,13 +165,15 @@ def main() -> None:
         save_processed(Config(base_path=base), cohorts)
         argv = ["--base_path", base, "--results_path", os.path.join(root, "Results"),
                 "--dropout", str(args.dropout)]
-        one = run(argv, os.path.join(root, "one"), "cuda", args.epochs)
-        nudged = run(argv, os.path.join(root, "nudged"), "cuda", args.epochs, nudge=True)
-        two = parallel.spawn(_rank, 2, (f"127.0.0.1:{parallel.free_port()}", argv,
-                                        os.path.join(root, "two"), args.epochs))[0]
-    for name, other in (("two_ranks", two), ("nudged", nudged)):
-        print(json.dumps(dict(_report(name, other, one), dropout=args.dropout,
-                              n_total=args.n_total, epochs=args.epochs)), flush=True)
+        runs = {name: run(argv, os.path.join(root, name), "cuda", args.epochs, **kw)
+                for name, kw, _ in RUNS}
+        runs["two_ranks"] = parallel.spawn(_rank, 2, (
+            f"127.0.0.1:{parallel.free_port()}", argv, os.path.join(root, "two"),
+            args.epochs))[0]
+    for name, _, ref in RUNS[1:] + [("two_ranks", {}, "one")]:
+        print(json.dumps(dict(_report(name, runs[name], runs[ref]), against=ref,
+                              dropout=args.dropout, n_total=args.n_total,
+                              epochs=args.epochs)), flush=True)
     print(smi, flush=True)
 
 

@@ -19,12 +19,21 @@ cohort, and prints one JSON object with:
     its rank; and `rbf_backward`, the device time of the kernels launched
     inside the `rbf_push_backward` range (RBFFunction's backward, which
     recomputes the push in plain PyTorch and differentiates it), with the
-    span of that range on the device's timeline.
+    span of that range on the device's timeline;
+  * `graphed`: the same step as the fused epoch runs it, a replay of the
+    captured step (`train/graphs.py`) with its rows copied in and its
+    losses copied out: the seconds of the warm-up and capture, the device
+    memory the capture reserved, the median ms of a replayed step, and the
+    same `torch.profiler` window over replays (device-busy ms, idle share,
+    device operations a step, the hand kernels);
+  * `turns_ms`: the stepped and the replayed step's ms, in turns
+    (`step_turns`), so that the host's load moves both alike.
 It needs a CUDA card and raises without one.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import time
 from collections import defaultdict
@@ -66,6 +75,32 @@ def phase_times(trainer, n: int) -> Dict[str, float]:
                                                                      cfg.grad_clip)))
         times["optimizer"].append(_sync_ms(opt.step))
     return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def graphed_step(trainer) -> Callable:
+    """A callable that does one batch of the fused epoch on the trainer's
+    full batches in turn: the rows into the captured full-batch step's
+    buffer, a replay, the losses copied out (`Trainer._dispatch_fused_epoch`'s
+    work a batch). The graph is captured on the first call."""
+    graph = trainer._train_graph(False)
+    rows = itertools.cycle([idx for idx, mask in trainer._epoch_batches(trainer.epoch)
+                            if mask is None])
+    out = {}
+
+    def step():
+        out["losses"] = graph(next(rows))["losses"].clone()
+
+    return step
+
+
+def step_turns(steps: Dict[str, Callable], turns: int, n: int) -> Dict[str, List[float]]:
+    """Each step's ms (the mean over `n` calls ended by a synchronise), the
+    steps in turns, `turns` times."""
+    out: Dict[str, List[float]] = defaultdict(list)
+    for _ in range(turns):
+        for name, step in steps.items():
+            out[name].append(_sync_ms(lambda: [step() for _ in range(n)]) / n)
+    return dict(out)
 
 
 def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
@@ -147,6 +182,10 @@ def main() -> None:
     stream = trainer._stream()
     step = lambda: trainer.step(*next(stream))
     step_ms = float(np.median([_sync_ms(step) for _ in range(10)]))
+    replay = graphed_step(trainer)
+    replay()  # warm-up and capture
+    graph = trainer._graphs[("train", False)]
+    replay_ms = float(np.median([_sync_ms(replay) for _ in range(10)]))
     torch.cuda.reset_peak_memory_stats()
     out = {
         "device": torch.cuda.get_device_name(0),
@@ -158,11 +197,20 @@ def main() -> None:
         "phases_ms": phase_times(trainer, 10),
         "profile": device_profile(step, 5),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "graphed": {
+            "capture_s": graph.capture_seconds, "pool_bytes": graph.pool_bytes,
+            "launches_per_replay": graph.launches, "step_ms": replay_ms,
+            "profile": device_profile(replay, 20),
+        },
+        "turns_ms": step_turns({"stepped": step, "graphed": replay}, 4, 10),
     }
     # the profiler slows the host, so the idle share of an unprofiled step
     # is read against `step_ms`
     prof = out["profile"]
     out["device_idle_share_at_step_ms"] = 1.0 - prof["device_busy_ms"] / prof["window_steps"] / step_ms
+    gprof = out["graphed"]["profile"]
+    out["graphed"]["device_idle_share_at_step_ms"] = (
+        1.0 - gprof["device_busy_ms"] / gprof["window_steps"] / replay_ms)
     trainer.close()
     run_dir.cleanup()
     print(json.dumps(out, indent=1))

@@ -1,0 +1,165 @@
+"""The fused epoch on the card: epochs replayed from captured CUDA graphs
+against the same epochs stepped eagerly, bit for bit. They need a CUDA card
+and `nvcc`, so they skip elsewhere; they import neither JAX nor this
+directory's conftest:
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_fused_gpu.py
+
+Two trainers from one seed on one cohort: one replays the graphs
+(`Trainer._dispatch_fused_epoch`), the other steps (`Trainer.step` over
+`_epoch_batches`), two epochs each with another rate for the second (the
+graph reads the rate tensor written in place). Equal: the per-batch losses,
+the parameters, the BatchNorm buffers, the optimizer state, the generator's
+state (each replay advances Philox as the eager step does), and the
+hand-kernel launches of an epoch; then a fused eval pass's metrics and dumps
+against a stepped one. At the default Config (B=256, T=354) with and
+without a masked tail, at the scaled configuration (B=4096, T=48, with its
+tail) and under `compute_dtype="bfloat16"`.
+
+The card's optimizer (`make_optimizer` on CUDA parameters: a tensor rate;
+Adam capturable on float64 step counts, SGD fused, RMSprop capturable)
+against the CPU's (torch's default
+optimizers, a float rate) from the same parameters and gradients, four
+steps with the rate changed by `set_learning_rate` before the third:
+parameters and state within 1e-6 of the largest value after every step.
+"""
+
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from deep_interpolation_clustering_tpu_torch import Config
+from deep_interpolation_clustering_tpu_torch.data import (
+    ArrayDataset,
+    make_synthetic_cohorts,
+    process_splits,
+)
+from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
+from deep_interpolation_clustering_tpu_torch.train import Trainer
+from deep_interpolation_clustering_tpu_torch.train.optim import make_optimizer, set_learning_rate
+from deep_interpolation_clustering_tpu_torch.utils import resolve_device
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs and the hand-written kernels")
+    return resolve_device("cuda")  # TF32 off
+
+
+def _datasets(cfg, n_train, n_valid, seed=11):
+    n_total = n_train + n_valid
+    share = (n_train + 0.5) / n_total  # int(share * n_total) = n_train
+    cohorts = process_splits(
+        make_synthetic_cohorts(n_total=n_total, max_obs=cfg.num_timestamps, seed=seed,
+                               split=(share, 1.0 - share, 0.0)),
+        rng=np.random.RandomState(0))
+    ds = {k: ArrayDataset(cfg, cohorts[k], k) for k in ("training", "validation")}
+    assert len(ds["training"]) == n_train
+    return ds
+
+
+def _launches():
+    return {w.name: w.launches for w in cb.KERNELS}
+
+
+def _state(tr):
+    out = dict(tr.net.state_dict())
+    for i, p in enumerate(tr.net.parameters()):
+        out.update({f"opt.{i}.{k}": v for k, v in tr.opt.state[p].items()})
+    return out
+
+
+@pytest.mark.parametrize("width,n_train,dtype", [
+    ("default", 2 * 256 + 60, "float32"),
+    ("default", 2 * 256, "float32"),
+    ("scaled", 2 * 4096 + 368, "float32"),
+    ("default", 2 * 256 + 60, "bfloat16"),
+    ("scaled", 2 * 4096 + 368, "bfloat16"),
+], ids=["default_tail", "default_no_tail", "scaled_tail", "default_bf16", "scaled_bf16"])
+def test_graph_epochs_equal_stepped_epochs(dev, width, n_train, dtype):
+    cfg = Config(compute_dtype=dtype)
+    if width == "scaled":
+        cfg = cfg.replace(batch_size=4096, num_timestamps=48)
+    ds = _datasets(cfg, n_train, 300)
+    fused = Trainer(cfg, ds, tempfile.mkdtemp(), device=dev)
+    stepped = Trainer(cfg.replace(fused_epoch=False), ds, tempfile.mkdtemp(), device=dev)
+    n_batches = ds["training"].num_batches(cfg.batch_size)
+    for epoch, lr in ((1, cfg.init_lr), (2, 1e-3)):
+        for tr in (fused, stepped):
+            set_learning_rate(tr.opt, lr)
+        cb.reset_launch_counts()
+        table, keys = fused._dispatch_fused_epoch()
+        torch.cuda.synchronize()
+        fused_launches = _launches()
+        cb.reset_launch_counts()
+        losses = [stepped.step(*b) for b in stepped._epoch_batches(stepped.epoch)]
+        torch.cuda.synchronize()
+        stepped_launches = _launches()
+        if epoch == 2:  # the first epoch's count has the graphs' warm-up too
+            assert fused_launches == stepped_launches
+        assert all(n > 0 for k, n in stepped_launches.items()
+                   if k != ("fake_select" if cfg.num_timestamps <= 192 else
+                            "fake_select_packed"))
+        want = torch.stack([torch.stack([l[k] for k in keys]) for l in losses])
+        assert table.shape == (n_batches, len(keys))
+        assert torch.equal(table, want), float((table - want).abs().max())
+        for tr in (fused, stepped):
+            tr.epoch += 1
+    got, want = _state(fused), _state(stepped)
+    assert got.keys() == want.keys()
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    assert not differ, differ
+    assert torch.equal(fused.generator.get_state(), stepped.generator.get_state())
+    assert fused.num_updates == stepped.num_updates == 2 * n_batches
+    # an eval pass: replayed against stepped, the dumps fetched
+    valid = ds["validation"]
+    m_fused, d_fused = fused.eval_one_epoch("valid", valid, False)
+    m_stepped, d_stepped = stepped.eval_one_epoch("valid", valid, False)
+    assert m_fused == m_stepped
+    assert set(d_fused) == set(d_stepped)
+    for k in d_stepped:
+        assert np.array_equal(d_fused[k][0], d_stepped[k][0]), k
+    assert torch.equal(fused.generator.get_state(), stepped.generator.get_state())
+    for tr in (fused, stepped):
+        tr.close()
+
+
+@pytest.mark.parametrize("start", ["random", "zero"])
+@pytest.mark.parametrize("optimizer", ["adam", "sgd", "rmsprop"])
+def test_card_optimizer_steps_as_the_cpu_one(dev, optimizer, start):
+    """From zero parameters the first step's parameters are the update
+    itself, so a bias correction taken in float32 (the capturable Adam's
+    1 - 0.999^t on float32 step counts, which makes every step 6.4e-6 too
+    long) fails the 1e-6 bound."""
+    cfg = Config(optimizer=optimizer)
+    g = torch.Generator().manual_seed(0)
+    shapes = [(512, 128), (128,), (6, 354)]
+    init = [torch.zeros(s) if start == "zero" else torch.randn(s, generator=g) * 0.1
+            for s in shapes]
+    card = [torch.nn.Parameter(t.to(dev)) for t in init]
+    cpu = [torch.nn.Parameter(t.clone()) for t in init]
+    opt_card, opt_cpu = make_optimizer(cfg, card), make_optimizer(cfg, cpu)
+    assert isinstance(opt_card.param_groups[0]["lr"], torch.Tensor)
+    for step in range(4):
+        if step == 2:
+            for opt in (opt_card, opt_cpu):
+                set_learning_rate(opt, cfg.init_lr / 7)
+        for pc, pg in zip(cpu, card):
+            pc.grad = torch.randn(pc.shape, generator=g)
+            pg.grad = pc.grad.to(dev)
+        opt_card.step()
+        opt_cpu.step()
+        for i, (pc, pg) in enumerate(zip(cpu, card)):
+            pairs = [("param", pg.detach(), pc.detach())]
+            pairs += [(k, opt_card.state[pg][k], v) for k, v in opt_cpu.state[pc].items()]
+            for k, got, want in pairs:
+                # compared in float64: the card's Adam counts its steps in it
+                got, want = got.detach().cpu().double(), want.detach().double()
+                tol = 1e-6 * float(want.abs().max())
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=tol,
+                                           msg=lambda m: f"step {step} tensor {i} {k}: {m}")

@@ -40,6 +40,7 @@ from deep_interpolation_clustering_tpu_torch.data import (
 )
 from deep_interpolation_clustering_tpu_torch.train import Trainer, make_optimizer, update
 from deep_interpolation_clustering_tpu_torch.train.optim import clip_grad_global_norm_
+from deep_interpolation_clustering_tpu_torch.train.graphs import GraphedStep
 from test_torch_model import configs, jax_batch, port_net, to_torch
 
 torch.set_num_threads(1)
@@ -213,8 +214,9 @@ def test_masked_tail_step_matches_jax():
 
 def test_trainer_epoch_visits_every_encounter_once(monkeypatch, tmp_path):
     """42 training encounters at B=8: five full batches and a masked tail of
-    2 real rows padded by repeating them. `train_one_epoch` and the
-    `train_steps` stream each visit every training index exactly once."""
+    2 real rows padded by repeating them. `train_one_epoch`, fused (the
+    rows given to the graph steps) and stepped, and the `train_steps`
+    stream each visit every training index exactly once."""
     _, cfg = configs()
     cohorts = port_process_splits(
         port_synthetic(n_total=60, max_obs=cfg.num_timestamps, seed=3),
@@ -228,6 +230,9 @@ def test_trainer_epoch_visits_every_encounter_once(monkeypatch, tmp_path):
     step = tr.step
     monkeypatch.setattr(tr, "step", lambda idx, mask=None: seen.append((idx, mask))
                         or step(idx, mask))
+    replay = GraphedStep.__call__
+    monkeypatch.setattr(GraphedStep, "__call__", lambda self, rows, mask=None: seen.append(
+        (rows.clone(), mask)) or replay(self, rows, mask))
 
     def real_rows():
         rows = []
@@ -244,6 +249,11 @@ def test_trainer_epoch_visits_every_encounter_once(monkeypatch, tmp_path):
         seen.clear()
         return sorted(rows)
 
+    assert cfg.fused_epoch
+    epoch = tr.train_one_epoch()
+    assert np.isfinite(epoch["loss"]) and tr._graphs
+    assert real_rows() == list(range(n))
+    cfg.fused_epoch = False
     epoch = tr.train_one_epoch()
     assert np.isfinite(epoch["loss"])
     assert real_rows() == list(range(n))
