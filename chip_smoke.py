@@ -96,8 +96,15 @@ not 0):
                bfloat16` for two epochs beside the p1 phase's
   9c. dp     - data-parallel and multi-process runs through the entry points
                at the default Config on the p0 phase's pickles (`dp_phase`):
-               `cli.p1.main --data_parallel 1` (one NCCL rank) and p1 under
-               torchrun (env://) bit for bit against one process; two ranks sharing the card over gloo
+               `cli.p1.main --data_parallel 1` (one NCCL rank, its epochs
+               replayed from graphs that hold the group's collectives), the
+               same under `--fused_epoch false`, and p1 under torchrun
+               (env://) bit for bit against one process, and p3 at
+               `--data_parallel 1` fused and stepped against p3 alone; one
+               NCCL rank's replayed step against its stepped step and a
+               replay without a group, in turns (ms, device-busy ms, idle
+               share, NCCL kernels and ms, the collectives issued stepped,
+               at capture and by replays, capture seconds, pool bytes); two ranks sharing the card over gloo
                for one step and the masked tail (within invariant 1's band,
                the ranks' parameters the same bits), then for two p1 epochs
                and three p3 epochs (held to the band or to 10x the drift of
@@ -106,8 +113,9 @@ not 0):
                every file written once; the two-rank p1 run row-sharded
                (`shard_cohort`, the default) against `--shard_cohort false`
                bit for bit, each rank's cohort bytes both ways and each
-               epoch's relayout seconds, p3 sharded too; two NCCL ranks where there are two
-               cards (else `"nccl_2": "skipped: 1 card"`); p2 and p4 at
+               epoch's relayout seconds, p3 sharded too; two NCCL ranks,
+               fused and stepped, where there are two cards (else
+               `"nccl_2": "skipped: 1 card"`); p2 and p4 at
                `--num_processes 2` as two processes on the card, the CSVs
                and labels those of one process; `cli.p2 --data_parallel 2`
                (two gloo ranks, the latents row-sharded) against one
@@ -1009,19 +1017,27 @@ DEVICE_KERNELS = {
 
 
 def _replay_launches(prof: dict, counted: dict, tag: str) -> dict:
-    """The hand kernels that the profiler saw run in each replay
-    (`device_profile`'s `hand_kernels` over replays of the graph), by
-    device kernel; raises unless each wrapper's count for a replay
+    """The hand kernels that the profiler saw run in a replay of the graph
+    (`device_profile`'s `replay_kernels`), by device kernel; raises unless
+    the host launched every replay of the window, the trace holds the device
+    events of more than half of them (CUPTI has been seen to drop all of one
+    replay's events), and in each replay it holds each wrapper's count
     (`GraphedStep.launches`, recorded at capture) is what ran."""
+    replays, n = prof["replay_kernels"], prof["window_steps"]
+    if prof["graph_launches"] != n or 2 * len(replays) <= n:
+        raise AssertionError(f"fused {tag}: {prof['graph_launches']} graph launches, "
+                             f"{len(replays)} traced, of {n} replays")
     seen, bad = {}, {}
     for wrappers, groups in DEVICE_KERNELS.items():
         want = sum(counted.get(w, 0) for w in wrappers)
         for names in groups:
             key = "|".join(names)
-            seen[key] = sum(h["calls_per_step"] for h in prof["hand_kernels"]
-                            for name in names if name + "<" in h["name"] or name + "(" in h["name"])
-            if seen[key] != want:
-                bad[key] = (seen[key], want)
+            ran = sorted({sum(c for kernel, c in replay.items() for name in names
+                              if name + "<" in kernel or name + "(" in kernel)
+                          for replay in replays})
+            seen[key] = ran[0] if len(ran) == 1 else ran
+            if ran != [want]:
+                bad[key] = (ran, want)
     if bad:
         raise AssertionError(f"fused {tag}: kernels run a replay (profiled, counted): {bad}")
     return seen
@@ -1254,7 +1270,8 @@ def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
             hand_kernel_ms={k: round(sum(h["ms_per_step"] for h in p["hand_kernels"]), 4)
                             for k, p in prof.items()},
             capture_s=round(graph.capture_seconds, 4), pool_bytes=graph.pool_bytes,
-            launches_per_replay=graph.launches, profiled_launches_per_replay=measured)
+            launches_per_replay=graph.launches, profiled_launches_per_replay=measured,
+            replays_traced=prof["graphed"]["steps_traced"])
         say("fused", timing=tag, batch=cfg_x.batch_size, T=cfg_x.num_timestamps,
             **{k: json.dumps(v) for k, v in timing[tag].items()}, card=repr(smi))
 
@@ -1547,13 +1564,110 @@ def _two_steps(argv: list, exp: str, dev):
     return losses, params
 
 
+def _nccl_rank(r: int, address: str, world: int, argv: list, root: str) -> dict:
+    """Rank r of a NCCL group of `world` ranks, card r each, on the fused
+    epoch's step at `argv`'s Config: the replayed step against the same
+    group's stepped step and, at one rank, against the same trainer's replay
+    without a group (captured before the group is made), in turns; the
+    collectives a stepped step issues, those issued while its graph is
+    captured and those its replays issue (none); each one's device busy ms,
+    device operations, NCCL kernels and their ms, from the profiler; the
+    hand kernels a replay ran against the launches counted at capture
+    (`_replay_launches`); the graph's capture seconds and pool bytes."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch import parallel
+    from deep_interpolation_clustering_tpu_torch.cli.common import (
+        build_parser, config_from_args, make_datasets,
+    )
+    from deep_interpolation_clustering_tpu_torch.train import Trainer
+    from deep_interpolation_clustering_tpu_torch.utils import profiling
+
+    cfg = config_from_args(build_parser("p1").parse_args(argv))
+    train = {"training": make_datasets(cfg)["training"]}
+    steps = {}
+    if world == 1:
+        alone = Trainer(cfg, train, os.path.join(root, "no_group"), device="cuda")
+        alone.train_steps(2)
+        steps["no_group"] = profiling.graphed_step(alone)
+        steps["no_group"]()  # warm-up and capture, without a group
+    dev = parallel.initialize(address, world, r, "cuda", "nccl")
+    try:
+        tr = Trainer(cfg, train, os.path.join(root, "group"), device=dev)
+        tr.train_steps(2)  # the optimizer's state, the communicator
+        stream = tr._stream()
+        steps["stepped"] = lambda: tr.step(*next(stream))
+        with profiling.collective_calls() as calls:
+            steps["stepped"]()
+            torch.cuda.synchronize()
+        per_step = dict(calls)
+        replay = steps["replayed"] = profiling.graphed_step(tr)
+        with profiling.collective_calls() as calls:
+            replay()  # the warm-up's steps, the capture, a replay
+            torch.cuda.synchronize()
+            at_capture = dict(calls)
+            for _ in range(3):
+                replay()
+            torch.cuda.synchronize()
+        replay_calls = sum(calls.values()) - sum(at_capture.values())
+        graph = tr._graphs[("train", False)]
+        turns = profiling.step_turns(steps, 3, 10)
+        prof = {name: profiling.device_profile(fn, 5 if name == "stepped" else 20)
+                for name, fn in steps.items()}
+        hand = _replay_launches(prof["replayed"], graph.launches, f"dp nccl rank {r}")
+        tr.close()
+    finally:
+        parallel.shutdown()
+    median = {k: float(np.median(v)) for k, v in turns.items()}
+    return dict(
+        world=world, step_ms_turns={k: [round(x, 4) for x in v] for k, v in turns.items()},
+        device_busy_ms={k: round(p["device_busy_ms"] / p["window_steps"], 4)
+                        for k, p in prof.items()},
+        idle_share={k: round(1.0 - p["device_busy_ms"] / p["window_steps"] / median[k], 4)
+                    for k, p in prof.items()},
+        device_ops_per_step={k: p["device_events_per_step"] for k, p in prof.items()},
+        nccl_kernels_per_step={k: p["nccl_kernels_per_step"] for k, p in prof.items()},
+        nccl_ms_per_step={k: round(p["nccl_ms_per_step"], 4) for k, p in prof.items()},
+        collectives_stepped_step=per_step, collectives_at_capture=at_capture,
+        collectives_three_replays=replay_calls, capture_s=round(graph.capture_seconds, 4),
+        pool_bytes=graph.pool_bytes, launches_per_replay=graph.launches,
+        profiled_launches_per_replay=hand, replays_traced=prof["replayed"]["steps_traced"])
+
+
+def _held_nccl(m: dict, tag: str) -> None:
+    """The checks of a `_nccl_rank` result: its stepped step issued
+    collectives, the capture issued each once more, the replays none; a
+    replay ran the NCCL kernels of a stepped step, and at two ranks or more
+    one a collective (over one rank NCCL runs none for an in-place sum)."""
+    per_step = m["collectives_stepped_step"]["eager"]
+    nccl = m["nccl_kernels_per_step"]
+    bad = []
+    if not per_step or m["collectives_at_capture"]["captured"] != per_step:
+        bad.append(("captured", m["collectives_at_capture"], per_step))
+    if m["collectives_three_replays"]:
+        bad.append(("replays issued", m["collectives_three_replays"]))
+    if nccl["replayed"] != nccl["stepped"]:
+        bad.append(("nccl kernels", nccl))
+    if m["world"] > 1 and nccl["replayed"] != per_step:
+        bad.append(("nccl kernels a collective", nccl, per_step))
+    if bad:
+        raise AssertionError(f"dp {tag}: {bad}")
+
+
 def dp_phase(run: dict, smi: str) -> dict:
     """Data-parallel p1 and p3, and multi-process p2 and p4, through the
     entry points at the default Config on the p0 phase's pickles:
-      (a) `cli.p1.main --data_parallel 1` (a one-rank NCCL group) writes the
-          same bits as the same argv without a group (invariant 2), and so
-          does `python -m torch.distributed.run --standalone
-          --nproc_per_node 1 -m ...cli.p1 --num_processes 1` (env://);
+      (a) `cli.p1.main --data_parallel 1` (a one-rank NCCL group, whose
+          epochs replay captured graphs with the group's collectives in
+          them) writes the same bits as the same argv without a group
+          (invariant 2) and as the group's stepped run (`--fused_epoch
+          false`), and so does `python -m torch.distributed.run --standalone
+          --nproc_per_node 1 -m ...cli.p1 --num_processes 1` (env://); the
+          epoch lines say "(fused)"; `cli.p3.main --data_parallel 1`, fused
+          and stepped, writes the bits of p3 without a group; and one rank
+          of a NCCL group measures the replayed step against the stepped
+          one and against a replay without a group (`_nccl_rank`, held by
+          `_held_nccl`);
       (b) two ranks sharing the card over gloo: one full-width step and the
           masked tail from the same weights and draws within invariant 1's
           band (`BAND`) of one process, the ranks' parameters the same bits;
@@ -1565,8 +1679,10 @@ def dp_phase(run: dict, smi: str) -> dict:
           are nudged by 2^-24 of themselves drifts as far from (a) as two
           ranks do. So the two-epoch run is held to the band or to 10x that
           nudged run's drift, measured here, whichever is larger (`_held`);
-      (c) two NCCL ranks, one card each, where the machine has two cards,
-          held as (b);
+      (c) two NCCL ranks, one card each, where the machine has two cards:
+          p1 fused and stepped, the same bits, both held as (b), and
+          `_nccl_rank` at two ranks (a replay's NCCL kernels one a
+          collective);
       (d) `cli.p3.main --data_parallel 2` (gloo) for 3 DEC epochs against
           one process, held as (b) against a run nudged after the centre
           init, the label deltas too;
@@ -1612,14 +1728,30 @@ def dp_phase(run: dict, smi: str) -> dict:
             raise AssertionError(f"dp {name}: kernels never launched on a rank: {missing}")
         return [{k: c[k] for k in need} for c in counts]
 
-    # (a) one-rank NCCL group vs no group, the same argv
+    def fused_lines(name, fused):
+        """The run's epoch lines all say "(fused)", or none does."""
+        lines = [x for x in texts[name].splitlines() if " trained in " in x]
+        if not lines or any(x.endswith("(fused)") != fused for x in lines):
+            raise AssertionError(f"dp {name}: epoch lines {lines}")
+
+    # (a) one-rank NCCL group vs no group, the same argv, fused and stepped
     single = timed("single", lambda: p1.main(width + results("single")))
     one = timed("dp1", lambda: p1.main(width + results("dp1") + ["--data_parallel", "1"]))
+    one_stepped = timed("dp1_stepped", lambda: p1.main(
+        width + results("dp1_stepped") + ["--data_parallel", "1", "--fused_epoch", "false"]))
     launches = {"dp1": ranks_launched("dp1")}
-    differ = _bit_differences(_run_files(one), _run_files(single))
-    if differ or _files(one) != _files(single):
-        raise AssertionError(f"dp (a): --data_parallel 1 differs from one process: "
-                             f"{differ[:8]}")
+    fused_lines("single", True)
+    fused_lines("dp1", True)
+    fused_lines("dp1_stepped", False)
+    for run_x, name in ((one, "--data_parallel 1"),
+                        (one_stepped, "--data_parallel 1 --fused_epoch false")):
+        differ = _bit_differences(_run_files(run_x), _run_files(single))
+        if differ or _files(run_x) != _files(single):
+            raise AssertionError(f"dp (a): {name} differs from one process: {differ[:8]}")
+    nccl_1 = parallel.spawn(_nccl_rank, 1, (f"127.0.0.1:{parallel.free_port()}", 1,
+                                            width + results("nccl_1"),
+                                            os.path.join(root, "nccl_1")), timeout_s=600)[0]
+    _held_nccl(nccl_1, "(a) one NCCL rank")
     # (a) through torchrun's env:// launch, as a user types it
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     trun = os.path.join(root, "torchrun")
@@ -1665,6 +1797,7 @@ def dp_phase(run: dict, smi: str) -> dict:
     two = timed("gloo_2", lambda: p1.main(width + results("gloo_2") + ["--data_parallel", "2"],
                                           backend="gloo"))
     launches["gloo_2"] = ranks_launched("gloo_2")
+    fused_lines("gloo_2", False)  # gloo's collectives cannot be captured: the ranks step
     # the yardstick: one process with its initial weights nudged
     nudged = timed("nudged", lambda: _nudged(Trainer, "__init__",
                                              lambda: p1.main(width + results("nudged"))))
@@ -1687,13 +1820,29 @@ def dp_phase(run: dict, smi: str) -> dict:
             _cohort_lines(texts["gloo_2_replicated"])["bytes"]:
         raise AssertionError(f"dp (b): the sharded run's cohorts: {p1_cohort}")
 
-    # (c) two NCCL ranks, one card each
+    # (c) two NCCL ranks, one card each, fused and stepped
+    nccl_2_timing = None
     if torch.cuda.device_count() >= 2:
         nccl = timed("nccl_2", lambda: p1.main(width + results("nccl_2")
                                                + ["--data_parallel", "2"]))
         launches["nccl_2"] = ranks_launched("nccl_2")
-        drift["nccl_2"] = _drift(_run_files(nccl), base, "(c)")
-        _held(drift["nccl_2"], drift["nudged"], "(c)")
+        nccl_stepped = timed("nccl_2_stepped", lambda: p1.main(
+            width + results("nccl_2_stepped") + ["--data_parallel", "2", "--fused_epoch",
+                                                 "false"]))
+        fused_lines("nccl_2", True)
+        fused_lines("nccl_2_stepped", False)
+        differ = _bit_differences(_run_files(nccl), _run_files(nccl_stepped))
+        if differ:
+            raise AssertionError(f"dp (c): two NCCL ranks fused and stepped differ: "
+                                 f"{differ[:8]}")
+        for name, x in (("nccl_2", nccl), ("nccl_2_stepped", nccl_stepped)):
+            drift[name] = _drift(_run_files(x), base, f"(c) {name}")
+            _held(drift[name], drift["nudged"], f"(c) {name}")
+        nccl_2_timing = parallel.spawn(
+            _nccl_rank, 2, (f"127.0.0.1:{parallel.free_port()}", 2, width + results(
+                "nccl_2_timing"), os.path.join(root, "nccl_2_timing")), timeout_s=600)
+        for r, m in enumerate(nccl_2_timing):
+            _held_nccl(m, f"(c) rank {r} of two NCCL ranks")
         nccl_2 = "ran"
     else:
         nccl_2 = "skipped: 1 card"
@@ -1702,9 +1851,19 @@ def dp_phase(run: dict, smi: str) -> dict:
     p3_argv = width[:-2] + ["--max_epochs", "4", "--stopping_delta", "0", "--pretrain_path",
                             single]
     p3_one = timed("p3_single", lambda: p3.main(p3_argv + results("p3_single")))
+    # p3 in a one-rank NCCL group, fused and stepped: the bits of no group
+    for name, extra in (("p3_dp1", []), ("p3_dp1_stepped", ["--fused_epoch", "false"])):
+        x = timed(name, lambda: p3.main(p3_argv + results(name) + ["--data_parallel", "1"]
+                                        + extra))
+        fused_lines(name, not extra)
+        differ = _bit_differences(_run_files(x), _run_files(p3_one))
+        if differ or _files(x) != _files(p3_one):
+            raise AssertionError(f"dp (d): {name} differs from p3 without a group: "
+                                 f"{differ[:8]}")
     p3_two = timed("p3_gloo_2", lambda: p3.main(p3_argv + results("p3_gloo_2")
                                                 + ["--data_parallel", "2"], backend="gloo"))
     launches["p3_gloo_2"] = ranks_launched("p3_gloo_2")
+    fused_lines("p3_gloo_2", False)
     p3_cohort = _cohort_lines(texts["p3_gloo_2"])
     if not p3_cohort["relayout_s"]:
         raise AssertionError(f"dp (d): p3 at two ranks not sharded: {p3_cohort}")
@@ -1826,7 +1985,9 @@ def dp_phase(run: dict, smi: str) -> dict:
 
     say("dp", batch=B, T=T, train_encounters=n_train, note=repr(
             "two ranks share one card over gloo: a check of correctness, not of scaling"),
-        one_rank_bits="identical", shard_cohort_false_bits="identical",
+        one_rank_bits="identical (p1 and p3, fused and stepped)",
+        shard_cohort_false_bits="identical", nccl_1=json.dumps(nccl_1),
+        nccl_2_timing=json.dumps(nccl_2_timing),
         cohort_bytes=json.dumps(cohort_bytes),
         relayout_s=json.dumps({"p1": p1_cohort["relayout_s"],
                                "p3": p3_cohort["relayout_s"]}),
@@ -1834,7 +1995,8 @@ def dp_phase(run: dict, smi: str) -> dict:
         nccl_2=repr(nccl_2), epochs=json.dumps(report), seconds=json.dumps(seconds),
         rank_launches=json.dumps(launches), card=repr(smi))
     return dict(step=step, drift=drift, epochs=report, seconds=seconds,
-                cohort_bytes=cohort_bytes, relayout_s=p1_cohort["relayout_s"])
+                cohort_bytes=cohort_bytes, relayout_s=p1_cohort["relayout_s"], nccl_1=nccl_1,
+                nccl_2_timing=nccl_2_timing)
 
 
 def p2_phase(run: dict, smi: str, dev) -> None:

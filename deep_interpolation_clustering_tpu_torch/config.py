@@ -175,9 +175,10 @@ class Config:
     # last one; between, "step" and "warmup" still step the rate (and the
     # fused epochs' losses are fetched at the next eval)
     eval_interval: int = 1
-    # run each epoch (and eval pass) on one card as replays of captured CUDA
-    # graphs of the step, one per batch (`train/graphs.py`; JAX's one
-    # lax.scan an epoch); False steps eagerly. Data-parallel ranks step.
+    # run each epoch (and eval pass) as replays of captured CUDA graphs of
+    # the step, one per batch (`train/graphs.py`; JAX's one lax.scan an
+    # epoch), on one card and on the ranks of a NCCL group (their
+    # collectives captured too); False steps eagerly, as gloo ranks do.
     fused_epoch: bool = True
     # bit width of the random draws of the fake sample and the
     # augmentation: 16 draws 16-bit select keys, float16 noise and normals

@@ -13,8 +13,10 @@ from .mesh import (
     all_sum_grad,
     all_sum_grads_,
     broadcast_,
+    capturable,
     gather_blocks,
     gather_rows,
+    grouped,
     local_rows,
     pad_batch_to,
     permuted_share,
@@ -45,10 +47,12 @@ __all__ = [
     "all_sum_grads_",
     "barrier",
     "broadcast_",
+    "capturable",
     "device_fetch",
     "free_port",
     "gather_blocks",
     "gather_rows",
+    "grouped",
     "initialize",
     "is_main_process",
     "local_rows",

@@ -8,9 +8,16 @@ batch k, which are the rows the train step takes from a global batch
 (`mesh.shard_rows`). Each epoch the host draws the replicated path's
 shuffle and the storage is permuted into that order once (`ensure`): a
 local gather of the rows each rank sends to each other rank, one
-`all_to_all_single` per plane, a local scatter. A step then slices block k
-of its own storage; no step gathers across ranks. The batches, the draws
-and the numerics are the replicated path's, bit for bit.
+`all_to_all_single` per plane, a local scatter back into the same storage.
+A step then reads block k of its own storage; no step gathers across
+ranks. The batches, the draws and the numerics are the replicated path's,
+bit for bit.
+
+The storage keeps its addresses for the cohort's life: a relayout writes
+the new order in place, so a CUDA graph captured over the storage reads
+each epoch's order. A stepped epoch slices block k (`block`); a captured
+step reads it through a (1,) device tensor that holds k (`block_at`, the
+JAX `slice_block`), which the graph's index buffer is.
 
 The transport is the group's: NCCL and gloo both take the device's tensors
 in `all_to_all_single` (gloo took CUDA tensors, float32 and bfloat16, on
@@ -115,22 +122,24 @@ class ShardedCohort:
             return
         send, dst, m_cap = self._plan(self.order.reshape(-1), tgt.reshape(-1))
         dev = next(iter(self.data3.values())).device
-        send = torch.as_tensor(send[self.r].reshape(-1), device=dev)
-        dst = torch.as_tensor(dst[self.r].reshape(-1), device=dev)
+        dst = dst[self.r].reshape(-1)
         keep = dst < self.n_local  # unfilled slots of a segment carry n_local
-        dst, src = dst[keep], torch.nonzero(keep)[:, 0]
-        self.data3 = {k: self._relayout(v, send, src, dst) for k, v in self.data3.items()}
+        send = torch.as_tensor(send[self.r].reshape(-1), device=dev)
+        src = torch.as_tensor(np.flatnonzero(keep), device=dev)
+        dst = torch.as_tensor(dst[keep], device=dev)
+        for v in self.data3.values():
+            self._relayout_(v, send, src, dst)
         self.order = tgt
 
-    def _relayout(self, a: torch.Tensor, send: torch.Tensor, src: torch.Tensor,
-                  dst: torch.Tensor) -> torch.Tensor:
-        flat = a.reshape((self.n_local,) + tuple(a.shape[2:]))
+    def _relayout_(self, a: torch.Tensor, send: torch.Tensor, src: torch.Tensor,
+                   dst: torch.Tensor) -> None:
+        """Permute plane `a` in place: every slot of `a` is a destination
+        of the plan, and what it receives was gathered into `buf` first."""
+        flat = a.view((self.n_local,) + tuple(a.shape[2:]))
         buf = flat.index_select(0, send)  # (D*M, ...): segment j goes to rank j
         recv = torch.empty_like(buf)  # segment j came from rank j
         dist.all_to_all_single(recv, buf)
-        out = torch.empty_like(flat)
-        out[dst] = recv.index_select(0, src)
-        return out.reshape(a.shape)
+        flat.index_copy_(0, dst, recv.index_select(0, src))
 
     def _plan(self, cur_flat: np.ndarray, tgt_flat: np.ndarray
               ) -> Tuple[np.ndarray, np.ndarray, int]:
@@ -175,3 +184,8 @@ class ShardedCohort:
     def block(self, k: int) -> Dict[str, torch.Tensor]:
         """This rank's rows of batch k: a slice of its storage."""
         return {name: v[k] for name, v in self.data3.items()}
+
+    def block_at(self, k: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the batch whose number the (1,) device tensor
+        `k` holds: the values of `block(k)`, read through the index."""
+        return {name: torch.index_select(v, 0, k)[0] for name, v in self.data3.items()}

@@ -28,13 +28,26 @@ CPU tensors, so one code path serves NCCL, gloo on the CPU and gloo on
 ranks that share one card (`cohort` adds the epoch relayout's
 `all_to_all_single`).
 
-Without a process group, or in a group of one rank, `world_size()` is 1 and
-every helper returns its input: the single-device code runs unchanged, bit
-for bit.
+Without a process group every helper returns its input: the single-device
+code runs unchanged. In a group, of any size, the helpers that talk to
+other ranks run their collective, one rank included, so that a one-rank
+group issues the calls that D ranks issue; over one rank a sum is its
+input and the zero-filled gather is exact, so the bits are those of no
+group. The purely local helpers (`shard_rows`, `local_rows`,
+`segment_rows`) and the callers' numerics follow `world_size()` alone.
+
+Inside a train or eval step every helper reads nothing to the host,
+allocates only tensors whose shapes follow from the batch, D and the
+config, and issues its collectives in the same order on every rank: what
+a CUDA graph needs to capture the step with its collectives
+(`train/graphs.py`). `capturable()` says whether the group's collectives
+can be captured: NCCL's can, gloo's run on the host and cannot.
+`replicated()` reads to the host and runs outside every graph.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,6 +69,22 @@ def rank() -> int:
     return 0
 
 
+def grouped() -> bool:
+    """Whether this process is a rank of a process group (of any size)."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def capturable() -> bool:
+    """Whether a CUDA graph can capture a step's collectives: true without a
+    group (a step issues none) and in a NCCL group whose collectives do
+    not wait on the host (`TORCH_NCCL_BLOCKING_WAIT`); false for gloo, whose
+    collectives run on the host."""
+    if not grouped():
+        return True
+    blocking = os.environ.get("TORCH_NCCL_BLOCKING_WAIT", os.environ.get("NCCL_BLOCKING_WAIT"))
+    return dist.get_backend() == "nccl" and blocking not in ("1", "true", "True")
+
+
 def shard_rows(n: int) -> slice:
     """This rank's rows of a global batch of `n` rows."""
     d = world_size()
@@ -67,7 +96,7 @@ def shard_rows(n: int) -> slice:
 
 
 def _all_reduce(t: torch.Tensor, op) -> torch.Tensor:
-    if world_size() == 1:
+    if not grouped():
         return t
     out = t.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op)
@@ -75,8 +104,8 @@ def _all_reduce(t: torch.Tensor, op) -> torch.Tensor:
 
 
 def all_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over ranks, detached from autograd (`t` itself in a
-    world of one)."""
+    """The sum of `t` over ranks, detached from autograd (`t` itself
+    without a group)."""
     return _all_reduce(t, dist.ReduceOp.SUM)
 
 
@@ -99,18 +128,17 @@ class _AllSum(torch.autograd.Function):
 
 def all_sum_grad(t: torch.Tensor) -> torch.Tensor:
     """The sum of `t` over ranks, with autograd."""
-    if world_size() == 1:
+    if not grouped():
         return t
     return _AllSum.apply(t)
 
 
 def gather_rows(t: torch.Tensor) -> torch.Tensor:
     """Every rank's rows of `t` in rank order, with autograd: (D*n, ...)."""
-    d = world_size()
-    if d == 1:
+    if not grouped():
         return t
-    r = rank()
-    zeros = torch.zeros_like(t)
+    d, r = world_size(), rank()
+    zeros = torch.zeros_like(t) if d > 1 else None
     slots = torch.stack([t if i == r else zeros for i in range(d)])
     return all_sum_grad(slots).reshape((d * t.shape[0],) + tuple(t.shape[1:]))
 
@@ -119,9 +147,9 @@ def gather_blocks(t: torch.Tensor, n_blocks: int) -> torch.Tensor:
     """`t` holds this rank's share of `n_blocks` global batches, block after
     block; returns the global batches' rows in order (every rank's share of
     block 0, then of block 1, ...)."""
-    d = world_size()
-    if d == 1:
+    if not grouped():
         return t
+    d = world_size()
     rest = tuple(t.shape[1:])
     k = t.shape[0] // n_blocks
     g = gather_rows(t).reshape((d, n_blocks, k) + rest)
@@ -132,9 +160,9 @@ def permuted_share(a: torch.Tensor, b: torch.Tensor, perm: torch.Tensor) -> torc
     """This rank's share of `torch.cat([A, B])[perm]`, where A and B are the
     global batches whose local rows are `a` and `b` and `perm` permutes the
     global 2B rows; with autograd through the gather."""
-    d = world_size()
-    if d == 1:
+    if not grouped():
         return torch.cat([a, b])[perm]
+    d = world_size()
     rest = tuple(a.shape[1:])
     g = gather_rows(torch.cat([a, b])).reshape((d, 2, a.shape[0]) + rest)
     rows = g.transpose(0, 1).reshape((2 * d * a.shape[0],) + rest)[perm]
@@ -170,8 +198,8 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The rows at global indices `idx` (any shape) of a row-sharded array
     whose rank r holds rows [r*n, (r+1)*n) as `x` (n, ...): each rank fills
     the rows it holds into a zero buffer and the buffers are summed, which
-    is exact. `x[idx]` itself in a world of one."""
-    if world_size() == 1:
+    is exact. `x[idx]` itself without a group."""
+    if not grouped():
         return x[idx]
     n = x.shape[0]
     local = idx - rank() * n
@@ -194,7 +222,7 @@ def all_max(t: torch.Tensor) -> torch.Tensor:
 def all_sum_grads_(params: Iterable[torch.nn.Parameter]) -> None:
     """Sum every parameter's gradient over ranks in place, through one flat
     buffer (parameters without a gradient keep none)."""
-    if world_size() == 1:
+    if not grouped():
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
@@ -209,7 +237,7 @@ def all_sum_grads_(params: Iterable[torch.nn.Parameter]) -> None:
 
 def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
     """Overwrite each tensor in place with rank `src`'s."""
-    if world_size() == 1:
+    if not grouped():
         return
     with torch.no_grad():
         for t in tensors:

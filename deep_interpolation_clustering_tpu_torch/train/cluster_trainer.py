@@ -17,7 +17,9 @@
 Data-parallel, the latents and labels come from the trainer's gathered eval
 dumps (every rank holds the whole cohort's), rank 0 fits the centres and
 broadcasts them, so every rank steps the same centres and counts the same
-label delta.
+label delta. NCCL ranks replay the DEC step's graphs as one card does (the
+target's cluster frequencies summed over ranks inside them), with the
+deferred cadence and `pipeline_delta` below; gloo ranks step.
 
 The loop is the JAX one (clustering_trainer.py `train`): a validation pass
 every epoch for the delta, and every `eval_interval`-th epoch (and at the

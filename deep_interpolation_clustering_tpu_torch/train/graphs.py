@@ -9,9 +9,10 @@ caller copies the outputs out: three calls a batch, none of which waits for
 the device, where the eager step dispatches several hundred operations.
 
 `GraphedStep(fn, ...)` holds one such step. `fn(rows, mask)` reads the batch
-through the (B,) index buffer `rows` and, for a masked step, the (B,)
-`mask`, and returns a dict of tensors (static outputs, overwritten by each
-replay). On a CUDA device the first call warms `fn` up, captures it and
+through the index buffer `rows` (the rank's B/D rows of the cohort, or the
+number of the block of a row-sharded cohort) and, for a masked step, the
+(B/D,) `mask`, and returns a dict of tensors (static outputs, overwritten by
+each replay). On a CUDA device the first call warms `fn` up, captures it and
 replays it; on the CPU every call runs `fn` directly on the same buffers
 (the caller asked for the CPU: the bookkeeping is the card's, without the
 graph).
@@ -36,15 +37,28 @@ the stream that freed it.
 
 Hand-kernel launches recorded while the graph is captured are counted and
 added to the wrappers' counts on each replay (`ops._cuda_build`).
+
+On the ranks of a NCCL group (`parallel.capturable()`) the step's
+collectives are captured with it: every rank warms up and captures the same
+step at the same point of its run, the warm-up's collectives run for real
+(the first of them makes the communicator, which must exist before a
+capture), and each replay issues the collectives in the captured order on
+every rank. NCCL runs them on its own stream, which joins the capture
+through events. Its watchdog thread queries the events of earlier
+collectives while a capture may be in progress, so a group captures with
+`capture_error_mode="thread_local"`: only the capturing thread's calls are
+checked.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import parallel
 from ..ops import _cuda_build as cb
 
 Snapshot = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -87,10 +101,11 @@ class GraphedStep:
     def __init__(self, fn: Callable, batch_size: int, device: torch.device, masked: bool,
                  generator: Optional[torch.Generator] = None,
                  state: Optional[Callable[[], List[torch.Tensor]]] = None, warmup: int = 2,
-                 pool: Optional[SharedPool] = None):
+                 pool: Optional[SharedPool] = None, index_size: Optional[int] = None):
         self.fn = fn
         self.device = device
-        self.rows = torch.zeros(batch_size, dtype=torch.long, device=device)
+        # the index buffer: `batch_size` rows, or `index_size` entries
+        self.rows = torch.zeros(index_size or batch_size, dtype=torch.long, device=device)
         self.mask = torch.ones(batch_size, dtype=torch.float32, device=device) if masked else None
         self.generator = generator
         self.state = state or (lambda: [])
@@ -141,14 +156,26 @@ class GraphedStep:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         before = cb.captured_counts()
+        # a dead trainer's graphs lie in reference cycles (a step's closure
+        # holds its trainer); the cyclic collector destroying one during a
+        # capture would invalidate the capture: collect now, and not during it
+        gc.collect()
         # the capture allocates from the shared pool, which keeps it: the
         # memory reserved over the capture (from an emptied cache, as
         # `torch.cuda.graph` leaves it) is what this graph added to the pool
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        with torch.cuda.graph(graph, pool=self.pool.handle, stream=stream):
-            out = self.fn(self.rows, self.mask)
+        mode = "thread_local" if parallel.grouped() else "global"
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool.handle, stream=stream,
+                                  capture_error_mode=mode):
+                out = self.fn(self.rows, self.mask)
+        finally:
+            if collecting:
+                gc.enable()
         if self.pool.handle is None:
             self.pool.handle = graph.pool()
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved

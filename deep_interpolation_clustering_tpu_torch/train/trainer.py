@@ -28,9 +28,12 @@ device buffers: one fetch, or none with `device_dumps`, and with
 `defer_losses` its per-batch losses stay on the device too. Under
 `eval_interval > 1` `train()` dispatches the epochs between evals and
 fetches their losses at the next eval (JAX `train()`'s `drain`). Fused and
-stepped epochs give the same bits (`tests/test_torch_fused.py`). Ranks of a
-data-parallel group take the stepped path: their collectives are not
-captured.
+stepped epochs give the same bits (`tests/test_torch_fused.py`). The ranks
+of a NCCL group fuse too, their collectives captured in the graphs
+(`parallel.capturable()`); a graph then reads the rank's B/D rows of each
+batch, or with a sharded cohort the block's number, and the eval's outputs
+are gathered after the pass. The ranks of a gloo group step: gloo's
+collectives run on the host and cannot be captured.
 
 Data-parallel (`parallel.world_size()` D > 1, one rank a device): every
 rank shuffles alike (`RandomState(seed + epoch)`) and takes its B/D rows of
@@ -234,19 +237,22 @@ class Trainer:
         """What a trainer writes for a drained epoch beside its train row:
         nothing here."""
 
-    def _can_fuse(self, ds: ArrayDataset) -> bool:
-        """The fused train epoch's precondition (JAX `_can_fuse`: the switch
-        and a full batch), here also one rank: a data-parallel group steps
-        (its collectives are not captured). Where the switch is on and the
-        epoch steps all the same, the log says why, once."""
+    def _can_fuse(self, ds: Optional[ArrayDataset] = None) -> bool:
+        """The fused epoch's precondition (JAX `_can_fuse`: the switch and,
+        for a train epoch over `ds`, a full batch), here also a world whose
+        collectives a CUDA graph can capture (`parallel.capturable()`: no
+        group, or a NCCL group of any size); a gloo group steps. Where the
+        switch is on and the epoch steps all the same, the log says why,
+        once."""
         cfg = self.cfg
         if not cfg.fused_epoch:
             return False
         why = None
-        if len(ds) < cfg.batch_size:
+        if ds is not None and len(ds) < cfg.batch_size:
             why = f"{len(ds)} encounters, fewer than a batch of {cfg.batch_size}"
-        elif self.world > 1:
-            why = f"{self.world} data-parallel ranks, whose collectives are not captured"
+        elif not parallel.capturable():
+            why = (f"the {torch.distributed.get_backend()} group of {self.world} ranks, "
+                   f"whose collectives a CUDA graph cannot capture")
         if why and not self._said_stepped:
             logger.info("fused_epoch: the epochs step eagerly: %s", why)
             self._said_stepped = True
@@ -327,8 +333,8 @@ class Trainer:
                                              self.datasets["training"].num_batches(
                                                  self.cfg.batch_size))
             seconds = time.perf_counter() - t0
-            logger.info("epoch %d trained in %.4f s, %.1f encounters/s (fused)", self.epoch,
-                        seconds, n / seconds)
+            logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s (fused)", self.epoch,
+                        seconds, n / seconds, self._rank_note())
             return out
         batches = self._epoch_batches(self.epoch)
         n_batches = len(batches)
@@ -344,11 +350,13 @@ class Trainer:
         out = _batch_means(_loss_table(losses))  # the fetch ends the epoch's device work
         seconds = time.perf_counter() - t0
         logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s", self.epoch, seconds,
-                    len(self.datasets["training"]) / seconds,
-                    f" (rank {parallel.rank()} of {self.world})" if self.world > 1 else "")
+                    len(self.datasets["training"]) / seconds, self._rank_note())
         self.summary.add_summary(self.epoch, scope="train", **out)
         self._check_replicated()
         return out
+
+    def _rank_note(self) -> str:
+        return f" (rank {parallel.rank()} of {self.world})" if self.world > 1 else ""
 
     def _check_replicated(self) -> None:
         """Data-parallel: raise unless every rank holds rank 0's parameters,
@@ -375,20 +383,32 @@ class Trainer:
         return out
 
     def _graph(self, key: tuple, fn, masked: bool, warmup: int) -> GraphedStep:
+        """The step `key`, made on first use: over this rank's B/D rows, read
+        through B/D row indices or, with a sharded cohort, one block number."""
         if key not in self._graphs:
-            self._graphs[key] = GraphedStep(fn, self.cfg.batch_size, self.device, masked,
-                                            self.generator, self._mutable_state, warmup,
-                                            self._graph_pool)
+            self._graphs[key] = GraphedStep(
+                fn, self.cfg.batch_size // self.world, self.device, masked, self.generator,
+                self._mutable_state, warmup, self._graph_pool,
+                index_size=1 if self.shard_cohort else None)
         return self._graphs[key]
+
+    def _reader(self, cohort: str):
+        """`rows -> batch` for a captured step over `cohort`: its rows
+        gathered from the replicated storage, or the block whose number
+        `rows` holds from the sharded one (`ShardedCohort.block_at`)."""
+        if self.shard_cohort:
+            return self.cohort_blocks(cohort).block_at
+        data = self.cohort_data(cohort)
+        return lambda rows: gather_batch(data, rows)
 
     def _train_graph(self, masked: bool) -> GraphedStep:
         """The captured train step over the training cohort: the full batch,
         or the masked tail (`sample_mask` from the graph's mask buffer)."""
         key = ("train", masked)
-        data, cfg = self.cohort_data("training"), self.cfg
+        read, cfg = self._reader("training"), self.cfg
 
         def fn(rows, mask):
-            batch = gather_batch(data, rows)
+            batch = read(rows)
             if mask is not None:
                 batch["sample_mask"] = mask
             losses = train_step(self.net, self.opt, cfg, batch, self.generator, cfg.denoise)
@@ -400,11 +420,15 @@ class Trainer:
 
     def _dispatch_fused_epoch(self) -> Tuple[torch.Tensor, List[str]]:
         """Replay the epoch's steps with no host sync: the batches of
-        `_epoch_batches` (its index matrix uploaded once, the tail padded),
-        each batch's rows copied into the graph's buffer, its losses into the
-        epoch's (n_batches, K) table on the device. Returns (the table, the
-        loss names)."""
+        `_epoch_batches` (its index matrix uploaded once, the tail padded; a
+        sharded cohort re-laid out into the epoch's order first, its blocks'
+        numbers uploaded once), each batch's rows copied into the graph's
+        buffer, its losses into the epoch's (n_batches, K) table on the
+        device. Returns (the table, the loss names)."""
         batches = self._epoch_batches(self.epoch)
+        if self.shard_cohort:
+            blocks = torch.arange(len(batches), device=self.device)
+            batches = [(blocks[k:k + 1], mask) for k, mask in batches]
         table = None
         for i, (rows, mask) in enumerate(batches):
             out = self._train_graph(mask is not None)(rows, mask)["losses"]
@@ -431,6 +455,7 @@ class Trainer:
                                          **fetched)
         out = _batch_means((table, keys))
         self.summary.add_summary(epoch, scope="train", **out)
+        self._check_replicated()
         return out
 
     # -------------------------------------------------------------- eval
@@ -446,12 +471,13 @@ class Trainer:
         `device_dumps` the dumps stay on the device as tensors (for a
         consumer that runs there: p3's k-means and label delta). A sharded
         cohort is read in its identity order (JAX `ensure(identity_order())`),
-        the last block's padding masked by `eval_mask`. On one rank with
-        `fused_epoch` the pass replays captured eval steps
-        (`_eval_one_epoch_fused`); there `defer_losses` (with `device_dumps`)
-        returns the per-batch losses as device tensors, unfetched."""
+        the last block's padding masked by `eval_mask`. With `fused_epoch`
+        in a world that `_can_fuse` takes the pass replays captured eval
+        steps (`_eval_one_epoch_fused`); there `defer_losses` (with
+        `device_dumps`) returns the per-batch losses as device tensors,
+        unfetched."""
         cfg = self.cfg
-        if cfg.fused_epoch and self.world == 1:
+        if self._can_fuse():
             return self._eval_one_epoch_fused(scope, ds, denoise, dump_keys, device_dumps,
                                               defer_losses)
         n, b = len(ds), cfg.batch_size
@@ -510,12 +536,13 @@ class Trainer:
     def _eval_graph(self, cohort: str, denoise: bool, dump_keys: Optional[Tuple[str, ...]],
                     masked: bool) -> GraphedStep:
         """The captured eval forward over `cohort`: its losses stacked and the
-        per-encounter outputs (`dump_keys` of them when given)."""
+        per-encounter outputs (`dump_keys` of them when given), this rank's
+        rows of them."""
         key = ("eval", cohort, denoise, dump_keys, masked)
-        data, cfg = self.cohort_data(cohort), self.cfg
+        read, cfg = self._reader(cohort), self.cfg
 
         def fn(rows, mask):
-            losses, outputs = eval_step(self.net, cfg, gather_batch(data, rows),
+            losses, outputs = eval_step(self.net, cfg, read(rows),
                                         self.generator, denoise, mask, dump_keys)
             self._loss_keys[key] = list(losses)
             return {"__losses__": torch.stack(list(losses.values())), **outputs}
@@ -527,16 +554,27 @@ class Trainer:
                               defer_losses: bool) -> Tuple[Dict[str, object], Dict[str, list]]:
         """The fused eval pass (JAX `_eval_one_epoch_fused`): the batches of
         the stepped pass (the last padded by repeating its real rows, its
-        mask 1 on them) through the eval graphs, each replay's losses and
-        outputs copied into the pass's device buffers. The dumps are fetched
-        once, or with `device_dumps` stay on the device; with `defer_losses`
-        too the metrics are the per-batch losses on the device ({name: (n_batches,)})."""
+        mask 1 on them; this rank's rows of each, a sharded cohort read in
+        its identity order) through the eval graphs, each replay's losses
+        and outputs copied into the pass's device buffers, whose rows are
+        gathered over ranks after the pass. The dumps are fetched once, or
+        with `device_dumps` stay on the device; with `defer_losses` too the
+        metrics are the per-batch losses on the device ({name: (n_batches,)})."""
         n, b = len(ds), self.cfg.batch_size
         n_batches, n_full = ds.num_batches(b), n // b
-        idx, mask = self._eval_rows(n, b)
-        idx = torch.as_tensor(idx, device=self.device)
+        rows = parallel.shard_rows(b)
+        if self.shard_cohort:
+            blocks = self.cohort_blocks(ds.cohort)
+            self._relayout(blocks, blocks.identity_order(), f"{scope} eval")
+            idx = torch.arange(n_batches, device=self.device)[:, None]
+            mask = blocks.eval_mask[-1][rows] if n_full < n_batches else None
+        else:
+            idx, mask = self._eval_rows(n, b)
+            idx = torch.as_tensor(idx[:, rows], device=self.device)
+            mask = None if mask is None else mask[rows]
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device)
+        b = rows.stop - rows.start  # the rows a rank's graph takes
         table, bufs = None, {}
         for i in range(n_batches):
             tail = i == n_full
@@ -559,7 +597,8 @@ class Trainer:
             logger.info("%d: %s-%s", self.epoch, scope, _fmt(metrics))
         dumps: Dict[str, list] = defaultdict(list)
         for k, buf in bufs.items():
-            dumps[k].append(buf[:n] if device_dumps else buf[:n].cpu().numpy())
+            out = parallel.gather_blocks(buf, n_batches)[:n]
+            dumps[k].append(out if device_dumps else out.cpu().numpy())
         dumps["__index__"].append(np.arange(n))
         return metrics, dumps
 

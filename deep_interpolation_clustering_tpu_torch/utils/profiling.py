@@ -29,15 +29,21 @@ cohort, and prints one JSON object with:
   * `turns_ms`: the stepped and the replayed step's ms, in turns
     (`step_turns`), so that the host's load moves both alike.
 It needs a CUDA card and raises without one.
+
+`collective_calls` counts the collectives that `parallel/` issues, eagerly
+and while a graph captures them, and `device_profile` counts the NCCL
+kernels the card ran; `chip_smoke.py` phase `dp` reads both for a rank of a
+NCCL group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import time
 from collections import defaultdict
-from typing import Callable, Dict, List
+from typing import Callable, Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -83,14 +89,44 @@ def graphed_step(trainer) -> Callable:
     buffer, a replay, the losses copied out (`Trainer._dispatch_fused_epoch`'s
     work a batch). The graph is captured on the first call."""
     graph = trainer._train_graph(False)
-    rows = itertools.cycle([idx for idx, mask in trainer._epoch_batches(trainer.epoch)
-                            if mask is None])
+    full = [idx for idx, mask in trainer._epoch_batches(trainer.epoch) if mask is None]
+    if trainer.shard_cohort:  # block numbers, as the graph's (1,) index buffer holds them
+        full = [torch.tensor([k], device=trainer.device) for k in full]
+    rows = itertools.cycle(full)
     out = {}
 
     def step():
         out["losses"] = graph(next(rows))["losses"].clone()
 
     return step
+
+
+@contextlib.contextmanager
+def collective_calls() -> Iterator[Dict[str, int]]:
+    """Count, while the block runs, the collectives of `torch.distributed`
+    that `parallel/` issues (`all_reduce`, `broadcast`,
+    `all_to_all_single`): {"eager": n, "captured": n}, the latter issued
+    while the calling thread's stream is being captured into a CUDA graph
+    (an autograd backward runs on the forward's stream)."""
+    import torch.distributed as dist
+
+    counts = {"eager": 0, "captured": 0}
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "broadcast", "all_to_all_single")}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+            counts["captured" if capturing else "eager"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counted(fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
 
 
 def step_turns(steps: Dict[str, Callable], turns: int, n: int) -> Dict[str, List[float]]:
@@ -106,7 +142,10 @@ def step_turns(steps: Dict[str, Callable], turns: int, n: int) -> Dict[str, List
 def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
     """Profile `n` calls of `step`: device busy time and idle share over the
     window, kernels per step, the `top` kernels by device time, every
-    hand-written kernel of csrc/ and the RBF backward's range."""
+    hand-written kernel of csrc/ and the RBF backward's range. Where the
+    steps replay CUDA graphs, also the graph launches the host made and the
+    kernels of each replay the trace holds (`replay_kernels`), and the
+    counts and ms a step are over those replays (`steps_traced`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -129,12 +168,24 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
         if e > end:
             busy += e - max(s, end)
             end = e
+    # a graph's kernels carry the correlation id of the cudaGraphLaunch that
+    # ran them: each replay's hand and NCCL kernels, for the replays whose
+    # device events the trace holds (CUPTI has been seen to drop all of one
+    # replay's events); counts a step are over those replays
+    launches = {e.id for e in prof.events() if e.name == "cudaGraphLaunch"}
+    replays: Dict[int, Dict[str, int]] = {e.id: defaultdict(int) for e in events
+                                          if e.id in launches}
+    for e in events:
+        if e.id in replays and (any(k in e.name for k in HAND_KERNELS)
+                                or "nccl" in e.name.lower()):
+            replays[e.id][e.name] += 1
+    steps = max(len(replays), 1) if launches else n
     by_name: Dict[str, List[float]] = defaultdict(list)
     for e in events:
         by_name[e.name].append(e.time_range.elapsed_us())
     ranked = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
-    per_step = lambda name, t: {"name": name[:90], "ms_per_step": sum(t) / 1e3 / n,
-                                "calls_per_step": len(t) / n}
+    per_step = lambda name, t: {"name": name[:90], "ms_per_step": sum(t) / 1e3 / steps,
+                                "calls_per_step": len(t) / steps}
     # the kernels launched inside the range on the host (by it or by the
     # operations under it), and the span the profiler draws for the range on
     # the device's timeline
@@ -146,17 +197,24 @@ def device_profile(step: Callable, n: int, top: int = 12) -> Dict:
     return {
         "window_steps": n,
         "window_ms": wall_us / 1e3,
+        "graph_launches": len(launches),
+        "steps_traced": steps,
+        "replay_kernels": [dict(c) for c in replays.values()],
         "device_events": len(events),
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / wall_us if events else None,
-        "device_events_per_step": len(events) / n,
+        "device_events_per_step": len(events) / steps,
+        "nccl_kernels_per_step": sum(len(t) for name, t in by_name.items()
+                                     if "nccl" in name.lower()) / steps,
+        "nccl_ms_per_step": sum(sum(t) for name, t in by_name.items()
+                                if "nccl" in name.lower()) / 1e3 / steps,
         "top_kernels": [per_step(name, t) for name, t in ranked[:top]],
         "hand_kernels": [per_step(name, t) for name, t in ranked
                          if any(k in name for k in HAND_KERNELS)],
         "rbf_backward": {
-            "kernel_ms_per_step": sum(k.duration for k in rbf_kernels) / 1e3 / n,
-            "kernels_per_step": len(rbf_kernels) / n,
-            "span_ms_per_step": sum(device_spans) / 1e3 / n,
+            "kernel_ms_per_step": sum(k.duration for k in rbf_kernels) / 1e3 / steps,
+            "kernels_per_step": len(rbf_kernels) / steps,
+            "span_ms_per_step": sum(device_spans) / 1e3 / steps,
         },
     }
 

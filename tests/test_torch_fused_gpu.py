@@ -22,7 +22,19 @@ against the CPU's (torch's default
 optimizers, a float rate) from the same parameters and gradients, four
 steps with the rate changed by `set_learning_rate` before the third:
 parameters and state within 1e-6 of the largest value after every step.
+
+A one-rank NCCL group (`--data_parallel 1`: its collectives run, and are
+captured in the graphs): p1 (two epochs and a validation pass) and p3 (DEC
+under `eval_interval` 3 and `pipeline_delta`) fused, with the bits of the
+same runs without a group and of the group's stepped runs; the epoch log
+lines say "(fused)"; the collectives a stepped step issues are issued once
+more while its graph is captured and never by a replay; the NCCL kernels
+the profiler sees in a replay are those of a stepped step (none at one
+rank: NCCL runs no kernel for an in-place sum over one rank), and the hand
+kernels of a replay are the launches counted at capture.
 """
+
+import logging
 
 import tempfile
 
@@ -30,16 +42,16 @@ import numpy as np
 import pytest
 import torch
 
-from deep_interpolation_clustering_tpu_torch import Config
+from deep_interpolation_clustering_tpu_torch import Config, parallel
 from deep_interpolation_clustering_tpu_torch.data import (
     ArrayDataset,
     make_synthetic_cohorts,
     process_splits,
 )
 from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
-from deep_interpolation_clustering_tpu_torch.train import Trainer
+from deep_interpolation_clustering_tpu_torch.train import ClusterTrainer, Trainer
 from deep_interpolation_clustering_tpu_torch.train.optim import make_optimizer, set_learning_rate
-from deep_interpolation_clustering_tpu_torch.utils import resolve_device
+from deep_interpolation_clustering_tpu_torch.utils import profiling, resolve_device
 
 pytestmark = pytest.mark.gpu
 
@@ -163,3 +175,104 @@ def test_card_optimizer_steps_as_the_cpu_one(dev, optimizer, start):
                 tol = 1e-6 * float(want.abs().max())
                 torch.testing.assert_close(got, want, rtol=1e-6, atol=tol,
                                            msg=lambda m: f"step {step} tensor {i} {k}: {m}")
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _runs(dev, ds, cfg, dcfg):
+    """p1 (two epochs, a validation pass) and p3 from `dcfg`: their losses,
+    metrics, dumps, final state and epoch log lines."""
+    lines = _Lines()
+    logging.getLogger("dicl.torch").addHandler(lines)
+    try:
+        tr = Trainer(cfg, ds, tempfile.mkdtemp(), device=dev)
+        losses = []
+        for _ in range(2):
+            losses.append(tr.train_one_epoch())
+            tr.epoch += 1
+        metrics, dumps = tr.eval_one_epoch("valid", ds["validation"], False)
+        p1 = dict(losses=losses, metrics=metrics, state=_state(tr),
+                  dumps={k: v[0] for k, v in dumps.items()})
+        tr.close()
+        ct = ClusterTrainer(dcfg, ds, tempfile.mkdtemp(), device=dev)
+        last = ct.train()
+        p3 = dict(last=last, deltas=ct.delta_history, epoch=ct.epoch, state=_state(ct))
+        ct.close()
+    finally:
+        logging.getLogger("dicl.torch").removeHandler(lines)
+    return dict(p1=p1, p3=p3, lines=lines.lines)
+
+
+def _differ(a, b, what=""):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        return [d for k in a for d in _differ(a[k], b[k], f"{what}/{k}")]
+    if isinstance(a, (list, tuple)):
+        assert len(a) == len(b), what
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _differ(x, y, f"{what}/{i}")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [what]
+    if isinstance(a, np.ndarray):
+        return [] if np.array_equal(a, b) else [what]
+    return [] if a == b else [what]
+
+
+def test_one_rank_nccl_group_fuses_with_the_bits_of_no_group(dev):
+    cfg = Config(log_train_freq=1000, log_valid_freq=1000)
+    dcfg = cfg.replace(loss="ae_mse_sup_fake_detect_kl", init_cluster_center="none",
+                       stopping_delta=None, eval_interval=3, pipeline_delta=True, max_epochs=5)
+    ds = _datasets(cfg, 2 * 256 + 60, 300)
+    alone = _runs(dev, ds, cfg, dcfg)
+    parallel.initialize(f"127.0.0.1:{parallel.free_port()}", 1, 0, "cuda", "nccl")
+    try:
+        assert parallel.grouped() and parallel.capturable()
+        fused = _runs(dev, ds, cfg, dcfg)
+        stepped = _runs(dev, ds, cfg.replace(fused_epoch=False),
+                        dcfg.replace(fused_epoch=False))
+        # collectives and kernels of a stepped step and of a replay
+        tr = Trainer(cfg, ds, tempfile.mkdtemp(), device=dev)
+        tr.train_steps(2)
+        stream = tr._stream()
+        step = lambda: tr.step(*next(stream))  # noqa: E731
+        with profiling.collective_calls() as calls:
+            step()
+            torch.cuda.synchronize()
+        per_step = dict(calls)
+        replay = profiling.graphed_step(tr)
+        with profiling.collective_calls() as calls:
+            replay()  # warm-up, capture and a replay
+            at_capture = dict(calls)
+            replay()
+            torch.cuda.synchronize()
+        replayed = calls["eager"] + calls["captured"] - sum(at_capture.values())
+        prof_step = profiling.device_profile(step, 3)
+        prof_replay = profiling.device_profile(replay, 5)
+        launches = tr._graphs[("train", False)].launches
+        tr.close()
+    finally:
+        parallel.shutdown()
+    for name, run in (("fused", fused), ("stepped", stepped)):
+        for stage in ("p1", "p3"):
+            differ = _differ(run[stage], alone[stage], f"{name} {stage}")
+            assert not differ, differ[:8]
+    # p1's two epochs replayed, p3's four dispatched and fetched at its evals
+    epochs = {k: [x for x in run["lines"] if " trained in " in x]
+              for k, run in (("fused", fused), ("stepped", stepped))}
+    assert len(epochs["fused"]) == 2 and all(x.endswith("(fused)") for x in epochs["fused"])
+    assert any("fetched (deferred, eval_interval 3)" in x for x in fused["lines"])
+    assert len(epochs["stepped"]) == 6 and not any("(fused)" in x for x in epochs["stepped"])
+    assert per_step["eager"] > 0 and per_step["captured"] == 0
+    assert at_capture["captured"] == per_step["eager"] and replayed == 0
+    assert prof_replay["nccl_kernels_per_step"] == prof_step["nccl_kernels_per_step"]
+    hand = lambda prof: {h["name"]: h["calls_per_step"]  # noqa: E731
+                          for h in prof["hand_kernels"]}
+    assert hand(prof_replay) == hand(prof_step) and hand(prof_step)
+    assert set(launches) == {"fake_select", "sci_forward", "sci_backward", "rbf_push",
+                             "lstm_forward", "lstm_backward"}
