@@ -1,0 +1,7 @@
+"""`idle_share.p3`: see `portbench/readers.py` `idle_share`."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.idle_share(run, "p3")

@@ -1,0 +1,7 @@
+"""`mfu.p1`: see `portbench/readers.py` `mfu`."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.mfu(run, "p1")
