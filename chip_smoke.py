@@ -1149,8 +1149,11 @@ def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
         device-busy ms, operations and idle share of each
         (`device_profile`), the hand kernels the profiler saw run in each
         replay held to the launches counted at capture
-        (`_replay_launches`), the seconds of each graph's warm-up and
-        capture and the memory it added to the trainer's one graph pool,
+        (`_replay_launches`), the replays the host launched against the
+        card's own count of them (the graph captured under the tracer,
+        `utils.tracing`: `graph.replays_unrun` must be 0), the seconds of
+        each graph's warm-up and capture and the memory it added to the
+        trainer's one graph pool,
         the peak memory allocated and reserved at B=4096, T=48, and
         `cli.p1` epochs with `--fused_epoch false` and with the default.
     Returns what it measured."""
@@ -1162,7 +1165,7 @@ def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
         build_parser, config_from_args, make_datasets,
     )
     from deep_interpolation_clustering_tpu_torch.train import ClusterTrainer, Trainer
-    from deep_interpolation_clustering_tpu_torch.utils import profiling
+    from deep_interpolation_clustering_tpu_torch.utils import profiling, tracing
 
     root = os.path.join(os.path.dirname(run["results"]), "fused")
     cfg = config_from_args(build_parser("p1").parse_args(run["width"]))
@@ -1247,6 +1250,8 @@ def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
         tr.train_steps(2)  # warm-up
         stream = tr._stream()
         step = lambda: tr.step(*next(stream))  # noqa: E731
+        # the graph captured under the tracer counts its replays on the card
+        tracing.enable(dev)
         replay = profiling.graphed_step(tr)
         replay()  # warm-up and capture
         graph = tr._graphs[("train", False)]
@@ -1254,7 +1259,11 @@ def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
         turns = profiling.step_turns({"stepped": step, "graphed": replay}, 3, n)
         prof = {name: profiling.device_profile(fn, 5 if name == "stepped" else 20)
                 for name, fn in (("stepped", step), ("graphed", replay))}
+        unrun = tracing.report()["counters"]["graph.replays_unrun"]
+        tracing.disable()
         tr.close()
+        if unrun != 0:
+            raise AssertionError(f"fused {tag}: {unrun} replays the host launched never ran")
         measured = _replay_launches(prof["graphed"], graph.launches, tag)
         median = {k: float(np.median(v)) for k, v in turns.items()}
         timing[tag] = dict(
@@ -1271,7 +1280,8 @@ def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
                             for k, p in prof.items()},
             capture_s=round(graph.capture_seconds, 4), pool_bytes=graph.pool_bytes,
             launches_per_replay=graph.launches, profiled_launches_per_replay=measured,
-            replays_traced=prof["graphed"]["steps_traced"])
+            replays_traced=prof["graphed"]["steps_traced"], replays=graph.replays,
+            replays_unrun=unrun)
         say("fused", timing=tag, batch=cfg_x.batch_size, T=cfg_x.num_timestamps,
             **{k: json.dumps(v) for k, v in timing[tag].items()}, card=repr(smi))
 
@@ -1573,7 +1583,9 @@ def _nccl_rank(r: int, address: str, world: int, argv: list, root: str) -> dict:
     captured and those its replays issue (none); each one's device busy ms,
     device operations, NCCL kernels and their ms, from the profiler; the
     hand kernels a replay ran against the launches counted at capture
-    (`_replay_launches`); the graph's capture seconds and pool bytes."""
+    (`_replay_launches`); the replays the host launched less the card's
+    count of them (`utils.tracing`, the graph captured with the tracer on);
+    the graph's capture seconds and pool bytes."""
     import torch
 
     from deep_interpolation_clustering_tpu_torch import parallel
@@ -1581,7 +1593,7 @@ def _nccl_rank(r: int, address: str, world: int, argv: list, root: str) -> dict:
         build_parser, config_from_args, make_datasets,
     )
     from deep_interpolation_clustering_tpu_torch.train import Trainer
-    from deep_interpolation_clustering_tpu_torch.utils import profiling
+    from deep_interpolation_clustering_tpu_torch.utils import profiling, tracing
 
     cfg = config_from_args(build_parser("p1").parse_args(argv))
     train = {"training": make_datasets(cfg)["training"]}
@@ -1597,6 +1609,8 @@ def _nccl_rank(r: int, address: str, world: int, argv: list, root: str) -> dict:
         tr.train_steps(2)  # the optimizer's state, the communicator
         stream = tr._stream()
         steps["stepped"] = lambda: tr.step(*next(stream))
+        # on for the rest: the graph captured below counts its replays on the card
+        tracing.enable(dev)
         with profiling.collective_calls() as calls:
             steps["stepped"]()
             torch.cuda.synchronize()
@@ -1615,6 +1629,8 @@ def _nccl_rank(r: int, address: str, world: int, argv: list, root: str) -> dict:
         prof = {name: profiling.device_profile(fn, 5 if name == "stepped" else 20)
                 for name, fn in steps.items()}
         hand = _replay_launches(prof["replayed"], graph.launches, f"dp nccl rank {r}")
+        unrun = tracing.report()["counters"]["graph.replays_unrun"]
+        tracing.disable()
         tr.close()
     finally:
         parallel.shutdown()
@@ -1631,14 +1647,16 @@ def _nccl_rank(r: int, address: str, world: int, argv: list, root: str) -> dict:
         collectives_stepped_step=per_step, collectives_at_capture=at_capture,
         collectives_three_replays=replay_calls, capture_s=round(graph.capture_seconds, 4),
         pool_bytes=graph.pool_bytes, launches_per_replay=graph.launches,
-        profiled_launches_per_replay=hand, replays_traced=prof["replayed"]["steps_traced"])
+        profiled_launches_per_replay=hand, replays_traced=prof["replayed"]["steps_traced"],
+        replays=graph.replays, replays_unrun=unrun)
 
 
 def _held_nccl(m: dict, tag: str) -> None:
     """The checks of a `_nccl_rank` result: its stepped step issued
-    collectives, the capture issued each once more, the replays none; a
-    replay ran the NCCL kernels of a stepped step, and at two ranks or more
-    one a collective (over one rank NCCL runs none for an in-place sum)."""
+    collectives, the capture issued each once more, the replays none; the
+    card ran every replay the host launched; a replay ran the NCCL kernels
+    of a stepped step, and at two ranks or more one a collective (over one
+    rank NCCL runs none for an in-place sum)."""
     per_step = m["collectives_stepped_step"]["eager"]
     nccl = m["nccl_kernels_per_step"]
     bad = []
@@ -1646,6 +1664,8 @@ def _held_nccl(m: dict, tag: str) -> None:
         bad.append(("captured", m["collectives_at_capture"], per_step))
     if m["collectives_three_replays"]:
         bad.append(("replays issued", m["collectives_three_replays"]))
+    if m["replays_unrun"] != 0:
+        bad.append(("replays the card never ran", m["replays_unrun"]))
     if nccl["replayed"] != nccl["stepped"]:
         bad.append(("nccl kernels", nccl))
     if m["world"] > 1 and nccl["replayed"] != per_step:

@@ -5,7 +5,8 @@ The `n_init` restarts run as one batch, as the JAX package's `vmap` runs
 them: every distance is one matmul for all restarts, and the Lloyd loop
 steps each restart until its own shift falls to `tol`, then holds it, so
 each restart ends where it would alone. The loop's one host read an
-iteration is whether any restart is still moving.
+iteration is whether any restart is still moving (`utils.tracing`: the
+counters `host_reads`, one a read, and `kmeans.rounds`, one a round run).
 
 Semantics are sklearn.cluster.KMeans's, as in JAX: greedy k-means++ with
 `2 + floor(log k)` candidates per centre, Lloyd to `max_iter=300` with
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..utils import tracing
 
 
 class KMeansResult(NamedTuple):
@@ -123,8 +125,10 @@ def _lloyd(x: torch.Tensor, centers: torch.Tensor, max_iter: int, tol,
     n_iter = torch.zeros((n_init,), dtype=torch.int64, device=x.device)
     for _ in range(max_iter):
         active = shift > tol
+        tracing.count("host_reads")
         if not bool(active.any()):
             break
+        tracing.count("kmeans.rounds")
         labels, min_dist = _assign(x, centers)
         one_hot = torch.nn.functional.one_hot(labels, k).to(x.dtype)  # (I, N, K)
         counts = torch.sum(one_hot, dim=1)  # (I, K)

@@ -28,6 +28,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 _HEADS = ("predict_future", "aux_head", "fake_det_head")
 _CENTERS = "cluster_assignment.cluster_centers"
 
@@ -37,6 +39,10 @@ def _t(v) -> torch.Tensor:
 
 
 def _np(v) -> np.ndarray:
+    """A float32 host copy; of a tensor, one host read (`utils.tracing`)."""
+    if not isinstance(v, torch.Tensor):
+        return np.array(v, np.float32, copy=True)
+    tracing.count("host_reads")
     return v.detach().cpu().numpy().astype(np.float32, copy=True)
 
 
@@ -140,9 +146,10 @@ def _fill_sorted(tree: Dict, vec: np.ndarray, at: List[int]) -> Dict:
     return out
 
 
-def _vector(net: torch.nn.Module, per_param: Dict[str, torch.Tensor]) -> np.ndarray:
-    """Per-parameter tensors (by name) as one vector in the JAX ravel order."""
-    sd = dict(net.state_dict())
+def _vector(net: torch.nn.Module, per_param: Dict[str, object]) -> np.ndarray:
+    """Per-parameter tensors or arrays (by name) as one vector in the JAX
+    ravel order; the net's buffers are not read (the state is dropped)."""
+    sd: Dict[str, object] = dict.fromkeys(net.state_dict(), np.zeros(0, np.float32))
     sd.update(per_param)
     params, _ = jax_from_state_dict(sd)
     return np.concatenate([leaf.ravel() for leaf in _sorted_leaves(params)])
@@ -166,15 +173,20 @@ def optimizer_to_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
     without state yet (no step taken) gives zeros."""
     kind = type(opt).__name__
     named = list(net.named_parameters())
+    # host reads (`utils.tracing`), counted as on the card, where the rate
+    # and the step counts are device tensors: the rate, each step count, and
+    # each moment tensor (`_np`)
+    tracing.count("host_reads")
     leaves = [np.asarray(count, np.int32),
               np.asarray(float(opt.param_groups[0]["lr"]), np.float32)]
     if kind == "Adam":
         steps = [float(opt.state[p]["step"]) for _, p in named if "step" in opt.state[p]]
+        tracing.count("host_reads", len(steps))
         leaves.append(np.asarray(int(max(steps, default=0)), np.int32))
     for key in OPT_VECTORS[kind]:
         leaves.append(_vector(net, {
-            n: (opt.state[p][key].detach().cpu() if key in opt.state[p]
-                else torch.zeros_like(p, device="cpu")) for n, p in named}))
+            n: (opt.state[p][key] if key in opt.state[p]
+                else np.zeros(tuple(p.shape), np.float32)) for n, p in named}))
     return leaves
 
 

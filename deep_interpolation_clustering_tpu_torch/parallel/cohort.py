@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import rank, world_size
+from .mesh import issued, rank, world_size
 
 
 def _bucket(m: int) -> int:
@@ -138,6 +138,7 @@ class ShardedCohort:
         flat = a.view((self.n_local,) + tuple(a.shape[2:]))
         buf = flat.index_select(0, send)  # (D*M, ...): segment j goes to rank j
         recv = torch.empty_like(buf)  # segment j came from rank j
+        issued()
         dist.all_to_all_single(recv, buf)
         flat.index_copy_(0, dst, recv.index_select(0, src))
 

@@ -43,6 +43,12 @@ a CUDA graph needs to capture the step with its collectives
 (`train/graphs.py`). `capturable()` says whether the group's collectives
 can be captured: NCCL's can, gloo's run on the host and cannot.
 `replicated()` reads to the host and runs outside every graph.
+
+Each collective a helper issues is counted where it is issued
+(`issued()`, with the tracer of `utils.tracing` on): `collective.captured`
+while the calling thread's stream is being captured into a CUDA graph (an
+autograd backward runs on the forward's stream), else `collective.eager`.
+A replay issues none from the host and counts none.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..utils import tracing
 
 
 def world_size() -> int:
@@ -85,6 +93,14 @@ def capturable() -> bool:
     return dist.get_backend() == "nccl" and blocking not in ("1", "true", "True")
 
 
+def issued() -> None:
+    """Count one collective about to be issued (nothing with the tracer
+    off)."""
+    if tracing.enabled():
+        capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+        tracing.count("collective.captured" if capturing else "collective.eager")
+
+
 def shard_rows(n: int) -> slice:
     """This rank's rows of a global batch of `n` rows."""
     d = world_size()
@@ -99,6 +115,7 @@ def _all_reduce(t: torch.Tensor, op) -> torch.Tensor:
     if not grouped():
         return t
     out = t.detach().clone(memory_format=torch.contiguous_format)
+    issued()
     dist.all_reduce(out, op=op)
     return out
 
@@ -116,12 +133,14 @@ class _AllSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor) -> torch.Tensor:
         out = x.clone(memory_format=torch.contiguous_format)
+        issued()
         dist.all_reduce(out)
         return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor) -> torch.Tensor:
         g = g.clone(memory_format=torch.contiguous_format)
+        issued()
         dist.all_reduce(g)
         return g
 
@@ -228,6 +247,7 @@ def all_sum_grads_(params: Iterable[torch.nn.Parameter]) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
+    issued()
     dist.all_reduce(flat)
     off = 0
     for g in grads:
@@ -241,6 +261,7 @@ def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
         return
     with torch.no_grad():
         for t in tensors:
+            issued()
             if t.is_contiguous():
                 dist.broadcast(t, src)
             else:
@@ -258,6 +279,7 @@ def replicated(named: Sequence[Tuple[str, torch.Tensor]]) -> List[str]:
     dev = named[0][1].device
     flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float64) for _, t in named])
     ref = flat.clone()
+    issued()
     dist.broadcast(ref, 0)
     differ = flat != ref  # float64 holds every float32 and int64 count below 2^53
     ends = np.cumsum([t.numel() for _, t in named]).tolist()

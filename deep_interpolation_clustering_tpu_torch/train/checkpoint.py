@@ -21,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import tracing
 from ..utils.logging import logger
 
 CKPT_NAME = "checkpoint.npz"
@@ -51,7 +52,9 @@ def _unflatten_nested(flat: Dict[str, np.ndarray]) -> Dict:
 def save_checkpoint(path: str, epoch: int, params: Dict, state: Dict,
                     opt_leaves: Optional[List[np.ndarray]] = None,
                     extra: Optional[Dict] = None) -> str:
-    """Write one checkpoint file (atomically, through a rename)."""
+    """Write one checkpoint file (atomically, through a rename); counted
+    as `checkpoint.writes` and its arrays' bytes as `checkpoint.bytes`
+    (`utils.tracing`)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays: Dict[str, np.ndarray] = {}
     arrays.update({f"params/{k}": v for k, v in _flatten_nested(params).items()})
@@ -64,6 +67,9 @@ def save_checkpoint(path: str, epoch: int, params: Dict, state: Dict,
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
+    if tracing.enabled():
+        tracing.count("checkpoint.writes")
+        tracing.count("checkpoint.bytes", sum(a.nbytes for a in arrays.values()))
     return path
 
 

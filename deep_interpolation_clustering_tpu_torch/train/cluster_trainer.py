@@ -51,6 +51,7 @@ from ..compat import jax_from_state_dict, state_dict_from_jax
 from ..config import Config
 from ..data.loader import ArrayDataset
 from ..info import COHORT2SCOPE
+from ..utils import tracing
 from ..utils.logging import logger, timer
 from . import checkpoint as ckpt
 from .graphs import restore_, snapshot
@@ -59,7 +60,9 @@ from .trainer import Trainer, _fmt
 
 def _host_means(metrics: Dict[str, object]) -> Dict[str, float]:
     """Each metric as a host float: a float as it is, per-batch losses on
-    the device (a deferred eval's) by their mean over batches."""
+    the device (a deferred eval's) by their mean over batches, one host
+    read each."""
+    tracing.count("host_reads", sum(not isinstance(v, float) for v in metrics.values()))
     return {k: v if isinstance(v, float)
             else float(np.mean(torch.as_tensor(v).cpu().numpy(), dtype=np.float64))
             for k, v in metrics.items()}
@@ -108,38 +111,46 @@ class ClusterTrainer(Trainer):
     def init_centers(self) -> Optional[torch.Tensor]:
         """Restore p1, fit the centres and write them into the net; returns
         the validation cohort's labels under them (None for `random` and
-        `none`)."""
+        `none`). The span `init`: `init.restore`, the training cohort's eval
+        pass, `init.kmeans`, the validation cohort's and `init.predict`."""
         cfg = self.cfg
         mode = cfg.init_cluster_center
         if mode == "none":
             return None
-        self.load_pretrain_weight()
-        hidden = self.generate_pretrain_feat("training")
-        if mode not in ("kmeans", "random"):
-            raise ValueError(f"unknown init_cluster_center {mode!r}")
-        # rank 0 fits, every rank takes its centres
-        centers = torch.empty((cfg.cluster_number, hidden.shape[-1]), dtype=torch.float32,
-                              device=self.device)
-        if self.main:
+        with tracing.span("init"):
+            with tracing.span("init.restore"):
+                self.load_pretrain_weight()
+            hidden = self.generate_pretrain_feat("training")
+            if mode not in ("kmeans", "random"):
+                raise ValueError(f"unknown init_cluster_center {mode!r}")
+            # rank 0 fits, every rank takes its centres
+            centers = torch.empty((cfg.cluster_number, hidden.shape[-1]), dtype=torch.float32,
+                                  device=self.device)
+            with tracing.span("init.kmeans"):
+                if self.main:
+                    if mode == "kmeans":
+                        if cfg.kmeans_impl == "sklearn":  # the NumPy mirror fits host arrays
+                            hidden = hidden.cpu().numpy()
+                            tracing.count("host_reads")
+                        fitted = fit_kmeans_impl(cfg, cfg.seed, hidden, cfg.cluster_number,
+                                                 n_init=cfg.kmeans_n_init).centers
+                    else:
+                        hidden = hidden.cpu().numpy()
+                        tracing.count("host_reads")
+                        lo, hi = hidden.min(axis=0), hidden.max(axis=0)
+                        rng = np.random.RandomState(cfg.seed)
+                        fitted = rng.uniform(lo, hi, size=(cfg.cluster_number, hidden.shape[-1]))
+                    centers = torch.as_tensor(fitted, dtype=torch.float32, device=self.device)
+                parallel.broadcast_([centers])
+            valid_prev = None
             if mode == "kmeans":
-                if cfg.kmeans_impl == "sklearn":  # the NumPy mirror fits host arrays
-                    hidden = hidden.cpu().numpy()
-                fitted = fit_kmeans_impl(cfg, cfg.seed, hidden, cfg.cluster_number,
-                                         n_init=cfg.kmeans_n_init).centers
-            else:
-                hidden = hidden.cpu().numpy()
-                lo, hi = hidden.min(axis=0), hidden.max(axis=0)
-                rng = np.random.RandomState(cfg.seed)
-                fitted = rng.uniform(lo, hi, size=(cfg.cluster_number, hidden.shape[-1]))
-            centers = torch.as_tensor(fitted, dtype=torch.float32, device=self.device)
-        parallel.broadcast_([centers])
-        valid_prev = None
-        if mode == "kmeans":
-            valid_prev = kmeans_predict(centers, self.generate_pretrain_feat("validation"))
-        with torch.no_grad():
-            self.net.cluster_assignment.cluster_centers.copy_(centers)
-        logger.info("***** cluster initialize %s done *****", mode)
-        return valid_prev
+                hidden = self.generate_pretrain_feat("validation")
+                with tracing.span("init.predict"):
+                    valid_prev = kmeans_predict(centers, hidden)
+            with torch.no_grad():
+                self.net.cluster_assignment.cluster_centers.copy_(centers)
+            logger.info("***** cluster initialize %s done *****", mode)
+            return valid_prev
 
     # ----------------------------------------------------------- epochs
     def _dispatch_pred_cluster(self, scope: str, ds: ArrayDataset,
@@ -150,10 +161,12 @@ class ClusterTrainer(Trainer):
         the device (JAX `_dispatch_pred_cluster`). Returns (count or None,
         labels, metrics); with `defer_losses` the metrics of a fused pass
         are its per-batch losses on the device."""
-        metrics, dumps = self.eval_one_epoch(scope, ds, denoise, dump_keys=("cluster_pred",),
-                                             device_dumps=True, defer_losses=defer_losses)
-        labels = torch.argmax(dumps["cluster_pred"][0], dim=1)
-        count = None if prev_pred is None else torch.sum(labels != prev_pred)
+        with tracing.span("delta"):
+            metrics, dumps = self.eval_one_epoch(scope, ds, denoise,
+                                                 dump_keys=("cluster_pred",),
+                                                 device_dumps=True, defer_losses=defer_losses)
+            labels = torch.argmax(dumps["cluster_pred"][0], dim=1)
+            count = None if prev_pred is None else torch.sum(labels != prev_pred)
         return count, labels, metrics
 
     @staticmethod
@@ -163,7 +176,9 @@ class ClusterTrainer(Trainer):
         DEC epoch (1.0, None without a previous prediction)."""
         if count is None:
             return 1.0, None
-        n_changed = int(count)
+        with tracing.span("delta"):
+            n_changed = int(count)
+            tracing.count("host_reads")
         return n_changed / n_rows, n_changed
 
     def generate_pred_cluster(self, scope: str, ds: ArrayDataset,
@@ -207,7 +222,8 @@ class ClusterTrainer(Trainer):
         with its delta (none for an epoch whose eval wrote its own)."""
         if valid_losses is None:
             return
-        vm = _host_means(valid_losses)
+        with tracing.span("fetch"):
+            vm = _host_means(valid_losses)
         vm["delta"] = delta
         self.summary.add_summary(epoch, scope="valid", **vm)
         logger.info("Epoch %d valid %s", epoch, _fmt(vm))
@@ -227,11 +243,12 @@ class ClusterTrainer(Trainer):
         self.generator.set_state(gen_state)
         self.num_updates = num_updates
 
-    def train(self) -> Dict[str, float]:
+    def _train(self) -> Dict[str, float]:
         """Centre init, then the DEC epochs until `max_epochs` or a stop;
         returns the last validation metrics (with `delta`). The JAX loop,
         with its deferred cadence under `eval_interval > 1` and the fused
-        epoch, and `pipeline_delta`'s lagged count with its rollback."""
+        epoch, and `pipeline_delta`'s lagged count with its rollback
+        (`train()` calls it inside the span `train`)."""
         cfg = self.cfg
         train_ds, valid_ds = self.datasets["training"], self.datasets["validation"]
         valid_prev = self.init_centers()
@@ -275,86 +292,87 @@ class ClusterTrainer(Trainer):
 
         with timer("Duration of training"):
             while self.epoch < cfg.max_epochs:
-                is_eval = (cfg.eval_interval <= 1 or self.epoch % cfg.eval_interval == 0
-                           or self.epoch + 1 >= cfg.max_epochs)
-                defer = cfg.eval_interval > 1 and self._can_fuse(train_ds)
-                # at an eval nothing would hide the lagged read: resolve it
-                # first, so that a stop cancels this epoch entirely
-                if inflight is not None and is_eval:
-                    stop_msg, stopped_epoch = resolve_inflight()
-                    if stop_msg:
-                        self.epoch = stopped_epoch
-                        self._drain(pending)
-                        stop_candidacy()
-                        logger.info("Early stopping as %s.", stop_msg)
-                        break
-                if defer:
-                    n_batches = train_ds.num_batches(cfg.batch_size)
-                    rollback = None
-                    if cfg.pipeline_delta and not is_eval:
-                        rollback = self._snapshot()
-                    handles = self._dispatch_fused_epoch()
-                else:
-                    logger.info("==> Epoch %d train %s", self.epoch,
-                                _fmt(self.train_one_epoch()))
-
-                if is_eval:
-                    if defer:
-                        pending.append((self.epoch, handles, n_batches, None, None))
-                    self._drain(pending)
-                    delta, n_changed, valid_pred, valid_metrics = self.generate_pred_cluster(
-                        "valid", valid_ds, valid_prev)
-                    logger.info("Epoch %d: valid delta of label change: %s", self.epoch, delta)
-                    valid_metrics["delta"] = delta
-                    self._last_valid = valid_metrics
-                    self.aly_pred("valid", valid_metrics)
-                elif defer and cfg.pipeline_delta:
-                    # dispatch this epoch's count, then read the last one's
-                    # while the card works on this one
-                    count, valid_pred, vh = self._dispatch_pred_cluster(
-                        "valid", valid_ds, valid_prev, defer_losses=True)
-                    rec = {"epoch": self.epoch, "count": count,
-                           "n_rows": None if valid_prev is None else int(valid_prev.shape[0]),
-                           "handles": handles, "nb": n_batches, "vh": vh}
-                    if inflight is not None:
+                with tracing.span("epoch", epoch=self.epoch):
+                    is_eval = (cfg.eval_interval <= 1 or self.epoch % cfg.eval_interval == 0
+                               or self.epoch + 1 >= cfg.max_epochs)
+                    defer = cfg.eval_interval > 1 and self._can_fuse(train_ds)
+                    # at an eval nothing would hide the lagged read: resolve it
+                    # first, so that a stop cancels this epoch entirely
+                    if inflight is not None and is_eval:
                         stop_msg, stopped_epoch = resolve_inflight()
                         if stop_msg:
-                            # the speculative epoch is undone: the weights
-                            # are those after the stopping epoch
-                            self._rollback(rollback)
                             self.epoch = stopped_epoch
                             self._drain(pending)
                             stop_candidacy()
                             logger.info("Early stopping as %s.", stop_msg)
                             break
-                    inflight = rec
-                    if self.epoch % cfg.update_interval == 0:
-                        valid_prev = valid_pred
-                    if cfg.lr_decay_mode != "plateau":
-                        self._step_schedule(None)
-                    self.epoch += 1
-                    continue
-                else:
-                    delta, n_changed, valid_pred, vh = self.generate_pred_cluster(
-                        "valid", valid_ds, valid_prev, defer_losses=True)
                     if defer:
-                        pending.append((self.epoch, handles, n_batches, vh, delta))
-                    logger.info("Epoch %d: valid delta of label change: %s", self.epoch, delta)
-                    # plateau steps on a validation loss, at evals only
-                    if cfg.lr_decay_mode != "plateau":
-                        self._step_schedule(None)
-                self.delta_history.append(delta)
+                        n_batches = train_ds.num_batches(cfg.batch_size)
+                        rollback = None
+                        if cfg.pipeline_delta and not is_eval:
+                            rollback = self._snapshot()
+                        handles = self._dispatch_fused_epoch()
+                    else:
+                        logger.info("==> Epoch %d train %s", self.epoch,
+                                    _fmt(self.train_one_epoch()))
 
-                if self.epoch % cfg.update_interval == 0:
-                    stop_msg = self._should_stop(delta, n_changed)
-                    if stop_msg:
+                    if is_eval:
+                        if defer:
+                            pending.append((self.epoch, handles, n_batches, None, None))
                         self._drain(pending)
-                        if not is_eval:  # an eval's stop ran aly_pred already
-                            stop_candidacy(None if defer else vh, delta)
-                        logger.info("Early stopping as %s.", stop_msg)
-                        break
-                    valid_prev = valid_pred
-                self.epoch += 1
+                        delta, n_changed, valid_pred, valid_metrics = self.generate_pred_cluster(
+                            "valid", valid_ds, valid_prev)
+                        logger.info("Epoch %d: valid delta of label change: %s", self.epoch, delta)
+                        valid_metrics["delta"] = delta
+                        self._last_valid = valid_metrics
+                        self.aly_pred("valid", valid_metrics)
+                    elif defer and cfg.pipeline_delta:
+                        # dispatch this epoch's count, then read the last one's
+                        # while the card works on this one
+                        count, valid_pred, vh = self._dispatch_pred_cluster(
+                            "valid", valid_ds, valid_prev, defer_losses=True)
+                        rec = {"epoch": self.epoch, "count": count,
+                               "n_rows": None if valid_prev is None else int(valid_prev.shape[0]),
+                               "handles": handles, "nb": n_batches, "vh": vh}
+                        if inflight is not None:
+                            stop_msg, stopped_epoch = resolve_inflight()
+                            if stop_msg:
+                                # the speculative epoch is undone: the weights
+                                # are those after the stopping epoch
+                                self._rollback(rollback)
+                                self.epoch = stopped_epoch
+                                self._drain(pending)
+                                stop_candidacy()
+                                logger.info("Early stopping as %s.", stop_msg)
+                                break
+                        inflight = rec
+                        if self.epoch % cfg.update_interval == 0:
+                            valid_prev = valid_pred
+                        if cfg.lr_decay_mode != "plateau":
+                            self._step_schedule(None)
+                        self.epoch += 1
+                        continue
+                    else:
+                        delta, n_changed, valid_pred, vh = self.generate_pred_cluster(
+                            "valid", valid_ds, valid_prev, defer_losses=True)
+                        if defer:
+                            pending.append((self.epoch, handles, n_batches, vh, delta))
+                        logger.info("Epoch %d: valid delta of label change: %s", self.epoch, delta)
+                        # plateau steps on a validation loss, at evals only
+                        if cfg.lr_decay_mode != "plateau":
+                            self._step_schedule(None)
+                    self.delta_history.append(delta)
+
+                    if self.epoch % cfg.update_interval == 0:
+                        stop_msg = self._should_stop(delta, n_changed)
+                        if stop_msg:
+                            self._drain(pending)
+                            if not is_eval:  # an eval's stop ran aly_pred already
+                                stop_candidacy(None if defer else vh, delta)
+                            logger.info("Early stopping as %s.", stop_msg)
+                            break
+                        valid_prev = valid_pred
+                    self.epoch += 1
             if inflight is not None:  # the last epoch is an eval, which resolved it
                 resolve_inflight()
             self._drain(pending)

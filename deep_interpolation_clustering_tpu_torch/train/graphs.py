@@ -38,6 +38,13 @@ the stream that freed it.
 Hand-kernel launches recorded while the graph is captured are counted and
 added to the wrappers' counts on each replay (`ops._cuda_build`).
 
+Tracing (`utils.tracing`): a capture is the span `capture` and the counter
+`graph.captures`; each replay adds to `graph.replays` (a counter, no span).
+A graph captured while the tracer is on also captures one `add_(1)` on a
+device counter of its own (`device_replays`), so that the tracer's report
+can hold the replays the host launched against those the card ran; a graph
+captured while it is off captures nothing more than the step.
+
 On the ranks of a NCCL group (`parallel.capturable()`) the step's
 collectives are captured with it: every rank warms up and captures the same
 step at the same point of its run, the warm-up's collectives run for real
@@ -60,6 +67,7 @@ import torch
 
 from .. import parallel
 from ..ops import _cuda_build as cb
+from ..utils import tracing
 
 Snapshot = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -117,6 +125,8 @@ class GraphedStep:
         self.capture_seconds: Optional[float] = None  # warm-up and capture
         self.pool_bytes: Optional[int] = None  # device memory the capture added to the pool
         self.replays = 0
+        # the device's count of replays, when captured with the tracer on
+        self.device_replays: Optional[torch.Tensor] = None
 
     def __call__(self, rows: torch.Tensor, mask: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
@@ -126,10 +136,12 @@ class GraphedStep:
         if self.device.type != "cuda":
             return self.fn(self.rows, self.mask)
         if self.graph is None:
-            self._capture()
+            with tracing.span("capture"):
+                self._capture()
         self.graph.replay()
         cb.add_launches(self.launches)
         self.replays += 1
+        tracing.count("graph.replays")
         return self.out
 
     def _restore(self, snap: Snapshot, gen_state: Optional[torch.Tensor]) -> None:
@@ -139,6 +151,9 @@ class GraphedStep:
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
+        tracing.count("graph.captures")
+        counter = (torch.zeros(1, dtype=torch.int64, device=self.device)
+                   if tracing.enabled() else None)
         snap = snapshot(self.state())
         gen_state = None if self.generator is None else self.generator.get_state()
         # warm up on the stream that captures (its cuBLAS workspace and the
@@ -173,6 +188,8 @@ class GraphedStep:
             with torch.cuda.graph(graph, pool=self.pool.handle, stream=stream,
                                   capture_error_mode=mode):
                 out = self.fn(self.rows, self.mask)
+                if counter is not None:
+                    counter.add_(1)
         finally:
             if collecting:
                 gc.enable()
@@ -183,5 +200,8 @@ class GraphedStep:
         self._restore(snap, gen_state)
         torch.cuda.synchronize(self.device)
         self.graph, self.out = graph, out
+        if counter is not None:
+            self.device_replays = counter
+            tracing.watch_graph(self)
         self.launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
         self.capture_seconds = time.perf_counter() - t0

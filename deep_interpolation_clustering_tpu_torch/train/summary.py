@@ -14,6 +14,7 @@ from typing import Dict, Sequence
 import numpy as np
 
 from ..info import METRICS, SUMMARY_ITEMS
+from ..utils import tracing
 from ..utils.logging import logger
 
 
@@ -38,20 +39,22 @@ class Summary:
         self._tb = SummaryWriter(log_dir)
 
     def add_summary(self, step: int, **kwargs) -> None:
+        """One row of host values: the span `summary` (`utils.tracing`)."""
         if not self.enabled:
             return
-        scope = kwargs.get("scope", "")
-        rec: Dict[str, float] = {}
-        for k, v in kwargs.items():
-            if k in self.metric_items or k in self.summary_items:
-                v = float(np.asarray(v))
-                rec[k] = v
-                if self._tb is not None:
-                    self._tb.add_scalar(f"{scope}_{k}", v, global_step=step)
-        if rec:
-            rec.update(step=step, scope=scope)
-            self._jsonl.write(json.dumps(rec) + "\n")
-            self._jsonl.flush()
+        with tracing.span("summary"):
+            scope = kwargs.get("scope", "")
+            rec: Dict[str, float] = {}
+            for k, v in kwargs.items():
+                if k in self.metric_items or k in self.summary_items:
+                    v = float(np.asarray(v))
+                    rec[k] = v
+                    if self._tb is not None:
+                        self._tb.add_scalar(f"{scope}_{k}", v, global_step=step)
+            if rec:
+                rec.update(step=step, scope=scope)
+                self._jsonl.write(json.dumps(rec) + "\n")
+                self._jsonl.flush()
 
     def add_embedding(self, features: np.ndarray, step: int, tag: str) -> None:
         """Latent-space projector dump (reference pretrain_trainer.py:117);

@@ -53,6 +53,18 @@ losses and its dumps are gathered, so every rank holds them. Rank 0 alone
 writes `config.json`, checkpoints, the summary and the dumps; `load_weight`
 waits at a barrier first. Every decision of the host (early stop, the
 schedule, logging) reads global values, the same on every rank.
+
+Tracing (`utils.tracing`, off by default): `train()` is the root span
+`train`, each loop iteration an `epoch` span (attribute `epoch`); inside
+it `train_epoch` (children `train_epoch.plan`: the shuffle, the index
+upload and a sharded cohort's `relayout`; `train_epoch.replay`: the replays,
+or a stepped epoch's eager steps), `fetch` (an epoch's losses to the host),
+`eval` (attribute `scope`; `eval.replay`, `eval.fetch`), `checkpoint`
+(`checkpoint.copy`: the state to the host; `checkpoint.write`: the files)
+and the summary's `summary` rows. Counters: `train.steps`, `eval.batches`
+and `host_reads`, one for each transfer of card data to the host (a loss
+table, a dump, a logged loss, a checkpoint's tensors), counted on the CPU
+too, so that the count is the same on both devices.
 """
 
 from __future__ import annotations
@@ -60,7 +72,7 @@ from __future__ import annotations
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -73,6 +85,7 @@ from ..data.loader import ArrayDataset
 from ..info import COHORT2SCOPE, METRICS, MIN_MAX_VALUES
 from ..models.net import Net
 from ..parallel.cohort import ShardedCohort
+from ..utils import tracing
 from ..utils.device import resolve_device
 from ..utils.logging import logger, timer
 from . import checkpoint as ckpt
@@ -166,20 +179,27 @@ class Trainer:
         return self._blocks[cohort]
 
     def _relayout(self, blocks: ShardedCohort, order: np.ndarray, what: str) -> None:
-        """`blocks.ensure(order)`, its seconds logged when it moved storage."""
+        """`blocks.ensure(order)`, the span `relayout`, when it moves storage;
+        the log line gives the host's seconds (the dispatch: nothing waits for
+        the card, whose time is the span's device interval)."""
         if np.array_equal(order, blocks.order):
             return
         t0 = time.perf_counter()
-        blocks.ensure(order)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with tracing.span("relayout"):
+            blocks.ensure(order)
         logger.info("cohort relayout for %s in %.4f s (rank %d of %d)", what,
                     time.perf_counter() - t0, parallel.rank(), self.world)
 
     # ------------------------------------------------------------- train
     def train(self) -> Dict[str, float]:
         """Train until `max_epochs` or early stop; returns the last
-        validation metrics (JAX `Trainer.train`)."""
+        validation metrics (JAX `Trainer.train`). The root span `train`
+        around `_train`, the loop; under a profiler with the tracer off,
+        the call traces itself (`tracing.call`)."""
+        with tracing.call(self.device):
+            return self._train()
+
+    def _train(self) -> Dict[str, float]:
         cfg = self.cfg
         if cfg.restore:
             self.load_weight()
@@ -192,26 +212,27 @@ class Trainer:
         pending: List[tuple] = []
         with timer("Duration of training"):
             while self.epoch < cfg.max_epochs:
-                is_eval = (cfg.eval_interval <= 1 or self.epoch % cfg.eval_interval == 0
-                           or self.epoch + 1 >= cfg.max_epochs)
-                if cfg.eval_interval > 1 and self._can_fuse(self.datasets["training"]):
-                    pending.append((self.epoch, self._dispatch_fused_epoch(),
-                                    self.datasets["training"].num_batches(cfg.batch_size)))
-                else:
-                    logger.info("==> Epoch %d train %s", self.epoch,
-                                _fmt(self.train_one_epoch()))
-                if is_eval:
-                    self._drain(pending)
-                    last_valid, _ = self.eval_one_epoch(
-                        "valid", self.datasets["validation"], cfg.denoise)
-                    early_stop = self.aly_pred("valid", last_valid)["early_stop"]
-                else:
-                    # the epoch-indexed schedules step every epoch; plateau
-                    # needs the validation loss, so it steps at evals only
-                    if cfg.lr_decay_mode != "plateau":
-                        self._step_schedule(None)
-                    early_stop = False
-                self.epoch += 1
+                with tracing.span("epoch", epoch=self.epoch):
+                    is_eval = (cfg.eval_interval <= 1 or self.epoch % cfg.eval_interval == 0
+                               or self.epoch + 1 >= cfg.max_epochs)
+                    if cfg.eval_interval > 1 and self._can_fuse(self.datasets["training"]):
+                        pending.append((self.epoch, self._dispatch_fused_epoch(),
+                                        self.datasets["training"].num_batches(cfg.batch_size)))
+                    else:
+                        logger.info("==> Epoch %d train %s", self.epoch,
+                                    _fmt(self.train_one_epoch()))
+                    if is_eval:
+                        self._drain(pending)
+                        last_valid, _ = self.eval_one_epoch(
+                            "valid", self.datasets["validation"], cfg.denoise)
+                        early_stop = self.aly_pred("valid", last_valid)["early_stop"]
+                    else:
+                        # the epoch-indexed schedules step every epoch; plateau
+                        # needs the validation loss, so it steps at evals only
+                        if cfg.lr_decay_mode != "plateau":
+                            self._step_schedule(None)
+                        early_stop = False
+                    self.epoch += 1
                 if early_stop:
                     logger.info("======== best model: %s", self.flag_dict.to_dict())
                     break
@@ -336,18 +357,24 @@ class Trainer:
             logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s (fused)", self.epoch,
                         seconds, n / seconds, self._rank_note())
             return out
-        batches = self._epoch_batches(self.epoch)
-        n_batches = len(batches)
-        losses = []
-        for i, (idx, mask) in enumerate(batches, start=1):
-            losses.append(self.step(idx, mask))
-            if i % self.cfg.log_train_freq == 1:
-                fetched = {k: float(v) for k, v in losses[-1].items()}
-                logger.info("%d-[%d/%d (%.0f%%)]: train-%s", self.epoch, i, n_batches,
-                            100.0 * i / n_batches, _fmt(fetched))
-                self.summary.add_summary(self.epoch * n_batches + i, scope="train_batch",
-                                         **fetched)
-        out = _batch_means(_loss_table(losses))  # the fetch ends the epoch's device work
+        with tracing.span("train_epoch"):
+            with tracing.span("train_epoch.plan"):
+                batches = self._epoch_batches(self.epoch)
+            n_batches = len(batches)
+            tracing.count("train.steps", n_batches)
+            losses = []
+            with tracing.span("train_epoch.replay"):
+                for i, (idx, mask) in enumerate(batches, start=1):
+                    losses.append(self.step(idx, mask))
+                    if i % self.cfg.log_train_freq == 1:
+                        fetched = {k: float(v) for k, v in losses[-1].items()}
+                        tracing.count("host_reads", len(fetched))
+                        logger.info("%d-[%d/%d (%.0f%%)]: train-%s", self.epoch, i, n_batches,
+                                    100.0 * i / n_batches, _fmt(fetched))
+                        self.summary.add_summary(self.epoch * n_batches + i,
+                                                 scope="train_batch", **fetched)
+        with tracing.span("fetch"):
+            out = _batch_means(_loss_table(losses))  # the fetch ends the epoch's device work
         seconds = time.perf_counter() - t0
         logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s", self.epoch, seconds,
                     len(self.datasets["training"]) / seconds, self._rank_note())
@@ -363,6 +390,7 @@ class Trainer:
         BatchNorm buffers and optimizer state, bit for bit."""
         if self.world == 1:
             return
+        tracing.count("host_reads")  # the ranks' verdict
         named = list(self.net.named_parameters()) + list(self.net.named_buffers())
         for i, p in enumerate(self.net.parameters()):
             named += [(f"opt.{i}.{k}", v) for k, v in sorted(self.opt.state[p].items())
@@ -425,17 +453,21 @@ class Trainer:
         numbers uploaded once), each batch's rows copied into the graph's
         buffer, its losses into the epoch's (n_batches, K) table on the
         device. Returns (the table, the loss names)."""
-        batches = self._epoch_batches(self.epoch)
-        if self.shard_cohort:
-            blocks = torch.arange(len(batches), device=self.device)
-            batches = [(blocks[k:k + 1], mask) for k, mask in batches]
-        table = None
-        for i, (rows, mask) in enumerate(batches):
-            out = self._train_graph(mask is not None)(rows, mask)["losses"]
-            if table is None:
-                table = torch.empty((len(batches),) + tuple(out.shape), dtype=out.dtype,
-                                    device=self.device)
-            table[i].copy_(out)
+        with tracing.span("train_epoch"):
+            with tracing.span("train_epoch.plan"):
+                batches = self._epoch_batches(self.epoch)
+                if self.shard_cohort:
+                    blocks = torch.arange(len(batches), device=self.device)
+                    batches = [(blocks[k:k + 1], mask) for k, mask in batches]
+            tracing.count("train.steps", len(batches))
+            table = None
+            with tracing.span("train_epoch.replay"):
+                for i, (rows, mask) in enumerate(batches):
+                    out = self._train_graph(mask is not None)(rows, mask)["losses"]
+                    if table is None:
+                        table = torch.empty((len(batches),) + tuple(out.shape),
+                                            dtype=out.dtype, device=self.device)
+                    table[i].copy_(out)
         self.num_updates += len(batches)
         return table, self._loss_keys[("train", mask is not None)]
 
@@ -443,19 +475,21 @@ class Trainer:
                               n_batches: int) -> Dict[str, float]:
         """Fetch a dispatched epoch's losses and write its batch log lines and
         `train_batch` rows (at the steps the stepped epoch logs them) and its
-        `train` row (JAX `_finalize_fused_epoch`)."""
-        table, keys = handles
-        table = table.cpu().numpy()
-        for i in range(1, table.shape[0] + 1):
-            if i % self.cfg.log_train_freq == 1:
-                fetched = {k: float(table[i - 1, j]) for j, k in enumerate(keys)}
-                logger.info("%d-[%d/%d (%.0f%%)]: train-%s", epoch, i, n_batches,
-                            100.0 * i / n_batches, _fmt(fetched))
-                self.summary.add_summary(epoch * n_batches + i, scope="train_batch",
-                                         **fetched)
-        out = _batch_means((table, keys))
-        self.summary.add_summary(epoch, scope="train", **out)
-        self._check_replicated()
+        `train` row (JAX `_finalize_fused_epoch`): the span `fetch`."""
+        with tracing.span("fetch"):
+            table, keys = handles
+            table = table.cpu().numpy()
+            tracing.count("host_reads")
+            for i in range(1, table.shape[0] + 1):
+                if i % self.cfg.log_train_freq == 1:
+                    fetched = {k: float(table[i - 1, j]) for j, k in enumerate(keys)}
+                    logger.info("%d-[%d/%d (%.0f%%)]: train-%s", epoch, i, n_batches,
+                                100.0 * i / n_batches, _fmt(fetched))
+                    self.summary.add_summary(epoch * n_batches + i, scope="train_batch",
+                                             **fetched)
+            out = _batch_means((table, keys))
+            self.summary.add_summary(epoch, scope="train", **out)
+            self._check_replicated()
         return out
 
     # -------------------------------------------------------------- eval
@@ -475,11 +509,20 @@ class Trainer:
         in a world that `_can_fuse` takes the pass replays captured eval
         steps (`_eval_one_epoch_fused`); there `defer_losses` (with
         `device_dumps`) returns the per-batch losses as device tensors,
-        unfetched."""
+        unfetched. The span `eval`: its batches (`eval.replay`), then what
+        goes to the host (`eval.fetch`)."""
+        with tracing.span("eval", scope=scope):
+            tracing.count("eval.batches", ds.num_batches(self.cfg.batch_size))
+            if self._can_fuse():
+                return self._eval_one_epoch_fused(scope, ds, denoise, dump_keys, device_dumps,
+                                                  defer_losses)
+            return self._eval_one_epoch_stepped(scope, ds, denoise, dump_keys, device_dumps)
+
+    def _eval_one_epoch_stepped(self, scope: str, ds: ArrayDataset, denoise: bool,
+                                dump_keys: Optional[Tuple[str, ...]], device_dumps: bool
+                                ) -> Tuple[Dict[str, float], Dict[str, list]]:
+        """The eval pass of eager steps (`eval_one_epoch`)."""
         cfg = self.cfg
-        if self._can_fuse():
-            return self._eval_one_epoch_fused(scope, ds, denoise, dump_keys, device_dumps,
-                                              defer_losses)
         n, b = len(ds), cfg.batch_size
         n_batches = ds.num_batches(b)
         rows = parallel.shard_rows(b)
@@ -491,32 +534,48 @@ class Trainer:
             idx, tail_mask = self._eval_rows(n, b)
             idx = torch.as_tensor(idx, device=self.device)
         pending = []
-        for i in range(1, n_batches + 1):
-            mask = None
-            tail = i == n_batches and n % b != 0
-            if self.shard_cohort:
-                if tail:
-                    mask = torch.as_tensor(blocks.eval_mask[i - 1][rows], device=self.device)
-                batch = blocks.block(i - 1)
-            else:
-                if tail:
-                    mask = torch.as_tensor(tail_mask[rows], device=self.device)
-                batch = gather_batch(data, idx[i - 1][rows])
-            losses, outputs = eval_step(self.net, cfg, batch, self.generator, denoise,
-                                        mask, dump_keys)
-            pending.append((losses, outputs))
-            if i % cfg.log_valid_freq == 1:
-                logger.info("%d-[%d/%d (%.0f%%)]: %s-%s", self.epoch, i, n_batches,
-                            100.0 * i / n_batches, scope,
-                            _fmt({k: float(v) for k, v in losses.items()}))
-        metrics = _batch_means(_loss_table([losses for losses, _ in pending]))
+        with tracing.span("eval.replay"):
+            for i in range(1, n_batches + 1):
+                mask = None
+                tail = i == n_batches and n % b != 0
+                if self.shard_cohort:
+                    if tail:
+                        mask = torch.as_tensor(blocks.eval_mask[i - 1][rows],
+                                               device=self.device)
+                    batch = blocks.block(i - 1)
+                else:
+                    if tail:
+                        mask = torch.as_tensor(tail_mask[rows], device=self.device)
+                    batch = gather_batch(data, idx[i - 1][rows])
+                losses, outputs = eval_step(self.net, cfg, batch, self.generator, denoise,
+                                            mask, dump_keys)
+                pending.append((losses, outputs))
+                if i % cfg.log_valid_freq == 1:
+                    tracing.count("host_reads", len(losses))
+                    logger.info("%d-[%d/%d (%.0f%%)]: %s-%s", self.epoch, i, n_batches,
+                                100.0 * i / n_batches, scope,
+                                _fmt({k: float(v) for k, v in losses.items()}))
+        with tracing.span("eval.fetch"):
+            metrics = _batch_means(_loss_table([losses for losses, _ in pending]))
+            tracing.count("host_reads")
+            return metrics, self._dumps(((k, torch.cat([o[k] for _, o in pending]))
+                                         for k in pending[0][1]), n_batches, n, device_dumps)
+
+    @staticmethod
+    def _dumps(bufs: Iterable[Tuple[str, torch.Tensor]], n_batches: int, n: int,
+               device_dumps: bool) -> Dict[str, list]:
+        """An eval pass's outputs, (key, this rank's rows of each batch) in
+        `bufs`, as the cohort's `n` rows ({key: [rows]} with `__index__`),
+        gathered over ranks; fetched to the host unless `device_dumps`."""
         dumps: Dict[str, list] = defaultdict(list)
-        for k in pending[0][1]:
-            out = parallel.gather_blocks(torch.cat([o[k] for _, o in pending]),
-                                         n_batches)[:n]
-            dumps[k].append(out if device_dumps else out.cpu().numpy())
+        for k, buf in bufs:
+            out = parallel.gather_blocks(buf, n_batches)[:n]
+            if not device_dumps:
+                out = out.cpu().numpy()
+                tracing.count("host_reads")
+            dumps[k].append(out)
         dumps["__index__"].append(np.arange(n))
-        return metrics, dumps
+        return dumps
 
     @staticmethod
     def _eval_rows(n: int, b: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -576,31 +635,29 @@ class Trainer:
             mask = torch.as_tensor(mask, device=self.device)
         b = rows.stop - rows.start  # the rows a rank's graph takes
         table, bufs = None, {}
-        for i in range(n_batches):
-            tail = i == n_full
-            out = self._eval_graph(ds.cohort, denoise, dump_keys, tail)(
-                idx[i], mask if tail else None)
-            if table is None:
-                table = torch.empty((n_batches,) + tuple(out["__losses__"].shape),
-                                    device=self.device)
-                bufs = {k: torch.empty((n_batches * b,) + tuple(v.shape[1:]), dtype=v.dtype,
-                                       device=self.device)
-                        for k, v in out.items() if k != "__losses__"}
-            table[i].copy_(out["__losses__"])
-            for k, buf in bufs.items():
-                buf[i * b:(i + 1) * b].copy_(out[k])
+        with tracing.span("eval.replay"):
+            for i in range(n_batches):
+                tail = i == n_full
+                out = self._eval_graph(ds.cohort, denoise, dump_keys, tail)(
+                    idx[i], mask if tail else None)
+                if table is None:
+                    table = torch.empty((n_batches,) + tuple(out["__losses__"].shape),
+                                        device=self.device)
+                    bufs = {k: torch.empty((n_batches * b,) + tuple(v.shape[1:]),
+                                           dtype=v.dtype, device=self.device)
+                            for k, v in out.items() if k != "__losses__"}
+                table[i].copy_(out["__losses__"])
+                for k, buf in bufs.items():
+                    buf[i * b:(i + 1) * b].copy_(out[k])
         keys = self._loss_keys[("eval", ds.cohort, denoise, dump_keys, tail)]
-        if defer_losses and device_dumps:
-            metrics: Dict[str, object] = {k: table[:, j] for j, k in enumerate(keys)}
-        else:
-            metrics = _batch_means((table.cpu().numpy(), keys))
-            logger.info("%d: %s-%s", self.epoch, scope, _fmt(metrics))
-        dumps: Dict[str, list] = defaultdict(list)
-        for k, buf in bufs.items():
-            out = parallel.gather_blocks(buf, n_batches)[:n]
-            dumps[k].append(out if device_dumps else out.cpu().numpy())
-        dumps["__index__"].append(np.arange(n))
-        return metrics, dumps
+        with tracing.span("eval.fetch"):
+            if defer_losses and device_dumps:
+                metrics: Dict[str, object] = {k: table[:, j] for j, k in enumerate(keys)}
+            else:
+                metrics = _batch_means((table.cpu().numpy(), keys))
+                tracing.count("host_reads")
+                logger.info("%d: %s-%s", self.epoch, scope, _fmt(metrics))
+            return metrics, self._dumps(bufs.items(), n_batches, n, device_dumps)
 
     def merge_ob_pred(self, ds: ArrayDataset, dumps: Dict[str, list]) -> Dict[str, np.ndarray]:
         """The dumps and the cohort's planes as one dict of arrays (reference
@@ -681,15 +738,19 @@ class Trainer:
         improved = self.flag_dict.improved(metric_dict, self.epoch)
         if not improved or not self.main:
             return
-        params, state = jax_from_state_dict(self.net.state_dict())
-        leaves = optimizer_to_jax(self.opt, self.net, self.num_updates)
-        for m in improved:
-            ckpt.save_checkpoint(
-                os.path.join(self.weight_paths[m], ckpt.CKPT_NAME), self.epoch, params, state,
-                leaves, extra={"lr": self.lr_schedule.lr, "metric": m,
+        with tracing.span("checkpoint"):
+            with tracing.span("checkpoint.copy"):  # one host read a tensor (`compat`)
+                params, state = jax_from_state_dict(self.net.state_dict())
+                leaves = optimizer_to_jax(self.opt, self.net, self.num_updates)
+            with tracing.span("checkpoint.write"):
+                for m in improved:
+                    ckpt.save_checkpoint(
+                        os.path.join(self.weight_paths[m], ckpt.CKPT_NAME), self.epoch,
+                        params, state, leaves,
+                        extra={"lr": self.lr_schedule.lr, "metric": m,
                                "lr_schedule": self.lr_schedule.state_dict(),
                                "flag_dict": self.flag_dict.state_dict()})
-            logger.info("saving for %s", m)
+                    logger.info("saving for %s", m)
 
     def aly_pred(self, scope: str, metric_dict: Dict[str, float]) -> Dict[str, bool]:
         """After a validation pass: the schedule steps on its loss, the rate

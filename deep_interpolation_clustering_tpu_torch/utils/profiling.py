@@ -6,9 +6,6 @@
 builds the default `Config` trainer (B=256, T=354, H=128) on a synthetic
 cohort, and prints one JSON object with:
   * `step_ms`: the median host time of a train step ending in a synchronise;
-  * `phases_ms`: the median of each phase of the step (build_inputs, forward
-    and losses, backward, clip, optimizer), each ended by a synchronise, so
-    their sum exceeds `step_ms` by the lost overlap;
   * from a `torch.profiler` window over a few steps: the device's busy time
     (union of its kernel and copy intervals), its idle share in that window
     and against `step_ms` (the profiler slows the host), the kernels
@@ -31,9 +28,9 @@ cohort, and prints one JSON object with:
 It needs a CUDA card and raises without one.
 
 `collective_calls` counts the collectives that `parallel/` issues, eagerly
-and while a graph captures them, and `device_profile` counts the NCCL
-kernels the card ran; `chip_smoke.py` phase `dp` reads both for a rank of a
-NCCL group.
+and while a graph captures them (the tracer's counters, `utils.tracing`),
+and `device_profile` counts the NCCL kernels the card ran; `chip_smoke.py`
+phase `dp` reads both for a rank of a NCCL group.
 """
 
 from __future__ import annotations
@@ -43,10 +40,13 @@ import itertools
 import json
 import time
 from collections import defaultdict
-from typing import Callable, Dict, Iterator, List
+from collections.abc import Mapping
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+from . import tracing
 
 
 # substrings of the names of the kernels in csrc/*.cu
@@ -59,28 +59,6 @@ def _sync_ms(fn: Callable) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
-
-
-def phase_times(trainer, n: int) -> Dict[str, float]:
-    """Median ms of each phase of `trainer`'s step over `n` steps."""
-    from ..train.optim import clip_grad_global_norm_
-    from ..train.steps import build_inputs, forward_and_losses, gather_batch
-
-    cfg, net, opt, gen = trainer.cfg, trainer.net, trainer.opt, trainer.generator
-    data = trainer.cohort_data("training")
-    times = defaultdict(list)
-    for idx, _ in trainer._epoch_batches(trainer.epoch)[:n]:
-        box = {}
-        times["build_inputs"].append(_sync_ms(lambda: box.update(inputs=build_inputs(
-            cfg, gather_batch(data, idx), gen, True, cfg.denoise))))
-        opt.zero_grad(set_to_none=True)
-        times["forward_losses"].append(_sync_ms(lambda: box.update(losses=forward_and_losses(
-            net, cfg, box["inputs"], True, gen)[1])))
-        times["backward"].append(_sync_ms(lambda: box["losses"]["loss"].backward()))
-        times["clip"].append(_sync_ms(lambda: clip_grad_global_norm_(net.parameters(),
-                                                                     cfg.grad_clip)))
-        times["optimizer"].append(_sync_ms(opt.step))
-    return {k: float(np.median(v)) for k, v in times.items()}
 
 
 def graphed_step(trainer) -> Callable:
@@ -101,32 +79,51 @@ def graphed_step(trainer) -> Callable:
     return step
 
 
+class _Collectives(Mapping):
+    """{"eager": n, "captured": n}: the tracer's `collective.*` counters
+    since this view was made, live until `freeze()`."""
+
+    KINDS = ("eager", "captured")
+
+    def __init__(self):
+        self.base = {k: tracing.counter("collective." + k) for k in self.KINDS}
+        self.frozen: Optional[Dict[str, int]] = None
+
+    def __getitem__(self, kind: str) -> int:
+        if self.frozen is not None:
+            return self.frozen[kind]
+        return tracing.counter("collective." + kind) - self.base[kind]
+
+    def __iter__(self):
+        return iter(self.KINDS)
+
+    def __len__(self) -> int:
+        return len(self.KINDS)
+
+    def freeze(self) -> None:
+        self.frozen = dict(self)
+
+
 @contextlib.contextmanager
-def collective_calls() -> Iterator[Dict[str, int]]:
-    """Count, while the block runs, the collectives of `torch.distributed`
-    that `parallel/` issues (`all_reduce`, `broadcast`,
-    `all_to_all_single`): {"eager": n, "captured": n}, the latter issued
-    while the calling thread's stream is being captured into a CUDA graph
-    (an autograd backward runs on the forward's stream)."""
-    import torch.distributed as dist
-
-    counts = {"eager": 0, "captured": 0}
-    saved = {n: getattr(dist, n) for n in ("all_reduce", "broadcast", "all_to_all_single")}
-
-    def counted(fn):
-        def call(*args, **kwargs):
-            capturing = torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
-            counts["captured" if capturing else "eager"] += 1
-            return fn(*args, **kwargs)
-        return call
-
-    for name, fn in saved.items():
-        setattr(dist, name, counted(fn))
+def collective_calls() -> Iterator[Mapping]:
+    """Count, while the block runs, the collectives that `parallel/` issues
+    (`all_reduce`, `broadcast`, `all_to_all_single`): {"eager": n,
+    "captured": n}, the latter issued while the calling thread's stream is
+    being captured into a CUDA graph (an autograd backward runs on the
+    forward's stream). The counts are the tracer's (`parallel.mesh.issued`);
+    the block enables it if it is off (and disables it after), and the
+    mapping holds its values after the block."""
+    started = not tracing.enabled()
+    if started:
+        tracing.enable(torch.device("cuda", torch.cuda.current_device())
+                       if torch.cuda.is_available() else None)
+    counts = _Collectives()
     try:
         yield counts
     finally:
-        for name, fn in saved.items():
-            setattr(dist, name, fn)
+        counts.freeze()
+        if started:
+            tracing.disable()
 
 
 def step_turns(steps: Dict[str, Callable], turns: int, n: int) -> Dict[str, List[float]]:
@@ -252,7 +249,6 @@ def main() -> None:
             capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
         "batch": cfg.batch_size, "T": cfg.num_timestamps, "lstm_hidden": cfg.lstm_hidden,
         "step_ms": step_ms,
-        "phases_ms": phase_times(trainer, 10),
         "profile": device_profile(step, 5),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "graphed": {
