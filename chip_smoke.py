@@ -21,7 +21,11 @@ not 0):
                the packed one at T=48, as `rng_draw_bits=16` draws them);
                the selects, the SCI forward and the RBF push also on one
                encounter's rows (`few_rows_ms`, a call's fixed cost); the
-               SCI forward and the biLSTM kernels must repeat bit for bit
+               SCI forward and the biLSTM kernels must repeat bit for bit;
+               the optimizer tail's kernel pair at the Net's 37 leaves
+               against the clip and the card's Adam (`optim_kernels`), the
+               pair and that plain tail also replayed from CUDA graphs
+               (`pair_ms`, `plain_tail_ms`)
   4. main    - the p1 trainer at the default Config width takes 8 steps and
                one eval forward on a synthetic T=354 cohort; the kernels'
                launch counters must show the path went through them; then
@@ -614,7 +618,7 @@ def p1_phase(root: str, cohorts: dict, smi: str) -> dict:
                              f"rates {got_lr}, expected {want_epochs}, {want_lr}")
 
     need = ("fake_select", "sci_forward", "sci_backward", "rbf_push", "lstm_forward",
-            "lstm_backward")
+            "lstm_backward", "clip_adam")
     missing = [k for k in need if launches[k] == 0]
     if missing:
         raise AssertionError(f"p1: kernels never launched on the path: {missing}")
@@ -878,7 +882,7 @@ def bf16_phase(run: dict, sdata, smi: str) -> dict:
         port_log.removeHandler(lines)
     p1_launches = {w.name: w.launches for w in cb.KERNELS}
     missing = [k for k in ("fake_select", "sci_forward", "sci_backward", "rbf_push",
-                           "lstm_forward", "lstm_backward") if not p1_launches[k]]
+                           "lstm_forward", "lstm_backward", "clip_adam") if not p1_launches[k]]
     if missing:
         raise AssertionError(f"bf16 p1: kernels never launched on the path: {missing}")
     epochs = _epoch_lines("\n".join(lines.lines))[0]
@@ -1004,7 +1008,7 @@ def _logged_epochs(fn) -> tuple:
 
 # each kernel wrapper's device kernels (csrc/*.cu), a call launching one of
 # each group: B1 and B2 share one kernel template and its looping form, B7
-# launches four kernels
+# launches four kernels, the optimizer tail two
 DEVICE_KERNELS = {
     ("fake_select", "fake_select_packed"): [("fake_select_kernel", "fake_select_loop_kernel")],
     ("sci_forward",): [("sci_fwd_kernel",)],
@@ -1013,6 +1017,7 @@ DEVICE_KERNELS = {
     ("lstm_forward",): [("lstm_fwd_kernel",)],
     ("lstm_backward",): [("lstm_gate_products_kernel",), ("lstm_bwd_kernel",),
                          ("lstm_dw_partial_kernel",), ("lstm_dw_reduce_kernel",)],
+    ("clip_adam",): [("optim_partials_kernel",), ("optim_update_kernel",)],
 }
 
 
@@ -1124,6 +1129,88 @@ def _optimizer_check(cfg, dev) -> dict:
         out[f"{name}/zero (unchecked)"] = _optimizer_steps(
             cfg.replace(optimizer="adam"), dev, "zero", other_adam(**kw))[0]
     return out
+
+
+def optim_kernels(cfg, dev) -> dict:
+    """Phase `kernels`: the optimizer tail's kernel pair (`ops/cuda_optim.py`)
+    against the plain tail it replaces (`clip_grad_global_norm_`, then the
+    card's capturable amsgrad Adam) at the Net's 37 leaves, from the same
+    parameters and gradients, three steps with the clip engaged, idle and
+    engaged: every parameter and state tensor within 1e-6 of its largest
+    value, the norm within 1e-6. Then the wrapper's call alone (`ms`, its
+    two launches), and the pair and the plain tail (`pair_ms`,
+    `plain_tail_ms`) each captured in a CUDA graph and replayed, as the
+    fused step runs them, timed by `time_ms` (L2 flushed). Returns the
+    wrapper's report row."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.models.net import Net
+    from deep_interpolation_clustering_tpu_torch.ops import cuda_optim as co
+    from deep_interpolation_clustering_tpu_torch.train.optim import (
+        clip_adam_step_, clip_grad_global_norm_, make_optimizer,
+    )
+    from deep_interpolation_clustering_tpu_torch.utils.cuda_timing import time_ms
+
+    torch.manual_seed(0)
+    init = [p.detach().to(dev) for p in Net(cfg).parameters()]
+    sides = []
+    for _ in range(2):
+        params = [torch.nn.Parameter(t.clone()) for t in init]
+        sides.append((params, make_optimizer(cfg, params)))
+    (kp, kopt), (pp, popt) = sides
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst, norm_err = 0.0, 0.0
+    for scale in (1.0, 1e-4, 1.0):  # a norm of ~800 and of ~0.08 against the clip of 15
+        for a, b in zip(kp, pp):
+            a.grad = torch.randn(a.shape, generator=gen, device=dev) * scale
+            b.grad = a.grad.clone()
+        got = clip_adam_step_(kopt, cfg.grad_clip)
+        want = clip_grad_global_norm_(pp, cfg.grad_clip)
+        popt.step()
+        norm_err = max(norm_err, abs(float(got) / float(want) - 1.0))
+        for a, b in zip(kp, pp):
+            for x, y in [(a, b)] + [(kopt.state[a][k], popt.state[b][k])
+                                    for k in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")]:
+                top = float(y.abs().max())
+                if top > 0:
+                    worst = max(worst, float((x - y).abs().max()) / top)
+    if not (worst <= 1e-6 and norm_err <= 1e-6):
+        raise AssertionError(f"optimizer kernel pair against the plain tail: {worst:.3g} of "
+                             f"the largest value, norm {norm_err:.3g}")
+
+    def graphed(fn):
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            fn()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return graph.replay
+
+    def plain_tail():
+        clip_grad_global_norm_(pp, cfg.grad_clip)
+        popt.step()
+
+    group = kopt.param_groups[0]
+    leaves = [(p, p.grad, *(kopt.state[p][k] for k in ("exp_avg", "exp_avg_sq",
+                                                        "max_exp_avg_sq", "step")))
+              for p in kp]
+    hyper = (cfg.grad_clip, group["weight_decay"], *group["betas"], group["eps"])
+    norm = torch.empty((), dtype=torch.float32, device=dev)
+    n = sum(p.numel() for p in kp)
+    plain_tail_ms = time_ms(graphed(plain_tail))
+    f32 = 4
+    return {"clip_adam": dict(
+        max_abs_err=max(worst, norm_err),
+        tolerance="1e-6 of the largest value (parameters, state) and of the norm",
+        ms=time_ms(lambda: co.clip_adam_(norm, leaves, group["lr"], hyper)),
+        plain_ms=plain_tail_ms, library_ms=None, expf=0,
+        pair_ms=time_ms(graphed(lambda: clip_adam_step_(kopt, cfg.grad_clip))),
+        plain_tail_ms=plain_tail_ms,
+        # reads g (twice), p, m, v, vmax; writes them all (g scaled: the clip engaged)
+        bytes=11 * n * f32, flop=22 * n)}
 
 
 def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
@@ -1724,7 +1811,7 @@ def dp_phase(run: dict, smi: str) -> dict:
     width = run["width"] + ["--max_epochs", "3"]
     n_train = len(run["cohorts"]["training"]["encounter_id"])
     need = ("fake_select", "sci_forward", "sci_backward", "rbf_push", "lstm_forward",
-            "lstm_backward")
+            "lstm_backward", "clip_adam")
     report, seconds, texts = {}, {}, {}
 
     def results(name):
@@ -2405,7 +2492,7 @@ def p3_phase(run: dict, smi: str) -> dict:
                 raise AssertionError(f"p3 dump {m}/{cohort}: cluster_pred rows sum to 1 "
                                      f"within {row_err}")
     need = ("fake_select", "sci_forward", "sci_backward", "rbf_push", "lstm_forward",
-            "lstm_backward")
+            "lstm_backward", "clip_adam")
     missing = [name for name in need if launches[name] == 0]
     if missing:
         raise AssertionError(f"p3: kernels never launched on the path: {missing}")
@@ -2883,6 +2970,7 @@ def main() -> None:
         bytes=n_bytes, flop=n_flop, expf=n_expf,
     )
     del lib, x_lib, lstm_checks
+    report.update(optim_kernels(cfg, dev))
 
     for name, r in report.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flop"), r.pop("expf"))
@@ -2891,7 +2979,8 @@ def main() -> None:
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
             library_ms=None if r["library_ms"] is None else f"{r['library_ms']:.4f}",
             **{k: f"{r[k]:.4f}" for k in ("decoder_ms", "triplet_ms", "scaled_ms",
-                                           "few_rows_ms") if k in r})
+                                           "few_rows_ms", "pair_ms", "plain_tail_ms")
+               if k in r})
 
     # ------------------------------------------------------------ 4. main path
     trainer = Trainer(cfg, {"training": datasets["training"],
@@ -2920,7 +3009,7 @@ def main() -> None:
         raise AssertionError(f"parameters unchanged after {STEPS} steps: {unchanged}")
     need = {"fake_select": STEPS, "sci_forward": 2 * STEPS,
             "sci_backward": 2 * STEPS, "rbf_push": STEPS,
-            "lstm_forward": 2 * STEPS, "lstm_backward": 2 * STEPS}
+            "lstm_forward": 2 * STEPS, "lstm_backward": 2 * STEPS, "clip_adam": STEPS}
     short = {k: (launches[k], n) for k, n in need.items() if launches[k] < n}
     if short:
         raise AssertionError(f"kernel launches below the path's count: {short}")
@@ -2978,7 +3067,8 @@ def main() -> None:
         raise AssertionError(f"scaled select launches: {slaunches}")
     sneed = {"fake_select_packed": n_batches, "sci_forward": 2 * n_batches,
              "sci_backward": 2 * n_batches, "rbf_push": n_batches,
-             "lstm_forward": 2 * n_batches, "lstm_backward": 2 * n_batches}
+             "lstm_forward": 2 * n_batches, "lstm_backward": 2 * n_batches,
+             "clip_adam": n_batches}
     short = {k: (slaunches[k], n) for k, n in sneed.items() if slaunches[k] < n}
     if short:
         raise AssertionError(f"scaled kernel launches below the path's count: {short}")
@@ -3142,7 +3232,7 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("by_t", "bits16", "few_rows_ms", "decoder_ms", "triplet_ms",
-                                 "scaled_ms", "shape", "library")
+                                 "scaled_ms", "shape", "library", "pair_ms", "plain_tail_ms")
                if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,7 +30,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("fake_select.cu", "sci.cu", "rbf.cu", "lstm.cu")
+SOURCES = ("fake_select.cu", "sci.cu", "rbf.cu", "lstm.cu", "optim.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -99,12 +99,14 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     return _libs
 
 
-def c_function(lib: str, symbol: str, n_ptr: int, n_int: int) -> Callable:
+def c_function(lib: str, symbol: str, n_ptr: int, n_int: int, n_double: int = 0) -> Callable:
     """The C entry `symbol` of library `lib`: `n_ptr` pointer arguments,
-    then `n_int` int arguments, then the stream; returns a CUDA error code."""
+    then `n_int` int arguments, then `n_double` double arguments, then the
+    stream; returns a CUDA error code."""
     if symbol not in _functions:
         fn = getattr(build_all()[lib], symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_double] * n_double + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _functions[symbol] = fn
     return _functions[symbol]

@@ -28,6 +28,13 @@ tensor rate to the host); RMSprop, which has no bias correction, is
 `capturable=True`. The stepped and the graphed paths on the card use this
 same optimizer. On the CPU the rate stays a float and the optimizers are
 torch's defaults.
+
+On the card `steps.update` steps the Adam with the hand-written kernel
+pair of `ops/cuda_optim.py` (`clip_adam_step_`): the global-norm clip, the
+decay and the amsgrad update over every leaf in two launches, in the
+capturable Adam's arithmetic on its float64 step counts, on the
+optimizer's own state tensors. Elsewhere (the CPU, SGD, RMSprop,
+`use_kernels=False`) it runs `clip_grad_global_norm_` and `opt.step()`.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Iterable, Optional
 import torch
 
 from ..config import Config
+from ..ops.cuda_optim import clip_adam_
 
 
 def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
@@ -84,6 +92,28 @@ def clip_grad_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm * max_norm))
     return norm
+
+
+def clip_adam_step_(opt: torch.optim.Optimizer, max_norm: Optional[float]) -> torch.Tensor:
+    """`clip_grad_global_norm_` (when `max_norm`) then `opt.step()` for the
+    one-group amsgrad Adam of `make_optimizer`, as the kernel pair of
+    `ops/cuda_optim.py` over the parameters that have a gradient, on the
+    optimizer's state in place. On the card it takes only the card's state
+    (a float32 rate tensor, float64 step counts, float32 parameters) and
+    raises on any other. Returns the global norm."""
+    group = opt.param_groups[0]
+    if len(opt.param_groups) != 1 or not group["amsgrad"] or group["maximize"]:
+        raise ValueError("clip_adam_step_ takes the one-group amsgrad Adam of make_optimizer")
+    leaves = []
+    for p in group["params"]:
+        if p.grad is not None:
+            st = opt.state[p]
+            leaves.append((p, p.grad, st["exp_avg"], st["exp_avg_sq"], st["max_exp_avg_sq"],
+                           st["step"]))
+    beta1, beta2 = group["betas"]
+    hyper = (max_norm or 0.0, group["weight_decay"], beta1, beta2, group["eps"])
+    norm = torch.empty((), dtype=torch.float32, device=leaves[0][0].device)
+    return clip_adam_(norm, leaves, group["lr"], hyper)
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:

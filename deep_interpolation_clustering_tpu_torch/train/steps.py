@@ -37,7 +37,7 @@ from ..data.loader import augment_batch, draw_bits, draw_dtype, make_fake_ob
 from ..models.losses import compute_losses
 from ..models.net import Net
 from ..ops.interpolation import Planes
-from .optim import clip_grad_global_norm_
+from .optim import clip_adam_step_, clip_grad_global_norm_
 
 
 def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -214,16 +214,22 @@ def update(net: Net, opt: torch.optim.Optimizer, cfg: Config, inputs: Dict[str, 
     compute dtype (`train_step` casts it). `generator` draws the dropout
     masks. Returns the detached float32 losses.
     `use_kernels=False` runs the plain versions of every kernel, on any
-    device (how `chip_smoke.py` holds the kernels' step against a plain one)."""
+    device (how `chip_smoke.py` holds the kernels' step against a plain one):
+    for Adam on the card, `clip_grad_global_norm_` and `opt.step()` in place
+    of the optimizer's kernel pair (`optim.clip_adam_step_`)."""
     opt.zero_grad(set_to_none=True)
     _, losses = forward_and_losses(net, cfg, inputs, True, generator, use_kernels,
                                    compute_params(net, cfg))
     losses = {k: v.to(torch.float32) for k, v in losses.items()}
     losses["loss"].backward()
     parallel.all_sum_grads_(net.parameters())
-    if cfg.grad_clip and cfg.grad_clip > 0:
-        clip_grad_global_norm_(net.parameters(), cfg.grad_clip)
-    opt.step()
+    max_norm = cfg.grad_clip if cfg.grad_clip and cfg.grad_clip > 0 else None
+    if use_kernels and cfg.optimizer == "adam" and next(net.parameters()).is_cuda:
+        clip_adam_step_(opt, max_norm)  # the clip and the step in two launches
+    else:
+        if max_norm:
+            clip_grad_global_norm_(net.parameters(), max_norm)
+        opt.step()
     return global_losses({k: v.detach() for k, v in losses.items()})
 
 

@@ -39,7 +39,7 @@ import torch
 from .. import Config, parallel
 from ..cli.common import build_parser, config_from_args, make_datasets, save_processed
 from ..data import make_synthetic_cohorts, process_splits
-from ..train import Trainer
+from ..train import Trainer, clip_grad_global_norm_, steps
 from .device import resolve_device
 
 NUDGE = 2.0 ** -24
@@ -70,6 +70,14 @@ def _adam(kind: str, cfg: Config, params) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=lr, capturable=True, **kw)
 
 
+def _own_tail(opt: torch.optim.Optimizer, max_norm) -> None:
+    """In place of `steps.update`'s kernel pair, which takes only the port's
+    Adam: the clip, then the Adam's own step."""
+    if max_norm:
+        clip_grad_global_norm_(opt.param_groups[0]["params"], max_norm)
+    opt.step()
+
+
 def _nudge_grads(net, seed: int) -> None:
     """Every gradient element, at every backward, times 1 +- 2^-24 (signs
     drawn afresh each time from a generator of its own)."""
@@ -94,6 +102,7 @@ def run(argv, exp: str, device, epochs: int, nudge: Optional[int] = None,
     tr = Trainer(cfg, make_datasets(cfg), exp, device=device)
     if adam:
         tr.opt = _adam(adam, cfg, tr.net.parameters())
+        kernel_tail, steps.clip_adam_step_ = steps.clip_adam_step_, _own_tail
     if nudge is not None:
         g = torch.Generator().manual_seed(nudge)
         with torch.no_grad():
@@ -103,10 +112,14 @@ def run(argv, exp: str, device, epochs: int, nudge: Optional[int] = None,
     if grad_nudge:
         _nudge_grads(tr.net, 0)
     losses, params = [], []
-    for epoch in range(1, epochs + 1):
-        for idx, mask in tr._epoch_batches(epoch):
-            losses.append({k: float(v) for k, v in tr.step(idx, mask).items()})
-            params.append(_flat(tr.net))
+    try:
+        for epoch in range(1, epochs + 1):
+            for idx, mask in tr._epoch_batches(epoch):
+                losses.append({k: float(v) for k, v in tr.step(idx, mask).items()})
+                params.append(_flat(tr.net))
+    finally:
+        if adam:
+            steps.clip_adam_step_ = kernel_tail
     _, dumps = tr.eval_one_epoch("valid", tr.datasets["validation"], False,
                                  ("hidden", "rec_ob"))
     out = dict(losses=losses, params=np.stack(params), hidden=dumps["hidden"][0],

@@ -11,8 +11,9 @@ cohort, and prints one JSON object with:
     and against `step_ms` (the profiler slows the host), the kernels
     launched per step, the kernels that take the most device time, and
     every hand-written kernel of `csrc/` (the selects, the SCI forward and
-    backward, the RBF push, and each kernel of B6/B7, for the split of the
-    biLSTM backward between its recurrence and its dW kernels), whatever
+    backward, the RBF push, each kernel of B6/B7, for the split of the
+    biLSTM backward between its recurrence and its dW kernels, and the
+    optimizer tail's two), whatever
     its rank; and `rbf_backward`, the device time of the kernels launched
     inside the `rbf_push_backward` range (RBFFunction's backward, which
     recomputes the push in plain PyTorch and differentiates it), with the
@@ -50,7 +51,7 @@ from . import tracing
 
 
 # substrings of the names of the kernels in csrc/*.cu
-HAND_KERNELS = ("fake_select", "sci_", "rbf_", "lstm_")
+HAND_KERNELS = ("fake_select", "sci_", "rbf_", "lstm_", "optim_")
 
 
 def _sync_ms(fn: Callable) -> float:

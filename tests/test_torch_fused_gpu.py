@@ -275,4 +275,4 @@ def test_one_rank_nccl_group_fuses_with_the_bits_of_no_group(dev):
                           for h in prof["hand_kernels"]}
     assert hand(prof_replay) == hand(prof_step) and hand(prof_step)
     assert set(launches) == {"fake_select", "sci_forward", "sci_backward", "rbf_push",
-                             "lstm_forward", "lstm_backward"}
+                             "lstm_forward", "lstm_backward", "clip_adam"}

@@ -16,7 +16,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 import deep_interpolation_clustering_tpu_torch as port
 from deep_interpolation_clustering_tpu_torch import Config
 from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
-from deep_interpolation_clustering_tpu_torch.ops import cuda_interp, cuda_lstm, cuda_select  # noqa: F401 (registers the kernels)
+from deep_interpolation_clustering_tpu_torch.ops import cuda_interp, cuda_lstm, cuda_optim, cuda_select  # noqa: F401 (registers the kernels)
 from deep_interpolation_clustering_tpu_torch.train import Trainer
 
 torch.set_num_threads(1)
@@ -109,6 +109,11 @@ def _fake_cuda_args(wrapper):
             seq = lambda: torch.zeros(r, b, h, device="cuda")
             return (xg(), xg(), w_hhT, torch.zeros(2, 4 * h, h, device="cuda"), b_hh,
                     state(), state(), *(seq() for _ in range(8)))
+        if wrapper.name == "clip_adam":
+            leaf = tuple(torch.zeros(b, h, device="cuda") for _ in range(5)) + (
+                torch.zeros((), dtype=torch.float64, device="cuda"),)
+            return (torch.zeros((), device="cuda"), [leaf], torch.tensor(1e-3, device="cuda"),
+                    (15.0, 0.0, 0.9, 0.999, 1e-8))
         if wrapper.name == "sci_forward":
             return (plane(), plane(), plane(), alpha, ref_t)
         if wrapper.name == "sci_backward":
@@ -122,7 +127,7 @@ def _no_plain(*_):
 
 
 KERNEL_NAMES = ["fake_select", "fake_select_packed", "sci_forward", "sci_backward",
-                "rbf_push", "lstm_forward", "lstm_backward"]
+                "rbf_push", "lstm_forward", "lstm_backward", "clip_adam"]
 
 
 def test_every_kernel_is_covered():

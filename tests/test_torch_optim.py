@@ -16,6 +16,7 @@ step the way Adam does, so no element is exempt.
 
 import dataclasses
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from deep_interpolation_clustering_tpu.config import Config as JConfig
 from deep_interpolation_clustering_tpu.models import init_net
@@ -31,14 +33,29 @@ from deep_interpolation_clustering_tpu.train.optim import make_optimizer as jmak
 from deep_interpolation_clustering_tpu.train.steps import _make_update
 from deep_interpolation_clustering_tpu.train.steps import build_inputs as jbuild_inputs
 from deep_interpolation_clustering_tpu_torch import Config
-from deep_interpolation_clustering_tpu_torch.compat import state_dict_from_jax
 from deep_interpolation_clustering_tpu_torch.data import (
     ArrayDataset,
     make_synthetic_cohorts,
     process_splits,
 )
+from deep_interpolation_clustering_tpu_torch.compat import (
+    jax_from_state_dict,
+    optimizer_from_jax,
+    optimizer_to_jax,
+    state_dict_from_jax,
+)
+from deep_interpolation_clustering_tpu_torch.models.net import Net
+from deep_interpolation_clustering_tpu_torch.ops import cuda_optim
 from deep_interpolation_clustering_tpu_torch.train import Trainer, make_optimizer, update
-from deep_interpolation_clustering_tpu_torch.train.optim import LRSchedule, clip_grad_global_norm_
+from deep_interpolation_clustering_tpu_torch.train import checkpoint as ckpt
+from deep_interpolation_clustering_tpu_torch.train import steps as steps_module
+from deep_interpolation_clustering_tpu_torch.train.optim import (
+    LRSchedule,
+    card_adam_state,
+    clip_adam_step_,
+    clip_grad_global_norm_,
+    set_learning_rate,
+)
 from test_torch_model import configs, jax_batch, port_net, to_torch
 
 torch.set_num_threads(1)
@@ -261,3 +278,197 @@ def test_config_rate_defaults_are_the_jax_ones(name):
 def test_config_rejects_an_unknown_decay_mode():
     with pytest.raises(ValueError, match="lr_decay_mode"):
         Config(lr_decay_mode="cosine")
+
+
+# ------------------------------------------- the optimizer tail's kernel pair
+def _leaf_shapes(n_leaves):
+    """The model's 37 leaf shapes at the default width, or `n_leaves` small
+    ones (more than a launch takes)."""
+    if n_leaves is None:
+        return [tuple(p.shape) for p in Net(Config()).parameters()]
+    return [(3 + i % 5, 1 + i % 3) for i in range(n_leaves)]
+
+
+def _two_adams(shapes, wd):
+    """Two amsgrad Adams over the same random parameters on the CPU, each
+    leaf's state the card's (float64 step counts), at weight decay `wd`."""
+    cfg = Config(weight_decay_rate=wd)
+    gen = torch.Generator().manual_seed(0)
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    out = []
+    for _ in range(2):
+        params = [torch.nn.Parameter(t.clone()) for t in init]
+        opt = make_optimizer(cfg, params)
+        for p in params:
+            opt.state[p] = card_adam_state(p)
+        out.append((params, opt))
+    return out
+
+
+@pytest.mark.parametrize("n_leaves", [None, cuda_optim.MAX_LEAVES + 13],
+                         ids=["model_leaves", "past_one_launch"])
+def test_kernel_pair_plain_versions_match_clip_then_adam(n_leaves):
+    """The kernel pair's plain versions (`clip_adam_step_` on CPU tensors)
+    against the plain tail (`clip_grad_global_norm_`, then torch's amsgrad
+    Adam), 20 steps from the same gradients with weight decay, the clip
+    engaged on even steps and idle on odd ones, the rate changed before
+    step 11: every parameter and state tensor within 1e-6 of itself plus
+    1e-6 of its largest value, and the same global norm."""
+    (pa, oa), (pb, ob) = _two_adams(_leaf_shapes(n_leaves), 4e-4)
+    gen = torch.Generator().manual_seed(1)
+    max_norm = 15.0
+    for step in range(20):
+        if step == 10:
+            for opt in (oa, ob):
+                set_learning_rate(opt, 1e-4)
+        scale = 50.0 if step % 2 == 0 else 1e-3
+        for a, b in zip(pa, pb):
+            a.grad = torch.randn(a.shape, generator=gen) * scale
+            b.grad = a.grad.clone()
+        want_norm = clip_grad_global_norm_(pa, max_norm)
+        assert bool(want_norm >= max_norm) == (step % 2 == 0)
+        oa.step()
+        got_norm = clip_adam_step_(ob, max_norm)
+        torch.testing.assert_close(got_norm, want_norm, rtol=1e-6, atol=0)
+        for a, b in zip(pa, pb):
+            assert set(ob.state[b]) == {"step", "exp_avg", "exp_avg_sq", "max_exp_avg_sq"}
+            assert float(ob.state[b]["step"]) == step + 1
+            for want, got in [(a, b)] + [(oa.state[a][k], ob.state[b][k])
+                                         for k in ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")]:
+                want, got = want.detach().double(), got.detach().double()
+                top = float(want.abs().max())
+                assert not bool(((got - want).abs() > 1e-6 * want.abs() + 1e-6 * top).any()), \
+                    f"step {step + 1}"
+
+
+def test_no_clip_leaves_an_overflowed_norm_alone():
+    """With no clip (`max_norm` None) a global norm past float32's range
+    (the largest leaf's gradients near 1e18: its sum of squares overflows)
+    clips nothing: the kernel pair's plain versions keep the gradients and
+    the parameters finite and match the plain tail, Adam without the
+    clip."""
+    shapes = _leaf_shapes(None)
+    big = max(range(len(shapes)), key=lambda i: math.prod(shapes[i]))
+    (pa, oa), (pb, ob) = _two_adams(shapes, 4e-4)
+    gen = torch.Generator().manual_seed(4)
+    for step in range(3):
+        for i, (a, b) in enumerate(zip(pa, pb)):
+            a.grad = torch.randn(a.shape, generator=gen) * (1e18 if i == big else 1.0)
+            b.grad = a.grad.clone()
+        oa.step()
+        norm = clip_adam_step_(ob, None)
+        assert float(norm) == float("inf")
+        for a, b in zip(pa, pb):
+            assert bool(torch.isfinite(b.grad).all()) and bool(torch.isfinite(b).all())
+            torch.testing.assert_close(b.grad, a.grad, rtol=0, atol=0)
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6 * float(a.detach().abs().max()))
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd", "rmsprop"])
+def test_cpu_update_keeps_the_plain_tail(name, monkeypatch):
+    """On the CPU `update` clips and steps as before, whatever the
+    optimizer: the kernel pair is neither called nor counted."""
+    jcfg, cfg = configs(dropout=0.0, optimizer=name)
+    params, state = init_net(jax.random.PRNGKey(3), jcfg)
+    net = port_net(cfg, params, state)
+    opt = make_optimizer(cfg, net.parameters())
+    inputs = to_torch(jbuild_inputs(jcfg, jax_batch(jcfg), jax.random.PRNGKey(4), True, False))
+
+    def refuse(*_):
+        raise AssertionError("the kernel pair ran on the CPU")
+
+    monkeypatch.setattr(steps_module, "clip_adam_step_", refuse)
+    monkeypatch.setattr(cuda_optim.clip_adam_, "launches", 0)
+    stepped = []
+    monkeypatch.setattr(type(opt), "step", lambda self, *a, **k: stepped.append(1))
+    update(net, opt, cfg, inputs, None)
+    assert stepped == [1]
+    assert cuda_optim.clip_adam_.launches == 0
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd", "rmsprop"])
+def test_card_dispatch_takes_the_kernels_for_adam_only(name, monkeypatch):
+    """`update` over parameters on the card (fake CUDA tensors, no card
+    needed; the forward stubbed, the gradients ones) with the optimizer
+    `make_optimizer` leaves there (a float32 rate tensor, and for Adam
+    float64 step counts): Adam steps through the kernel pair, one launch
+    of its wrapper over both leaves, and neither the plain clip nor
+    `opt.step()`; SGD and RMSprop take the plain clip and `opt.step()`. A
+    card Adam whose step counts are float32 raises rather than take
+    another path."""
+    cfg = Config(optimizer=name)
+    opt = make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(4, 3)),
+                               torch.nn.Parameter(torch.zeros(4))])
+    monkeypatch.setattr(steps_module, "compute_params", lambda net, cfg: None)
+
+    def forward(net, *_):  # the gradients set here: no backward through fake CUDA tensors
+        for p in net.parameters():
+            p.grad = torch.ones_like(p)
+        return None, {"loss": torch.zeros((), requires_grad=True)}
+
+    monkeypatch.setattr(steps_module, "forward_and_losses", forward)
+    stepped = []
+    monkeypatch.setattr(steps_module, "clip_grad_global_norm_",
+                        lambda params, max_norm: stepped.append("clip"))
+    monkeypatch.setattr(type(opt), "step", lambda self, *a, **k: stepped.append("step"))
+    with FakeTensorMode():
+        net = torch.nn.ParameterList([torch.nn.Parameter(torch.zeros(s, device="cuda"))
+                                      for s in ((4, 3), (4,))])
+        params = list(net.parameters())
+        opt.param_groups[0].update(params=params, lr=torch.tensor(cfg.init_lr, device="cuda"))
+        opt.state.clear()
+        if name == "adam":
+            for p in params:
+                opt.state[p] = card_adam_state(p)
+            opt.state[params[0]]["step"] = torch.tensor(0.0, device="cuda")
+            with pytest.raises(ValueError, match="step: expected torch.float64"):
+                update(net, opt, cfg, {}, None)
+            opt.state[params[0]] = card_adam_state(params[0])
+        launched = []
+        monkeypatch.setattr(cuda_optim.clip_adam_, "_launch",
+                            lambda norm, leaves, lr, hyper: launched.append(len(leaves)) or norm)
+        monkeypatch.setattr(cuda_optim.clip_adam_, "launches", 0)
+        update(net, opt, cfg, {}, None)
+    assert (launched, stepped) == (([2], []) if name == "adam" else ([], ["clip", "step"]))
+    assert cuda_optim.clip_adam_.launches == len(launched)
+
+
+def test_kernel_pair_state_checkpoints_and_converts_as_before(tmp_path):
+    """After steps of the kernel pair's plain versions the Adam state keeps
+    its four tensors a parameter; `optimizer_to_jax` gives the leaves of the
+    same structure, dtypes and shapes as after the plain tail's steps, and
+    a checkpoint of them restores through `optimizer_from_jax` bit for
+    bit."""
+    _, cfg = configs(dropout=0.0)
+    net_a, net_b = Net(cfg), Net(cfg)
+    net_b.load_state_dict(net_a.state_dict())
+    oa, ob = make_optimizer(cfg, net_a.parameters()), make_optimizer(cfg, net_b.parameters())
+    for p in net_b.parameters():
+        ob.state[p] = card_adam_state(p)
+    gen = torch.Generator().manual_seed(2)
+    for _ in range(3):
+        for a, b in zip(net_a.parameters(), net_b.parameters()):
+            a.grad = torch.randn(a.shape, generator=gen)
+            b.grad = a.grad.clone()
+        clip_grad_global_norm_(net_a.parameters(), cfg.grad_clip)
+        oa.step()
+        clip_adam_step_(ob, cfg.grad_clip)
+    for p in net_b.parameters():
+        assert set(ob.state[p]) == {"step", "exp_avg", "exp_avg_sq", "max_exp_avg_sq"}
+    want, got = optimizer_to_jax(oa, net_a, 3), optimizer_to_jax(ob, net_b, 3)
+    assert [(np.asarray(x).dtype, np.shape(x)) for x in got] == [
+        (np.asarray(x).dtype, np.shape(x)) for x in want]
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=1e-6, atol=1e-6)
+    path = str(tmp_path / "checkpoint.npz")
+    params, state = jax_from_state_dict(net_b.state_dict())
+    ckpt.save_checkpoint(path, 1, params, state, got)
+    leaves = ckpt.load_checkpoint(path, got)[3]
+    fresh = make_optimizer(cfg, net_b.parameters())
+    for p in net_b.parameters():
+        fresh.state[p] = card_adam_state(p)
+    assert optimizer_from_jax(fresh, net_b, leaves) == 3
+    for p in net_b.parameters():
+        assert fresh.state[p]["step"].dtype == torch.float64
+        for k, v in ob.state[p].items():
+            torch.testing.assert_close(fresh.state[p][k], v, rtol=0, atol=0)
