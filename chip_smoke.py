@@ -25,7 +25,10 @@ not 0):
                the optimizer tail's kernel pair at the Net's 37 leaves
                against the clip and the card's Adam (`optim_kernels`), the
                pair and that plain tail also replayed from CUDA graphs
-               (`pair_ms`, `plain_tail_ms`)
+               (`pair_ms`, `plain_tail_ms`); mTAN's encoder attention pair
+               at the mtan_t354_b256 cell's shapes (`mtan_kernels`: 1,536
+               heads of 354 slots, counts uniform on 4..354, R = D = 128)
+               against its plain version and its bound
   4. main    - the p1 trainer at the default Config width takes 8 steps and
                one eval forward on a synthetic T=354 cohort; the kernels'
                launch counters must show the path went through them; then
@@ -70,6 +73,13 @@ not 0):
                --max_epochs 4); the launch counters must show B1 and B3-B7
                (the epochs and eval passes are fused: each launch a graph
                replays counts once)
+  9m. mtan_p1 - the mtan_t354_b256 cell's path (`mtan_p1_phase`):
+               `Trainer.train()` with `model="mtan"` at mTAN's published
+               widths (B 256, T 354, R 128) on the p0 phase's pickles, fused
+               epoch on, two epochs with validation; the launch counters,
+               zeroed just before, must show M1's pair and O1; finite
+               validation losses, and the 256-d `hidden` dump of the
+               restored ae_mse checkpoint
   9a. fused  - the fused epoch (`fused_phase`): two epochs replayed from
                captured CUDA graphs against two stepped, bit for bit in the
                per-batch losses, parameters, BatchNorm buffers, optimizer
@@ -167,7 +177,7 @@ not 0):
                descending mean SBP, the dl labels the argmax of the dumps'
                `cluster_pred`
 Then a `{"kernels": [...]}` line (`launches`: the p1 phase's count, the
-scaled phase's for the packed select; `launches_p3`: the p3 phase's;
+scaled phase's for the packed select, the mtan_p1 phase's for M1; `launches_p3`: the p3 phase's;
 `launches_bf16_step` and `launches_bf16_p1`: phase `bf16`'s;
 `launches_fused_epoch`: one replayed epoch's, phase `fused`), the
 card's name and power limit from nvidia-smi, and as the last line
@@ -1211,6 +1221,123 @@ def optim_kernels(cfg, dev) -> dict:
         plain_tail_ms=plain_tail_ms,
         # reads g (twice), p, m, v, vmax; writes them all (g scaled: the clip engaged)
         bytes=11 * n * f32, flop=22 * n)}
+
+
+# mTAN's encoder attention at the mtan_t354_b256 cell: B encounters of C
+# channels (1,536 heads) over T slots, R reference points, embedding width D
+MTAN_R, MTAN_D = 128, 128
+
+
+def mtan_kernels(dev) -> dict:
+    """Phase `kernels`: mTAN's encoder attention pair (`ops/cuda_mtan.py`)
+    at the cell's shapes, each head's count of observations uniform on
+    4..T at the front of its slots: the forward's sums, max and log-sum
+    within 1e-5 of the plain version's (relative above 1), the backward's
+    dK, dob and dQ within 1e-4 of their largest values, both bit-identical
+    across two runs; each kernel's ms (`time_ms`, L2 flushed), the plain
+    version's, and the bound of its work (the observed (query, key) pairs'
+    operations and expf, the inputs read and outputs written once). Returns
+    the two wrappers' report rows."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.ops import cuda_mtan as cm
+    from deep_interpolation_clustering_tpu_torch.utils.cuda_timing import time_ms
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    heads, r, d = B * C, MTAN_R, MTAN_D
+    q = torch.randn((r, d), generator=gen, device=dev)
+    k = torch.randn((heads, T, d), generator=gen, device=dev)
+    counts = torch.randint(4, T + 1, (heads,), generator=gen, device=dev)
+    mask = (torch.arange(T, device=dev)[None, :] < counts[:, None]).to(torch.float32)
+    ob = torch.randn((heads, T), generator=gen, device=dev) * mask
+    g_ob = torch.randn((heads, r), generator=gen, device=dev)
+    g_m = torch.randn((heads, r), generator=gen, device=dev)
+    scale = d ** -0.5
+    fwd = cm.attn_fwd(q, k, ob, mask, scale)
+    want = cm._attn_fwd_plain(q, k, ob, mask, scale)
+    fwd_err = max(float(((x - y).abs() / torch.clamp(y.abs(), min=1.0)).max())
+                  for x, y in zip(fwd, want))
+    out_ob, out_m, _, lse = fwd
+    bwd_args = (q, k, ob, mask, out_ob, out_m, lse, g_ob, g_m, scale)
+    bwd = cm.attn_bwd(*bwd_args)
+    plain = cm._attn_bwd_plain(*bwd_args)
+    bwd_err = max(float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(bwd, plain))
+    if not (fwd_err <= 1e-5 and bwd_err <= 1e-4):
+        raise AssertionError(f"mTAN attention pair against plain: forward {fwd_err:.3g}, "
+                             f"backward {bwd_err:.3g} of the largest value")
+    if not (all(same_bits(x, y) for x, y in zip(fwd, cm.attn_fwd(q, k, ob, mask, scale)))
+            and all(same_bits(x, y) for x, y in zip(bwd, cm.attn_bwd(*bwd_args)))):
+        raise AssertionError("the mTAN attention pair differs between two runs")
+    pairs = float(counts.sum()) * r  # (query, observed key) pairs
+    observed = float(counts.sum())
+    f32 = 4
+    return {
+        "mtan_attn_fwd": dict(
+            max_abs_err=fwd_err, tolerance="1e-5 (relative above 1); two runs bit-identical",
+            ms=time_ms(lambda: cm.attn_fwd(q, k, ob, mask, scale)),
+            plain_ms=time_ms(lambda: cm._attn_fwd_plain(q, k, ob, mask, scale)),
+            library_ms=None, shape=[heads, T, r, d],
+            # q, the observed keys' rows, ob and mask in; four (heads, R) out
+            bytes=f32 * (r * d + observed * d + 2 * heads * T + 4 * heads * r),
+            flop=pairs * (2 * d + 6), expf=pairs),
+        "mtan_attn_bwd": dict(
+            max_abs_err=bwd_err, tolerance="1e-4 of the largest value; two runs bit-identical",
+            ms=time_ms(lambda: cm.attn_bwd(*bwd_args)),
+            plain_ms=time_ms(lambda: cm._attn_bwd_plain(*bwd_args)),
+            library_ms=None, shape=[heads, T, r, d],
+            # the forward's inputs, three outputs and two cotangents in;
+            # dK (every slot), dob and dQ out
+            bytes=f32 * (r * d + observed * d + 2 * heads * T + 5 * heads * r
+                         + heads * T * d + heads * T + r * d),
+            flop=pairs * (6 * d + 8), expf=pairs),
+    }
+
+
+def mtan_p1_phase(run: dict, smi: str) -> dict:
+    """The mtan_t354_b256 cell's path: `Trainer.train()` with `model="mtan"`
+    at mTAN's published widths (the Config's defaults) and the cell's
+    optimizer, on the p1 phase's T=354 pickles (`run`), fused epoch on, two
+    epochs with a validation pass each. The launch counters are zeroed
+    just before, and must show M1's pair and O1 launched (at capture: the
+    train graphs and the eval graph). The validation losses must be finite
+    and the restored ae_mse checkpoint's validation `hidden` (the
+    classifier GRU's state) one finite 256-d row an encounter. Returns the
+    kernels' launch counts of the phase."""
+    import torch
+
+    from deep_interpolation_clustering_tpu_torch.cli.common import (
+        build_parser, config_from_args, make_datasets,
+    )
+    from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
+    from deep_interpolation_clustering_tpu_torch.train import Trainer
+
+    cfg = config_from_args(build_parser("p1").parse_args(run["width"])).replace(
+        model="mtan", aux_tasks={"future_vital": 1.0}, fake_detection=False, init_lr=1e-4,
+        weight_decay_rate=0.0, grad_clip=0.0, fused_epoch=True, max_epochs=3)
+    datasets = make_datasets(cfg)
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, datasets, os.path.join(run["results"], "mtan"), device="cuda")
+    valid = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {w.name: w.launches for w in cb.KERNELS}
+    hidden = trainer.eval("validation", metric="ae_mse")["hidden"]
+    trainer.close()
+    missing = [k for k in ("mtan_attn_fwd", "mtan_attn_bwd", "clip_adam") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"mtan_p1: kernels never launched on the path: {missing}")
+    if not all(np.isfinite(v) for v in valid.values()):
+        raise AssertionError(f"mtan_p1: validation losses not finite: {valid}")
+    n_valid = len(datasets["validation"])
+    if hidden.shape != (n_valid, cfg.mtan_rec_hidden) or not np.isfinite(hidden).all():
+        raise AssertionError(f"mtan_p1: hidden {hidden.shape}, expected "
+                             f"({n_valid}, {cfg.mtan_rec_hidden}), finite")
+    say("mtan_p1", batch=cfg.batch_size, T=cfg.num_timestamps, R=cfg.mtan_ref_points,
+        epochs=trainer.epoch, seconds=f"{train_s:.2f}",
+        valid=json.dumps({k: round(float(v), 6) for k, v in valid.items()}),
+        launches=json.dumps({k: v for k, v in launches.items() if v}), card=repr(smi))
+    return launches
 
 
 def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
@@ -2971,6 +3098,7 @@ def main() -> None:
     )
     del lib, x_lib, lstm_checks
     report.update(optim_kernels(cfg, dev))
+    report.update(mtan_kernels(dev))
 
     for name, r in report.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flop"), r.pop("expf"))
@@ -3191,6 +3319,7 @@ def main() -> None:
 
     # ------------------------------------------------- 8, 9. p1 entry point, converter
     p1_launches, run = p1_phase(p1_root, cohorts_p1, smi)
+    mtan_launches = mtan_p1_phase(run, smi)
     fused = fused_phase(run, sdata, smi, dev)
     bf16 = bf16_phase(run, sdata, smi)
     dp_phase(run, smi)
@@ -3209,8 +3338,10 @@ def main() -> None:
     for w in cb.KERNELS:
         r = report[w.name]
         # each kernel's count from the path that runs it: the scaled path
-        # for the packed select (T <= 192), the p1 entry point for the others
-        path_launches = slaunches if w.name == "fake_select_packed" else p1_launches
+        # for the packed select (T <= 192), mTAN's p1 for M1, the p1 entry
+        # point for the others
+        path_launches = (slaunches if w.name == "fake_select_packed" else
+                         mtan_launches if w.name.startswith("mtan_") else p1_launches)
         kernels.append({
             "name": w.name, "route": "cuda", "source": w.source, "replaces": w.replaces,
             "launches": path_launches[w.name], "launches_p1": p1_launches[w.name],

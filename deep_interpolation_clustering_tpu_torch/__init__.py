@@ -20,6 +20,9 @@ triplet losses, k-means on the device and `ClusterTrainer` (`cli.p3`); p4's
 alignment and final labels, DBSCAN's included (`cli.p4`); data-parallel and
 multi-process runs on `torch.distributed` (`parallel/`: p1 and p3 under
 `--data_parallel` and `--num_processes`, p2 and p4 under `--num_processes`).
+Beside the paper's IPN, p1 trains mTAN (`Config.model = "mtan"`,
+`models/mtan.py`, which the JAX package does not have), its encoder's
+per-channel multi-time attention a hand kernel pair (`csrc/mtan.cu`).
 """
 
 __version__ = "0.1.0"

@@ -92,6 +92,9 @@ def to_torch(src: str, dst: str, optimizer: str = "adam",
              weight_decay: float = 4e-4) -> str:
     """`checkpoint.npz` -> `model.pth.tar` (restorable by the reference)."""
     epoch, params, state, _, meta = ckpt.load_checkpoint(src)
+    if meta.get("model", "ipn") != "ipn":
+        raise ValueError(f"convert: {src} holds model={meta['model']!r} weights: the JAX "
+                         f"package and the reference torch code have no mTAN")
     sd = state_dict_from_jax(params, state)
     n_params = sum(1 for k in sd if not k.endswith(_BN_BUFFERS))
     blob = {

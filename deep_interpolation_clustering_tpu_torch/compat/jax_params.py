@@ -6,6 +6,7 @@ pytrees (nested dicts of arrays) into the port's `Net.state_dict()`, whose
 keys are the reference torch model's names (the DEC centres, JAX
 `params["cluster_centers"]`, are `cluster_assignment.cluster_centers`);
 `jax_from_state_dict` is the inverse. Works on NumPy-convertible values, so JAX itself is not needed.
+These serve the IPN alone: the JAX package has no other network.
 
 `optimizer_to_jax` and `optimizer_from_jax` carry a torch optimizer's state
 to and from the flat leaves of the JAX optimizer state
@@ -19,11 +20,15 @@ one raveled parameter vector), in the order `tree_leaves` gives them:
 The counts are int32 scalars, the rate a float32 scalar, and each vector
 holds every parameter in the order `ravel_pytree` gives the JAX params:
 dict keys sorted at every level (the centres between `cci` and `decoder`).
+A network the JAX package lacks passes its own `layout` (the pair of
+functions that stand for `jax_from_state_dict` and `state_dict_from_jax`;
+`train/checkpoint.layout`), whose parameter tree's sorted leaves give
+the order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +88,9 @@ def state_dict_from_jax(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
 
 def jax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     """Inverse of `state_dict_from_jax`: (params, state) as NumPy pytrees."""
+    if "sci.kernel" not in sd:
+        raise ValueError("not the IPN's weights (no sci.kernel): the JAX layout is the IPN's, "
+                         "and the JAX package has no mTAN")
     params: Dict = {
         "sci": {"kernel": _np(sd["sci.kernel"])},
         "cci": {"kernel": _np(sd["cci.kernel"])},
@@ -121,6 +129,10 @@ def jax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     return params, state
 
 
+# (to_tree, from_tree): a state dict to (params, state) pytrees and back
+Layout = Tuple[Callable, Callable]
+JAX_LAYOUT: Layout = (jax_from_state_dict, state_dict_from_jax)
+
 # torch's per-parameter state behind each JAX vector leaf, by optimizer
 OPT_VECTORS = {
     "Adam": ("exp_avg", "exp_avg_sq", "max_exp_avg_sq"),  # mu, nu, nu_max
@@ -146,28 +158,32 @@ def _fill_sorted(tree: Dict, vec: np.ndarray, at: List[int]) -> Dict:
     return out
 
 
-def _vector(net: torch.nn.Module, per_param: Dict[str, object]) -> np.ndarray:
+def _vector(net: torch.nn.Module, per_param: Dict[str, object],
+            layout: Optional[Layout] = None) -> np.ndarray:
     """Per-parameter tensors or arrays (by name) as one vector in the JAX
     ravel order; the net's buffers are not read (the state is dropped)."""
+    to_tree = (layout or JAX_LAYOUT)[0]
     sd: Dict[str, object] = dict.fromkeys(net.state_dict(), np.zeros(0, np.float32))
     sd.update(per_param)
-    params, _ = jax_from_state_dict(sd)
+    params, _ = to_tree(sd)
     return np.concatenate([leaf.ravel() for leaf in _sorted_leaves(params)])
 
 
-def _per_param(net: torch.nn.Module, vec: np.ndarray) -> Dict[str, torch.Tensor]:
+def _per_param(net: torch.nn.Module, vec: np.ndarray,
+               layout: Optional[Layout] = None) -> Dict[str, torch.Tensor]:
     """Inverse of `_vector`."""
-    params, state = jax_from_state_dict(net.state_dict())
+    to_tree, from_tree = layout or JAX_LAYOUT
+    params, state = to_tree(net.state_dict())
     at = [0]
     filled = _fill_sorted(params, np.asarray(vec, np.float32), at)
     if at[0] != vec.size:
         raise ValueError(f"optimizer vector of {vec.size} values for {at[0]} parameters")
-    sd = state_dict_from_jax(filled, state)
+    sd = from_tree(filled, state)
     return {name: sd[name] for name, _ in net.named_parameters()}
 
 
 def optimizer_to_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
-                     count: int) -> List[np.ndarray]:
+                     count: int, layout: Optional[Layout] = None) -> List[np.ndarray]:
     """The JAX optimizer state's leaves for `opt`, built over
     `net.parameters()`; `count` is the number of updates taken. A parameter
     without state yet (no step taken) gives zeros."""
@@ -186,12 +202,12 @@ def optimizer_to_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
     for key in OPT_VECTORS[kind]:
         leaves.append(_vector(net, {
             n: (opt.state[p][key] if key in opt.state[p]
-                else np.zeros(tuple(p.shape), np.float32)) for n, p in named}))
+                else np.zeros(tuple(p.shape), np.float32)) for n, p in named}, layout))
     return leaves
 
 
 def optimizer_from_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
-                       leaves: List[np.ndarray]) -> int:
+                       leaves: List[np.ndarray], layout: Optional[Layout] = None) -> int:
     """Load the JAX optimizer state's leaves into `opt` (built over
     `net.parameters()`): the moments and the step count, not the rate (the
     trainer writes its schedule's). Returns the update count."""
@@ -203,7 +219,7 @@ def optimizer_from_jax(opt: torch.optim.Optimizer, net: torch.nn.Module,
                          f"{head + len(vectors)}")
     count = int(leaves[0])
     step = float(leaves[2]) if kind == "Adam" else float(count)
-    moments = [_per_param(net, vec) for vec in leaves[head:]]
+    moments = [_per_param(net, vec, layout) for vec in leaves[head:]]
     # a capturable or fused optimizer keeps its step count on the parameters'
     # device; a step count the optimizer already holds keeps its dtype (the
     # card's Adam counts in float64)

@@ -24,6 +24,12 @@ lags p3's changed-label fetch one epoch under `eval_interval > 1`
 Tuple fields come back from JSON as lists and are made tuples again.
 `compute_dtype` is "float32" or "bfloat16": the train step's forward in
 that type, gradients and optimizer state in float32 (`train.steps`).
+`model` chooses p1's network: "ipn", the paper's interpolation-prediction
+autoencoder (`models/net.py`), or "mtan", the multi-time attention network
+(`models/mtan.py`), whose widths are the `mtan_*` fields. The JAX package
+has no mTAN: with "mtan", `compute_dtype="bfloat16"` and data-parallel
+ranks raise here, and p3's DEC head and the converter raise where they
+are built.
 
 Matmul precision: the port runs float32 matmuls in full float32 on the
 card (TF32 off, `utils.device.resolve_device`); that is its counterpart of
@@ -57,6 +63,11 @@ _IGNORED = (
 # per-process topology: never written to, nor read from, a config.json
 # (the JAX `Config._RUNTIME_ONLY`)
 _RUNTIME_ONLY = ("num_processes", "process_id", "coordinator_address")
+# fields of the port that the JAX Config does not have (the JAX package has
+# no mTAN): written to config.json, where the JAX `Config.load` drops them;
+# a JAX config.json leaves them at their defaults
+PORT_ONLY = ("model", "mtan_ref_points", "mtan_embed_time", "mtan_rec_hidden",
+             "mtan_gen_hidden", "mtan_latent_dim", "mtan_alpha")
 
 
 @dataclass
@@ -105,6 +116,8 @@ class Config:
     holdout_frac: float = 0.2
 
     # ---- model ---------------------------------------------------------
+    # "ipn" | "mtan" (the module docstring)
+    model: str = "ipn"
     ref_points: int = 6
     dropout: float = 0.2
     lstm_hidden: int = 128
@@ -116,6 +129,17 @@ class Config:
     # run the CompressFC trunk and the aux heads as one batched chain
     # (`ops.nn.heads_apply_fused`); off by default, as in JAX
     fused_heads: bool = False
+    # mTAN (Shukla & Marlin, ICLR 2021, mTAND-Full with a classifier head;
+    # github.com/reml-lab/mTAN, its PhysioNet classification command and
+    # argparse defaults): reference points, time-embedding width, the
+    # encoder's and the classifier's GRU width, the decoder's GRU width and
+    # the latent width; the supervised term's weight alpha (`--alpha`)
+    mtan_ref_points: int = 128
+    mtan_embed_time: int = 128
+    mtan_rec_hidden: int = 256
+    mtan_gen_hidden: int = 50
+    mtan_latent_dim: int = 20
+    mtan_alpha: float = 100.0
 
     # ---- clustering (DEC, p3) -----------------------------------------
     cluster_number: int = 4
@@ -246,6 +270,7 @@ class Config:
         "kmeans_impl": ("device", "sklearn"),
         "dbscan_impl": ("device", "sklearn"),
         "compute_dtype": ("float32", "bfloat16"),
+        "model": ("ipn", "mtan"),
     }
     _MIN_ONE = ("eval_interval", "batch_size", "num_timestamps", "max_epochs")
 
@@ -261,6 +286,14 @@ class Config:
             raise ValueError(f"Config.data_parallel={self.data_parallel} must be >= -1")
         if self.k_max < 2:  # the K sweeps run 2..k_max
             raise ValueError(f"Config.k_max={self.k_max} must be >= 2")
+        if self.model == "mtan":
+            if self.compute_dtype != "float32":
+                raise ValueError(f"Config.model='mtan' runs in float32 only: "
+                                 f"compute_dtype={self.compute_dtype!r} is not supported")
+            if self.data_parallel != 0 or self.num_processes > 0:
+                raise ValueError("Config.model='mtan' runs on one device: data-parallel "
+                                 f"ranks (data_parallel={self.data_parallel}, "
+                                 f"num_processes={self.num_processes}) are not supported")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -286,7 +319,7 @@ class Config:
 
     def save(self, run_dir: str, name: str = "config") -> str:
         """Write `{run_dir}/{name}.json`, which the JAX `Config.load` reads
-        (it keeps the fields it knows, and knows every field here)."""
+        (it keeps the fields it knows, every field here but `PORT_ONLY`)."""
         os.makedirs(run_dir, exist_ok=True)
         path = os.path.join(run_dir, f"{name}.json")
         d = dataclasses.asdict(self)

@@ -12,6 +12,7 @@ share of 0. In a world of one the single-device code runs unchanged.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -19,6 +20,9 @@ import torch.nn.functional as F
 
 from .. import parallel
 from ..config import Config
+
+# mTAN's observation noise: the sigma of its Gaussian log p(x|z)
+MTAN_OBS_STD = 0.01
 
 
 def rec_loss(
@@ -173,3 +177,47 @@ def compute_losses(
             kl_loss(net_out.aux["cluster_label"], net_out.aux["cluster_pred"], sample_mask)
         )
     return multi_task_loss(task_weights, rec, task_losses)
+
+
+def mtan_losses(
+    cfg: Config,
+    ob: torch.Tensor,
+    padding_mask: torch.Tensor,
+    net_out,
+    aux_label: Dict[str, torch.Tensor],
+    future_vital_mask: Optional[torch.Tensor],
+    kl_weight: torch.Tensor,
+    sample_mask: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """mTAN's loss (its PhysioNet classification script with `--norm`,
+    `--kl`, `k_iwae 1`): loss = nll + kl_weight * kl + alpha * future_vital,
+    where per encounter
+      nll = -log p(x|z) / n_obs, Gaussian at sigma `MTAN_OBS_STD` over the
+            observed points (those `rec_loss` scores),
+      kl  = KL(q(z) || N(0, I)) / n_obs, summed over the reference points
+            and the latent,
+    both averaged over the encounters (`sample_mask`'s real rows), and
+    `future_vital` the system's `sup` term on the classifier's predictions.
+    `ae_mse`, the system's reconstruction MSE, is reported beside them and
+    weighs nothing. An encounter without observations divides by 1 (mTAN
+    divides by 0)."""
+    b = ob.shape[0]
+    rows = torch.ones(b, dtype=ob.dtype, device=ob.device) if sample_mask is None \
+        else sample_mask
+    obs = padding_mask == 1.0
+    n_obs = torch.clamp(torch.sum(obs.reshape(b, -1), dim=1), min=1).to(ob.dtype)
+    log_var = 2.0 * math.log(MTAN_OBS_STD)
+    sq = torch.square(ob - net_out.rec) / MTAN_OBS_STD ** 2
+    point = -0.5 * (math.log(2.0 * math.pi) + log_var + sq)
+    logpx = torch.sum(torch.where(obs, point, torch.zeros_like(point)).reshape(b, -1), dim=1)
+    mean, logvar = net_out.qz_mean, net_out.qz_logvar
+    kl = torch.sum((0.5 * (torch.exp(logvar) + torch.square(mean)) - 0.5 * logvar - 0.5)
+                   .reshape(b, -1), dim=1)
+    n_rows = torch.sum(rows)
+    out = {"nll": -torch.sum(rows * logpx / n_obs) / n_rows,
+           "kl": torch.sum(rows * kl / n_obs) / n_rows}
+    out["future_vital"] = sup_aux_loss(cfg, aux_label, net_out.aux, future_vital_mask,
+                                       sample_mask)["future_vital"]
+    out["loss"] = out["nll"] + kl_weight * out["kl"] + cfg.mtan_alpha * out["future_vital"]
+    out["ae_mse"] = rec_loss(ob, net_out.rec, padding_mask, sample_mask)["ae_mse"]
+    return {k: out[k] for k in ("loss", "ae_mse", "nll", "kl", "future_vital")}

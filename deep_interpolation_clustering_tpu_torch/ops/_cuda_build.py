@@ -30,7 +30,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("fake_select.cu", "sci.cu", "rbf.cu", "lstm.cu", "optim.cu")
+SOURCES = ("fake_select.cu", "sci.cu", "rbf.cu", "lstm.cu", "optim.cu", "mtan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

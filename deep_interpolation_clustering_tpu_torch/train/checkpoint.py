@@ -9,8 +9,12 @@ The file is the JAX package's npz, so each package restores the other's:
   * `opt/00000`, `opt/00001`, ...: the JAX optimizer state's leaves in
     order (`compat.optimizer_to_jax`);
   * `__meta__`: JSON with `epoch` and what the caller adds (the trainer:
-    `lr`, `metric`, `lr_schedule`, `flag_dict`).
-Everything here works on NumPy arrays and nested dicts of them.
+    `lr`, `metric`, `lr_schedule`, `flag_dict`, `model`).
+`layout(cfg.model)` says how a network's weights take that form: the IPN's
+as the JAX package's pytrees (`compat`), which both packages restore;
+mTAN's, which the JAX package does not have, as its parameter names split
+at the dots into nested dicts, with no state. Everything else here works
+on NumPy arrays and nested dicts of them.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from ..compat.jax_params import JAX_LAYOUT, Layout
 from ..utils import tracing
 from ..utils.logging import logger
 
@@ -47,6 +53,40 @@ def _unflatten_nested(flat: Dict[str, np.ndarray]) -> Dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return out
+
+
+def _by_name(sd: Dict[str, object]) -> Tuple[Dict, Dict]:
+    """A state dict as (params, no state): nested dicts of float32 host
+    arrays, the names split at the dots; a tensor is one host read."""
+    params: Dict = {}
+    for name, v in sd.items():
+        *path, leaf = name.split(".")
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        if isinstance(v, torch.Tensor):
+            tracing.count("host_reads")
+            v = v.detach().cpu().numpy()
+        node[leaf] = np.array(v, np.float32, copy=True)
+    return params, {}
+
+
+def _from_names(params: Dict, state: Optional[Dict] = None,
+                prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Inverse of `_by_name`."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(_from_names(v, None, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = torch.from_numpy(np.array(v, np.float32, copy=True))
+    return out
+
+
+def layout(model: str) -> Layout:
+    """(to_tree, from_tree) for `Config.model`'s weights: a state dict to
+    the (params, state) that `save_checkpoint` takes, and back."""
+    return JAX_LAYOUT if model == "ipn" else (_by_name, _from_names)
 
 
 def save_checkpoint(path: str, epoch: int, params: Dict, state: Dict,

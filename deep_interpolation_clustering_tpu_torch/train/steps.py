@@ -23,6 +23,12 @@ run in float32. Mixed operands then meet as in JAX: the fake stream's
 `ob` is float32 (float32 noise in a bfloat16 plane), so at the default
 Config the encoder, decoder and heads compute in float32 against bfloat16
 weights. Eval forwards and dumps stay float32, as in JAX.
+
+`cfg.model == "mtan"` (`models/mtan.py`): the step has no fake stream and
+no triplet positive; a train step draws mTAN's one standard normal `eps`
+(B, R, L) from the step's generator (inside a captured step, as every
+draw), an eval forward draws nothing (the posterior mean), and the losses
+are `models.losses.mtan_losses` at the net's `kl_weight`.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch
 from .. import parallel
 from ..config import Config
 from ..data.loader import augment_batch, draw_bits, draw_dtype, make_fake_ob
-from ..models.losses import compute_losses
+from ..models.losses import compute_losses, mtan_losses
 from ..models.net import Net
 from ..ops.interpolation import Planes
 from .optim import clip_adam_step_, clip_grad_global_norm_
@@ -99,7 +105,8 @@ def build_inputs(
     `fake_aug_noise`, `pos_noise` ((B, C, T) or (2, B, C, T) tensors) and
     `perm` ((2B,) int64); what it lacks is drawn from `generator` in the
     order `aug_noise`, `fake_bits`, `fake_noise`, `fake_aug_noise`, `perm`,
-    `pos_noise`.
+    `pos_noise`. Under mTAN a train step's `eps` (B, R, L) comes from
+    `draws` or, after the augmentation's, from `generator`.
     """
     draws = draws or {}
     if parallel.world_size() > 1:
@@ -119,6 +126,7 @@ def build_inputs(
         return Planes(o * ae_mask if denoise else o, padding_mask, t, ae_mask)
 
     sample_mask = batch.get("sample_mask")
+    mtan = cfg.model == "mtan"
     out: Dict[str, Any] = {
         "x": planes(ob, timestamp),
         "ob": ob,
@@ -129,8 +137,14 @@ def build_inputs(
         "fake_row_mask": None,
         "positive_x": None,
         "sample_mask": sample_mask,
+        "eps": None,
     }
-    if cfg.fake_detection:
+    if mtan and train:
+        out["eps"] = draws.get("eps")
+        if out["eps"] is None:
+            out["eps"] = torch.randn((ob.shape[0], cfg.mtan_ref_points, cfg.mtan_latent_dim),
+                                     generator=generator, device=ob.device)
+    if cfg.fake_detection and not mtan:
         # fakes come from the RAW ob; the streams are augmented independently
         fake_ob = make_fake_ob(
             ob_raw, padding_mask, cfg.scale, draws.get("fake_bits"),
@@ -191,6 +205,11 @@ def forward_and_losses(net: Net, cfg: Config, inputs: Dict[str, Any], train: boo
                        params: Optional[Dict[str, torch.Tensor]] = None):
     """The forward and the losses; with `params`, the forward runs on those
     tensors in place of the net's parameters (the buffers stay the net's)."""
+    if cfg.model == "mtan":
+        net_out = net(inputs["x"], inputs["eps"], use_kernels=use_kernels)
+        return net_out, mtan_losses(cfg, inputs["ob"], inputs["padding_mask"], net_out,
+                                    inputs["aux_label"], inputs["future_vital_mask"],
+                                    net.kl_weight, inputs["sample_mask"])
     args = (inputs["x"], inputs["fake_x"], inputs["fake_perm_idx"], inputs["positive_x"])
     kwargs = dict(train=train, generator=generator, sample_mask=inputs["sample_mask"],
                   use_kernels=use_kernels)

@@ -54,6 +54,12 @@ writes `config.json`, checkpoints, the summary and the dumps; `load_weight`
 waits at a barrier first. Every decision of the host (early stop, the
 schedule, logging) reads global values, the same on every rank.
 
+`cfg.model` chooses the network (`_build_net`): the IPN (`models/net.py`)
+or mTAN (`models/mtan.py`, one device, no DEC head); the loop, the graphs,
+the optimizer, checkpoints (mTAN's weights in the port's own layout,
+`checkpoint.layout`) and dumps are the same. mTAN's KL weight follows the
+epoch (`set_epoch`, called by `_epoch_batches`).
+
 Tracing (`utils.tracing`, off by default): `train()` is the root span
 `train`, each loop iteration an `epoch` span (attribute `epoch`); inside
 it `train_epoch` (children `train_epoch.plan`: the shuffle, the index
@@ -78,11 +84,11 @@ import numpy as np
 import torch
 
 from .. import parallel
-from ..compat import jax_from_state_dict, optimizer_from_jax, optimizer_to_jax
-from ..compat import state_dict_from_jax
+from ..compat import optimizer_from_jax, optimizer_to_jax
 from ..config import Config
 from ..data.loader import ArrayDataset
 from ..info import COHORT2SCOPE, METRICS, MIN_MAX_VALUES
+from ..models.mtan import MTAN
 from ..models.net import Net
 from ..parallel.cohort import ShardedCohort
 from ..utils import tracing
@@ -120,9 +126,10 @@ class Trainer:
                              f"{self.world} data-parallel ranks")
         self.main = parallel.is_main_process()
         init_gen = torch.Generator().manual_seed(cfg.seed)
-        self.net = Net(cfg, generator=init_gen, clustering=self.clustering).to(self.device)
+        self.net = self._build_net(init_gen).to(self.device)
         parallel.broadcast_(list(self.net.parameters()) + list(self.net.buffers()))
         self.opt = make_optimizer(cfg, self.net.parameters())
+        self._layout = ckpt.layout(cfg.model)  # the weights' form in a checkpoint
         self.num_updates = 0  # the JAX optimizer state's count
         self.lr_schedule = LRSchedule(cfg)
         # batch draws (fake select bits and noise, permutation, dropout)
@@ -153,6 +160,21 @@ class Trainer:
         n_params = sum(p.numel() for p in self.net.parameters())
         logger.info("trainable params: %d; train samples: %d; ratio %.3f",
                     n_params, n_train, n_params / max(n_train, 1))
+
+    def _build_net(self, generator: torch.Generator) -> torch.nn.Module:
+        """`cfg.model`'s network: the IPN (`Net`, with the DEC head in a
+        clustering trainer) or mTAN, which has no DEC head and runs on one
+        device."""
+        cfg = self.cfg
+        if cfg.model != "mtan":
+            return Net(cfg, generator=generator, clustering=self.clustering)
+        if self.clustering:
+            raise ValueError("model='mtan' has no DEC head: p3 (ClusterTrainer) is not "
+                             "supported")
+        if self.world > 1:
+            raise ValueError(f"model='mtan' runs on one device: {self.world} data-parallel "
+                             f"ranks are not supported")
+        return MTAN(cfg, generator=generator)
 
     def cohort_data(self, cohort: str) -> Dict[str, torch.Tensor]:
         """The whole cohort on the device (the replicated storage)."""
@@ -286,7 +308,12 @@ class Trainer:
         real rows (`parallel.pad_batch_to`: finite values everywhere, as the
         JAX `_tail_train_step`), its mask 1 on them. A sharded cohort is
         first re-laid out into the epoch's order; its batches are then the
-        block numbers (the tail block holds the same padded rows)."""
+        block numbers (the tail block holds the same padded rows). A net
+        whose loss changes with the epoch (mTAN's KL weight, `set_epoch`) is
+        given the epoch first, in place, where its captured steps read it."""
+        set_epoch = getattr(self.net, "set_epoch", None)
+        if set_epoch is not None:
+            set_epoch(epoch)
         n, bs = len(self.datasets["training"]), self.cfg.batch_size
         order = np.arange(n)
         np.random.RandomState(self.cfg.seed + epoch).shuffle(order)
@@ -740,8 +767,8 @@ class Trainer:
             return
         with tracing.span("checkpoint"):
             with tracing.span("checkpoint.copy"):  # one host read a tensor (`compat`)
-                params, state = jax_from_state_dict(self.net.state_dict())
-                leaves = optimizer_to_jax(self.opt, self.net, self.num_updates)
+                params, state = self._layout[0](self.net.state_dict())
+                leaves = optimizer_to_jax(self.opt, self.net, self.num_updates, self._layout)
             with tracing.span("checkpoint.write"):
                 for m in improved:
                     ckpt.save_checkpoint(
@@ -749,7 +776,8 @@ class Trainer:
                         params, state, leaves,
                         extra={"lr": self.lr_schedule.lr, "metric": m,
                                "lr_schedule": self.lr_schedule.state_dict(),
-                               "flag_dict": self.flag_dict.state_dict()})
+                               "flag_dict": self.flag_dict.state_dict(),
+                               "model": self.cfg.model})
                     logger.info("saving for %s", m)
 
     def aly_pred(self, scope: str, metric_dict: Dict[str, float]) -> Dict[str, bool]:
@@ -777,12 +805,12 @@ class Trainer:
         if not os.path.exists(path):
             logger.error("==> load fail: no checkpoint at %s", path)
             return
-        template = optimizer_to_jax(self.opt, self.net, self.num_updates)
+        template = optimizer_to_jax(self.opt, self.net, self.num_updates, self._layout)
         epoch, params, state, leaves, meta = ckpt.load_checkpoint(path, template)
         self.epoch = epoch
-        self.net.load_state_dict(state_dict_from_jax(params, state), strict=True)
+        self.net.load_state_dict(self._layout[1](params, state), strict=True)
         if leaves is not None:
-            self.num_updates = optimizer_from_jax(self.opt, self.net, leaves)
+            self.num_updates = optimizer_from_jax(self.opt, self.net, leaves, self._layout)
         if "lr_schedule" in meta:
             self.lr_schedule.load_state_dict(meta["lr_schedule"])
         elif "lr" in meta:  # checkpoints from before the schedule's state

@@ -12,8 +12,8 @@ cohort, and prints one JSON object with:
     launched per step, the kernels that take the most device time, and
     every hand-written kernel of `csrc/` (the selects, the SCI forward and
     backward, the RBF push, each kernel of B6/B7, for the split of the
-    biLSTM backward between its recurrence and its dW kernels, and the
-    optimizer tail's two), whatever
+    biLSTM backward between its recurrence and its dW kernels, the
+    optimizer tail's two, and mTAN's encoder attention, `mtan_*`), whatever
     its rank; and `rbf_backward`, the device time of the kernels launched
     inside the `rbf_push_backward` range (RBFFunction's backward, which
     recomputes the push in plain PyTorch and differentiates it), with the
@@ -51,7 +51,7 @@ from . import tracing
 
 
 # substrings of the names of the kernels in csrc/*.cu
-HAND_KERNELS = ("fake_select", "sci_", "rbf_", "lstm_", "optim_")
+HAND_KERNELS = ("fake_select", "sci_", "rbf_", "lstm_", "optim_", "mtan_")
 
 
 def _sync_ms(fn: Callable) -> float:

@@ -34,6 +34,7 @@ from deep_interpolation_clustering_tpu.train import ClusterTrainer as JClusterTr
 from deep_interpolation_clustering_tpu.train import checkpoint as jckpt
 from deep_interpolation_clustering_tpu.train.optim import get_learning_rate
 from deep_interpolation_clustering_tpu_torch import Config
+from deep_interpolation_clustering_tpu_torch.config import PORT_ONLY
 from deep_interpolation_clustering_tpu_torch.compat import jax_from_state_dict
 from deep_interpolation_clustering_tpu_torch.train import ClusterTrainer
 from test_torch_trainer import SMALL, _cohorts, _datasets, _port_cfg
@@ -73,7 +74,8 @@ def test_config_dec_fields_load_from_a_jax_config(tmp_path, caplog):
         assert name not in ignored, name
     # the defaults are JAX's
     for name in Config.__dataclass_fields__:
-        assert getattr(Config(), name) == getattr(JConfig(), name), name
+        if name not in PORT_ONLY:  # the JAX package has no mTAN
+            assert getattr(Config(), name) == getattr(JConfig(), name), name
 
 
 def test_config_compute_dtype_other_than_float32_raises(tmp_path):

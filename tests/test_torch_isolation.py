@@ -16,7 +16,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 import deep_interpolation_clustering_tpu_torch as port
 from deep_interpolation_clustering_tpu_torch import Config
 from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
-from deep_interpolation_clustering_tpu_torch.ops import cuda_interp, cuda_lstm, cuda_optim, cuda_select  # noqa: F401 (registers the kernels)
+from deep_interpolation_clustering_tpu_torch.ops import cuda_interp, cuda_lstm, cuda_mtan, cuda_optim, cuda_select  # noqa: F401 (registers the kernels)
 from deep_interpolation_clustering_tpu_torch.train import Trainer
 
 torch.set_num_threads(1)
@@ -114,6 +114,12 @@ def _fake_cuda_args(wrapper):
                 torch.zeros((), dtype=torch.float64, device="cuda"),)
             return (torch.zeros((), device="cuda"), [leaf], torch.tensor(1e-3, device="cuda"),
                     (15.0, 0.0, 0.9, 0.999, 1e-8))
+        if wrapper.name.startswith("mtan_"):
+            q, k = torch.zeros(r, 8, device="cuda"), torch.zeros(rows, t, 8, device="cuda")
+            if wrapper.name == "mtan_attn_fwd":
+                return (q, k, plane(), plane(), 0.25)
+            vec = lambda: torch.zeros(rows, r, device="cuda")
+            return (q, k, plane(), plane(), vec(), vec(), vec(), vec(), vec(), 0.25)
         if wrapper.name == "sci_forward":
             return (plane(), plane(), plane(), alpha, ref_t)
         if wrapper.name == "sci_backward":
@@ -127,7 +133,8 @@ def _no_plain(*_):
 
 
 KERNEL_NAMES = ["fake_select", "fake_select_packed", "sci_forward", "sci_backward",
-                "rbf_push", "lstm_forward", "lstm_backward", "clip_adam"]
+                "rbf_push", "lstm_forward", "lstm_backward", "clip_adam", "mtan_attn_fwd",
+                "mtan_attn_bwd"]
 
 
 def test_every_kernel_is_covered():

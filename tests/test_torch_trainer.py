@@ -33,6 +33,7 @@ from deep_interpolation_clustering_tpu.train.steps import build_inputs as jbuild
 from deep_interpolation_clustering_tpu.train.steps import make_eval_step
 from deep_interpolation_clustering_tpu.train.trainer import Trainer as JTrainer
 from deep_interpolation_clustering_tpu_torch import Config
+from deep_interpolation_clustering_tpu_torch.config import PORT_ONLY
 from deep_interpolation_clustering_tpu_torch.compat import optimizer_to_jax, state_dict_from_jax
 from deep_interpolation_clustering_tpu_torch.data import ArrayDataset
 from deep_interpolation_clustering_tpu_torch.train import Trainer
@@ -47,7 +48,8 @@ DETERMINISTIC = ("ae_mse", "future_vital")
 
 
 def _port_cfg(jcfg):
-    return Config.from_dict({k: getattr(jcfg, k) for k in Config.__dataclass_fields__})
+    return Config.from_dict({k: getattr(jcfg, k) for k in Config.__dataclass_fields__
+                             if k not in PORT_ONLY})
 
 
 def _cohorts(t, n_total=61, seed=5):
