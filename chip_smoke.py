@@ -28,7 +28,12 @@ not 0):
                (`pair_ms`, `plain_tail_ms`); mTAN's encoder attention pair
                at the mtan_t354_b256 cell's shapes (`mtan_kernels`: 1,536
                heads of 354 slots, counts uniform on 4..354, R = D = 128)
-               against its plain version and its bound
+               against its plain version and its bound; its GRU pair G1 at
+               the cell's three GRUs (B 256, R 128: the encoder's 256 -> 256
+               and the decoder's 20 -> 50 biGRUs, the classifier's 20 ->
+               256 GRU; `by_gru`) against its plain version, its bound and
+               cuDNN's `nn.GRU` (the library yardstick, which the port never
+               calls)
   4. main    - the p1 trainer at the default Config width takes 8 steps and
                one eval forward on a synthetic T=354 cohort; the kernels'
                launch counters must show the path went through them; then
@@ -77,9 +82,11 @@ not 0):
                `Trainer.train()` with `model="mtan"` at mTAN's published
                widths (B 256, T 354, R 128) on the p0 phase's pickles, fused
                epoch on, two epochs with validation; the launch counters,
-               zeroed just before, must show M1's pair and O1; finite
-               validation losses, and the 256-d `hidden` dump of the
-               restored ae_mse checkpoint
+               zeroed just before, must show M1's pair, G1's pair and O1;
+               finite validation losses, and the 256-d `hidden` dump of the
+               restored ae_mse checkpoint; three replays of the captured
+               train step profiled, whose top kernels must hold no cuDNN RNN
+               kernel (`step_top`)
   9a. fused  - the fused epoch (`fused_phase`): two epochs replayed from
                captured CUDA graphs against two stepped, bit for bit in the
                per-batch losses, parameters, BatchNorm buffers, optimizer
@@ -1290,7 +1297,111 @@ def mtan_kernels(dev) -> dict:
             bytes=f32 * (r * d + observed * d + 2 * heads * T + 5 * heads * r
                          + heads * T * d + heads * T + r * d),
             flop=pairs * (6 * d + 8), expf=pairs),
+        **mtan_gru_kernels(dev),
     }
+
+
+# the mtan_t354_b256 cell's GRUs: (input width, H, bidirectional), over R steps
+MTAN_GRUS = {"encoder": (256, 256, True), "decoder": (20, 50, True),
+             "classifier": (20, 256, False)}
+
+
+def mtan_gru_kernels(dev) -> dict:
+    """mTAN's GRU pair G1 (`ops/cuda_gru.py`) at the cell's three GRUs, B
+    encounters over R = MTAN_R steps: the forward walk's h and saved gates
+    within 1e-5 of the plain version's largest value, the backward walk's
+    two gradients (from the kernel's saved gates) within 1e-4, both
+    bit-identical across two runs; each walk's ms summed over the three
+    GRUs (each GRU's in `by_gru`, with the rows a cluster walks and the
+    clusters the card holds at once), the plain walks' ms, cuDNN's `nn.GRU`
+    (forward, with its input projection; and its backward: forward and
+    backward less its training forward), and the bound of the walks' work
+    (the recurrent products and the pointwise gates; xg, the outputs and
+    the saved gates read or written once). Returns the two wrappers' rows."""
+    import torch
+    from torch.nn import functional as F
+
+    from deep_interpolation_clustering_tpu_torch.ops import cuda_gru as cg
+    from deep_interpolation_clustering_tpu_torch.utils.cuda_timing import time_ms
+
+    f32, r_len = 4, MTAN_R
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0,
+                    flop=0.0, expf=0.0, by_gru={}) for k in ("mtan_gru_fwd", "mtan_gru_bwd")}
+    for i, (name, (n_in, h, bi)) in enumerate(MTAN_GRUS.items()):
+        torch.manual_seed(30 + i)
+        module = torch.nn.GRU(n_in, h, bidirectional=bi, batch_first=True).to(dev)
+        d = 2 if bi else 1
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        x = torch.randn((B, r_len, n_in), generator=gen, device=dev, requires_grad=True)
+        with torch.no_grad():
+            w_ih, b_ih, w_hh, b_hh = (t.detach().contiguous() for t in cg._parameters(module))
+            xg = F.linear(x, w_ih, b_ih).reshape(B, r_len, d, 3 * h)
+            out, saved = cg.gru_fwd(xg, w_hh, b_hh, True)
+            want = cg._fwd_plain(xg, w_hh, b_hh, True)
+            g = torch.randn(out.shape, generator=gen, device=dev)
+            grads = cg.gru_bwd(g, saved, w_hh)
+            plain = cg._bwd_plain(g, saved, w_hh)
+            torch.cuda.synchronize()
+            errs = {
+                "mtan_gru_fwd": max(float((a - b).abs().max()) / float(b.abs().max())
+                                    for a, b in zip((out, saved), want)),
+                "mtan_gru_bwd": max(float((a - b).abs().max()) / float(b.abs().max())
+                                    for a, b in zip(grads, plain)),
+            }
+            again = cg.gru_fwd(xg, w_hh, b_hh, True)
+            if not (all(same_bits(a, b) for a, b in zip((out, saved), again)) and all(
+                    same_bits(a, b) for a, b in zip(grads, cg.gru_bwd(g, saved, w_hh)))):
+                raise AssertionError(f"the mTAN GRU pair differs between two runs ({name})")
+            ms = {"mtan_gru_fwd": time_ms(lambda: cg.gru_fwd(xg, w_hh, b_hh, True)),
+                  "mtan_gru_bwd": time_ms(lambda: cg.gru_bwd(g, saved, w_hh))}
+            plain_ms = {"mtan_gru_fwd": time_ms(lambda: cg._fwd_plain(xg, w_hh, b_hh, True), 5),
+                        "mtan_gru_bwd": time_ms(lambda: cg._bwd_plain(g, saved, w_hh), 5)}
+            lib_fwd = time_ms(lambda: module(x))
+        g_out = torch.randn((B, r_len, d * h), generator=gen, device=dev)
+
+        def train_fwd():
+            return module(x)[0]
+
+        def train_step():
+            torch.autograd.grad((train_fwd() * g_out).sum(), [x, *module.parameters()])
+
+        library = {"mtan_gru_fwd": lib_fwd,
+                   "mtan_gru_bwd": time_ms(train_step) - time_ms(train_fwd)}
+        steps = B * r_len * d  # (row, step, direction) triples
+        work = {
+            # h W_hh^T for three gates; the gates' pointwise work. xg in;
+            # h and the five saved values out; W_hh and b_hh in
+            "mtan_gru_fwd": dict(flop=steps * (6 * h * h + 12 * h), expf=steps * 3 * h,
+                                 bytes=f32 * (steps * (3 * h + 6 * h) + d * (3 * h * h + 3 * h))),
+            # dh_prev = dgh W_hh; the gates' gradients. The cotangent and
+            # the saved values in; dxg and dgh out; W_hh in
+            "mtan_gru_bwd": dict(flop=steps * (6 * h * h + 16 * h), expf=0,
+                                 bytes=f32 * (steps * (6 * h + 6 * h) + d * 3 * h * h)),
+        }
+        for k, row in rows.items():
+            if not errs[k] <= (1e-5 if k == "mtan_gru_fwd" else 1e-4):
+                raise AssertionError(f"{k} against plain ({name}): {errs[k]:.3g} of the "
+                                     f"largest value")
+            row["max_abs_err"] = max(row["max_abs_err"], errs[k])
+            row["ms"] += ms[k]
+            row["plain_ms"] += plain_ms[k]
+            row["library_ms"] += library[k]
+            for w in ("flop", "expf", "bytes"):
+                row[w] += work[k][w]
+            fit = cg.rows_per_cluster(h, B, d, k == "mtan_gru_bwd")
+            row["by_gru"][name] = dict(ms=round(ms[k], 4), plain_ms=round(plain_ms[k], 4),
+                                       library_ms=round(library[k], 4),
+                                       shape=[B, r_len, n_in, h, d], rows=fit[0],
+                                       clusters_at_once=fit[1])
+    rows["mtan_gru_fwd"].update(
+        tolerance="1e-5 of the largest value; two runs bit-identical",
+        library="cuDNN nn.GRU forward with its input projection, the three GRUs",
+        shape=[B, r_len, "encoder 256->256 bi, decoder 20->50 bi, classifier 20->256"])
+    rows["mtan_gru_bwd"].update(
+        tolerance="1e-4 of the largest value; two runs bit-identical",
+        library="cuDNN nn.GRU forward+backward less its training forward, the three GRUs",
+        shape=rows["mtan_gru_fwd"]["shape"])
+    return rows
 
 
 def mtan_p1_phase(run: dict, smi: str) -> dict:
@@ -1298,11 +1409,13 @@ def mtan_p1_phase(run: dict, smi: str) -> dict:
     at mTAN's published widths (the Config's defaults) and the cell's
     optimizer, on the p1 phase's T=354 pickles (`run`), fused epoch on, two
     epochs with a validation pass each. The launch counters are zeroed
-    just before, and must show M1's pair and O1 launched (at capture: the
-    train graphs and the eval graph). The validation losses must be finite
-    and the restored ae_mse checkpoint's validation `hidden` (the
-    classifier GRU's state) one finite 256-d row an encounter. Returns the
-    kernels' launch counts of the phase."""
+    just before, and must show M1's pair, G1's pair and O1 launched (at
+    capture: the train graphs and the eval graph). The validation losses
+    must be finite and the restored ae_mse checkpoint's validation `hidden`
+    (the classifier GRU's state) one finite 256-d row an encounter. Three
+    replays of the captured full-batch train step are then profiled: no
+    cuDNN RNN kernel may be among the step's top kernels (G1's walks are).
+    Returns the kernels' launch counts of the phase."""
     import torch
 
     from deep_interpolation_clustering_tpu_torch.cli.common import (
@@ -1310,6 +1423,7 @@ def mtan_p1_phase(run: dict, smi: str) -> dict:
     )
     from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
     from deep_interpolation_clustering_tpu_torch.train import Trainer
+    from deep_interpolation_clustering_tpu_torch.utils import profiling
 
     cfg = config_from_args(build_parser("p1").parse_args(run["width"])).replace(
         model="mtan", aux_tasks={"future_vital": 1.0}, fake_detection=False, init_lr=1e-4,
@@ -1323,8 +1437,19 @@ def mtan_p1_phase(run: dict, smi: str) -> dict:
     train_s = time.perf_counter() - t0
     launches = {w.name: w.launches for w in cb.KERNELS}
     hidden = trainer.eval("validation", metric="ae_mse")["hidden"]
+    # three replays of the captured full-batch train step, profiled
+    graph = trainer._train_graph(False)
+    batch_rows = torch.arange(cfg.batch_size, device="cuda")
+    prof = profiling.device_profile(lambda: graph(batch_rows), 3, top=15)
     trainer.close()
-    missing = [k for k in ("mtan_attn_fwd", "mtan_attn_bwd", "clip_adam") if launches[k] == 0]
+    step_top = [(k["name"], round(k["ms_per_step"], 4)) for k in prof["top_kernels"]]
+    rnn = [n for n, _ in step_top if "rnn" in n.lower() or "cudnn" in n.lower()
+           or "gru_elementwise" in n.lower()]
+    if rnn:
+        raise AssertionError(f"mtan_p1: cuDNN RNN kernels in the replayed step: {rnn}")
+    gru_ms = sum(t for n, t in step_top if "gru_fwd_kernel" in n or "gru_bwd_kernel" in n)
+    missing = [k for k in ("mtan_attn_fwd", "mtan_attn_bwd", "mtan_gru_fwd", "mtan_gru_bwd",
+                           "clip_adam") if launches[k] == 0]
     if missing:
         raise AssertionError(f"mtan_p1: kernels never launched on the path: {missing}")
     if not all(np.isfinite(v) for v in valid.values()):
@@ -1336,7 +1461,9 @@ def mtan_p1_phase(run: dict, smi: str) -> dict:
     say("mtan_p1", batch=cfg.batch_size, T=cfg.num_timestamps, R=cfg.mtan_ref_points,
         epochs=trainer.epoch, seconds=f"{train_s:.2f}",
         valid=json.dumps({k: round(float(v), 6) for k, v in valid.items()}),
-        launches=json.dumps({k: v for k, v in launches.items() if v}), card=repr(smi))
+        launches=json.dumps({k: v for k, v in launches.items() if v}),
+        step_ms=f"{prof['device_busy_ms'] / prof['steps_traced']:.3f}",
+        gru_ms=f"{gru_ms:.3f}", step_top=json.dumps(step_top[:8]), card=repr(smi))
     return launches
 
 
@@ -3363,7 +3490,7 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("by_t", "bits16", "few_rows_ms", "decoder_ms", "triplet_ms",
-                                 "scaled_ms", "shape", "library", "pair_ms", "plain_tail_ms")
+                                 "scaled_ms", "shape", "library", "pair_ms", "plain_tail_ms", "by_gru")
                if k in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -40,8 +40,10 @@ How it meets this system (departures from the published code):
     state, H_rec = 256 wide, the IPN's latent width;
   * an eval forward decodes the posterior mean, with no draw (mTAN samples).
 The parameters are drawn from `generator` by torch's default inits
-(nn.Linear and nn.GRU). The GRUs are PyTorch's (cuDNN on the card), which
-a CUDA graph captures.
+(nn.Linear and nn.GRU). The `nn.GRU` modules hold the GRUs' parameters (their
+names, order and draws); the recurrences run as the hand kernel pair G1 of
+`ops/cuda_gru.py` (its plain version on the CPU), which a CUDA graph
+captures.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..ops.cuda_gru import gru
 from ..ops.cuda_mtan import encoder_attention
 from ..ops.interpolation import Planes
 from ..ops.nn import uniform_
@@ -131,9 +134,9 @@ class Classifier(nn.Module):
             nn.Linear(CLASSIFIER_HIDDEN, n_out))
 
 
-def _gru(gru: nn.GRU, x: torch.Tensor):
+def _gru(module: nn.GRU, x: torch.Tensor, use_kernels: bool):
     with torch.profiler.record_function("mtan_gru"):
-        return gru(x)
+        return gru(module, x, use_kernels)
 
 
 class MTAN(nn.Module):
@@ -191,17 +194,17 @@ class MTAN(nn.Module):
             # mTAN's value columns: the C channels' values, then their masks
             h = torch.cat([h_ob, h_m], dim=1).permute(0, 2, 1)  # (B, R, 2C)
             h = w_o(h)
-        out, _ = _gru(rec.gru_rnn, h)
+        out, _ = _gru(rec.gru_rnn, h, use_kernels)
         out = rec.hiddens_to_z0(out)
         latent = cfg.mtan_latent_dim
         return out[..., :latent], out[..., latent:]
 
-    def decode(self, z: torch.Tensor, x: Planes) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, x: Planes, use_kernels: bool = True) -> torch.Tensor:
         """The reconstruction (B, C, T) at each channel's own slots, masked."""
         dec = self.dec
         b, c, t_len = x.ob.shape
         w_q, w_k, w_o = dec.att.linears
-        values, _ = _gru(dec.gru_rnn, z)  # (B, R, 2H_gen)
+        values, _ = _gru(dec.gru_rnn, z, use_kernels)  # (B, R, 2H_gen)
         with torch.profiler.record_function("mtan_decoder_attention"):
             q = w_q(dec.embed(x.ts.reshape(b, c * t_len) / self.cfg.hours_from_admission))
             k = w_k(dec.embed(self.reference_times(z)))  # (R, E)
@@ -216,11 +219,11 @@ class MTAN(nn.Module):
         """The network over the real stream `x`; `eps` (B, R, L), the
         standard normal draw of the train step, samples z; without it z is
         the posterior mean (eval). `use_kernels=False` runs the encoder's
-        attention in its plain version on any device."""
+        attention and the GRUs in their plain versions on any device."""
         mean, logvar = self.encode(x, use_kernels)
         z = mean if eps is None else mean + torch.exp(0.5 * logvar) * eps
-        rec = self.decode(z, x)
-        _, last = _gru(self.classifier.gru_rnn, z)
+        rec = self.decode(z, x, use_kernels)
+        _, last = _gru(self.classifier.gru_rnn, z, use_kernels)
         hidden = last[0]
         future = torch.sigmoid(self.classifier.classifier(hidden))
         return MTANOutput(hidden, rec, {"future_vital": future}, mean, logvar)

@@ -12,6 +12,9 @@ kernel on PyTorch's current stream or raises. It counts its launches. A
 call made while a CUDA graph is being captured launches nothing: it counts
 in `captured`, and the graph (`train/graphs.py`) adds the launches it
 recorded to `launches` on each replay (`captured_counts`, `add_launches`).
+A wrapper given a tracer `counter` (`utils.tracing`) adds to it at every
+call, the plain version's and a capture's included, and on every replay
+that launches it.
 """
 
 from __future__ import annotations
@@ -27,10 +30,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from ..utils import tracing
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
-SOURCES = ("fake_select.cu", "sci.cu", "rbf.cu", "lstm.cu", "optim.cu", "mtan.cu")
+SOURCES = ("fake_select.cu", "sci.cu", "rbf.cu", "lstm.cu", "optim.cu", "mtan.cu", "gru.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -148,22 +153,25 @@ class KernelWrapper:
     `launch(*args)` for CUDA tensors, and the count of launches."""
 
     def __init__(self, name: str, source: str, replaces: str,
-                 plain: Callable, launch: Callable):
+                 plain: Callable, launch: Callable, counter: Optional[str] = None):
         self.name = name
         self.source = source  # path in the repo
         self.replaces = replaces  # file:line of the TPU kernel
         self.plain = plain
         self._launch = launch
+        self.counter = counter  # the tracer's counter of the kernel's calls
         self.launches = 0
         self.captured = 0  # calls recorded into a CUDA graph being captured
 
     def __call__(self, *args):
         devices = {a.device.type for a in args if isinstance(a, torch.Tensor)}
-        if devices == {"cpu"}:
-            return self.plain(*args)
-        if devices != {"cuda"}:
+        if devices not in ({"cpu"}, {"cuda"}):
             raise ValueError(f"{self.name}: tensors on {sorted(devices)}; "
                              "expected all on the CPU or all on one CUDA device")
+        if self.counter is not None:
+            tracing.count(self.counter)
+        if devices == {"cpu"}:
+            return self.plain(*args)
         out = self._launch(*args)
         if torch.version.cuda is not None and torch.cuda.is_current_stream_capturing():
             self.captured += 1
@@ -193,4 +201,7 @@ def captured_counts() -> Dict[str, int]:
 def add_launches(counts: Dict[str, int]) -> None:
     """Count the launches of one replay of a graph that recorded `counts`."""
     for w in KERNELS:
-        w.launches += counts.get(w.name, 0)
+        n = counts.get(w.name, 0)
+        w.launches += n
+        if n and w.counter is not None:
+            tracing.count(w.counter, n)

@@ -27,8 +27,9 @@ then the partials in block order), with no float atomics.
 `encoder_attention` is the entry the model calls. The plain versions take
 the same arguments and run wherever the tensors lie on the CPU. The kernels
 take R <= MAX_QUERIES, D <= MAX_DIM with D a multiple of 4, float32. Each
-call of the pair adds one to the tracer's counter `mtan.attn_launches`,
-also while a CUDA graph captures it (`utils.tracing`).
+call of either kernel adds one to the tracer's counter `mtan.attn_launches`,
+also while a CUDA graph captures it, and each replay of a graph that
+launches it adds its launches (`utils.tracing`, `_cuda_build.KernelWrapper`).
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from typing import Tuple
 
 import torch
 
-from ..utils import tracing
 from . import _cuda_build as cb
 
 # csrc/mtan.cu's constants
@@ -133,9 +133,9 @@ _SOURCE = "deep_interpolation_clustering_tpu_torch/csrc/mtan.cu"
 _REPLACES = "none; mTAN's multiTimeAttention (github.com/reml-lab/mTAN models.py)"
 
 attn_fwd = cb.register(cb.KernelWrapper("mtan_attn_fwd", _SOURCE, _REPLACES,
-                                        _attn_fwd_plain, _attn_fwd_launch))
+                                        _attn_fwd_plain, _attn_fwd_launch, COUNTER))
 attn_bwd = cb.register(cb.KernelWrapper("mtan_attn_bwd", _SOURCE, _REPLACES,
-                                        _attn_bwd_plain, _attn_bwd_launch))
+                                        _attn_bwd_plain, _attn_bwd_launch, COUNTER))
 
 
 # --------------------------------------------------------- autograd function
@@ -145,7 +145,6 @@ class EncoderAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, ob, mask, scale):
-        tracing.count(COUNTER)
         out_ob, out_m, _, lse = attn_fwd(q, k, ob, mask, scale)
         ctx.save_for_backward(q, k, ob, mask, out_ob, out_m, lse)
         ctx.scale = scale
@@ -153,7 +152,6 @@ class EncoderAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_ob, g_m):
-        tracing.count(COUNTER)
         q, k, ob, mask, out_ob, out_m, lse = ctx.saved_tensors
         dk, dob, dq = attn_bwd(q, k, ob, mask, out_ob, out_m, lse, g_ob.contiguous(),
                                g_m.contiguous(), ctx.scale)

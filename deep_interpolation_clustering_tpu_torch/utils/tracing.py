@@ -44,6 +44,11 @@ span open on the host when it began), and returns these with the counters.
 Spans stay in memory until then; nothing is written while the program runs.
 Times in the report are ms from the anchor.
 
+The hand kernels' call counters (`mtan.attn_launches`, `mtan.gru_launches`:
+`ops/_cuda_build.KernelWrapper`'s `counter`) count every call of a kernel's
+wrapper, a capture's too, and every launch of it that a graph's replay makes
+(`_cuda_build.add_launches`), so a call that only replays graphs counts them.
+
 A CUDA graph captured while the tracer is on (`train/graphs.py`) also
 captures one `add_(1)` on a device counter of its own and is watched
 (`watch_graph`): `report()` gives `graph.replays_unrun`, the host's replays

@@ -16,7 +16,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 import deep_interpolation_clustering_tpu_torch as port
 from deep_interpolation_clustering_tpu_torch import Config
 from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
-from deep_interpolation_clustering_tpu_torch.ops import cuda_interp, cuda_lstm, cuda_mtan, cuda_optim, cuda_select  # noqa: F401 (registers the kernels)
+from deep_interpolation_clustering_tpu_torch.ops import cuda_gru, cuda_interp, cuda_lstm, cuda_mtan, cuda_optim, cuda_select  # noqa: F401 (registers the kernels)
 from deep_interpolation_clustering_tpu_torch.train import Trainer
 
 torch.set_num_threads(1)
@@ -114,6 +114,13 @@ def _fake_cuda_args(wrapper):
                 torch.zeros((), dtype=torch.float64, device="cuda"),)
             return (torch.zeros((), device="cuda"), [leaf], torch.tensor(1e-3, device="cuda"),
                     (15.0, 0.0, 0.9, 0.999, 1e-8))
+        if wrapper.name.startswith("mtan_gru_"):
+            w_hh = torch.zeros(2, 3 * h, h, device="cuda")
+            if wrapper.name == "mtan_gru_fwd":
+                return (torch.zeros(b, r, 2, 3 * h, device="cuda"), w_hh,
+                        torch.zeros(2, 3 * h, device="cuda"), True)
+            return (torch.zeros(b, r, 2, h, device="cuda"), torch.zeros(b, r, 2, 5, h, device="cuda"),
+                    w_hh)
         if wrapper.name.startswith("mtan_"):
             q, k = torch.zeros(r, 8, device="cuda"), torch.zeros(rows, t, 8, device="cuda")
             if wrapper.name == "mtan_attn_fwd":
@@ -134,7 +141,7 @@ def _no_plain(*_):
 
 KERNEL_NAMES = ["fake_select", "fake_select_packed", "sci_forward", "sci_backward",
                 "rbf_push", "lstm_forward", "lstm_backward", "clip_adam", "mtan_attn_fwd",
-                "mtan_attn_bwd"]
+                "mtan_attn_bwd", "mtan_gru_fwd", "mtan_gru_bwd"]
 
 
 def test_every_kernel_is_covered():

@@ -1,6 +1,7 @@
-"""mTAN's encoder attention pair on the card (`ops/cuda_mtan.py`,
-`csrc/mtan.cu`) against its plain version. They need a CUDA card and
-`nvcc`, so they skip elsewhere; they import neither JAX nor this
+"""mTAN's hand kernels on the card against their plain versions: the
+encoder attention pair (`ops/cuda_mtan.py`, `csrc/mtan.cu`) and the GRU
+recurrence pair G1 (`ops/cuda_gru.py`, `csrc/gru.cu`). They need a CUDA card
+and `nvcc`, so they skip elsewhere; they import neither JAX nor this
 directory's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_mtan_gpu.py
@@ -10,9 +11,15 @@ At R = D = 128 (mTAN's reference points and time embedding), for T in
 channels, with fully padded channels, front-packed counts and scattered
 masks: the forward's weighted sums within 1e-5 and its max and log-sum
 within 1e-5 of the plain version's, each gradient (dQ, dK, the values')
-within 1e-4 of its largest element, and two runs bit-identical. A
-train step through the trainer's captured graph counts the pair's calls
-(`mtan.attn_launches`) and launches both kernels.
+within 1e-4 of its largest element, and two runs bit-identical. G1 at
+the cell's three GRUs (the encoder's 256 -> 256 and the decoder's 20 -> 50,
+both bidirectional, the classifier's 20 -> 256) over R = 128 steps, at B =
+256 and at a ragged 13: its outputs and last states within 1e-5 of their
+largest element of the plain version's and of `nn.GRU`'s (cuDNN, the
+library yardstick), every gradient (the input's and each parameter's)
+within 1e-4, and two runs bit-identical. A train step through the
+trainer's captured graph counts both pairs' calls (`mtan.attn_launches`,
+`mtan.gru_launches`) and launches all four kernels.
 """
 
 import tempfile
@@ -27,6 +34,7 @@ from deep_interpolation_clustering_tpu_torch.data import (
     make_synthetic_cohorts,
     process_splits,
 )
+from deep_interpolation_clustering_tpu_torch.ops import cuda_gru as cg
 from deep_interpolation_clustering_tpu_torch.ops import cuda_mtan as cm
 from deep_interpolation_clustering_tpu_torch.train import Trainer
 from deep_interpolation_clustering_tpu_torch.utils import resolve_device, tracing
@@ -89,6 +97,42 @@ def test_pair_against_plain(dev, b, t_len):
     assert all(torch.equal(x, y) for x, y in zip(grads, again_grads))
 
 
+# the cell's GRUs (input width, H, bidirectional) at mTAN's published widths
+GRUS = {"encoder": (256, 256, True), "decoder": (20, 50, True), "classifier": (20, 256, False)}
+
+
+def _gru_grads(fn, module, x, g_out, g_last):
+    out, last = fn(x)
+    leaves = [x, *module.parameters()]
+    grads = torch.autograd.grad((out * g_out).sum() + (last * g_last).sum(), leaves)
+    return [out.detach(), last.detach(), *grads]
+
+
+@pytest.mark.parametrize("b", [13, 256])
+@pytest.mark.parametrize("which", list(GRUS))
+def test_gru_pair_against_plain_and_library(dev, which, b):
+    n_in, hidden, bi = GRUS[which]
+    torch.manual_seed(100 + b)
+    module = torch.nn.GRU(n_in, hidden, bidirectional=bi, batch_first=True).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7 * b + hidden)
+    x = torch.randn((b, R, n_in), generator=gen, device=dev, requires_grad=True)
+    dirs = 2 if bi else 1
+    g_out = torch.randn((b, R, dirs * hidden), generator=gen, device=dev)
+    g_last = torch.randn((dirs, b, hidden), generator=gen, device=dev)
+    launches = cg.gru_fwd.launches, cg.gru_bwd.launches
+    got = _gru_grads(lambda v: cg.gru(module, v), module, x, g_out, g_last)
+    assert (cg.gru_fwd.launches, cg.gru_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    plain = _gru_grads(lambda v: cg.gru(module, v, use_kernel=False), module, x, g_out, g_last)
+    library = _gru_grads(module, module, x, g_out, g_last)
+    torch.cuda.synchronize()
+    names = ["out", "last", "x", *(n for n, _ in module.named_parameters())]
+    for want, what in ((plain, "plain"), (library, "nn.GRU")):
+        for name, a, w in zip(names, got, want):
+            _close(a, w, 1e-5 if name in ("out", "last") else 1e-4, f"{which} {name} vs {what}")
+    again = _gru_grads(lambda v: cg.gru(module, v), module, x, g_out, g_last)
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+
+
 def test_graphed_mtan_step_runs_the_pair(dev):
     cfg = Config(model="mtan", batch_size=16, num_timestamps=48, max_epochs=2, grad_clip=0.0,
                  init_lr=1e-4)
@@ -98,6 +142,7 @@ def test_graphed_mtan_step_runs_the_pair(dev):
     with tempfile.TemporaryDirectory() as d:
         trainer = Trainer(cfg, datasets, d, device=dev)
         fwd, bwd = cm.attn_fwd.launches, cm.attn_bwd.launches
+        gru_fwd, gru_bwd = cg.gru_fwd.launches, cg.gru_bwd.launches
         tracing.enable(dev)
         try:
             trainer.train()
@@ -106,5 +151,9 @@ def test_graphed_mtan_step_runs_the_pair(dev):
             tracing.disable()
         trainer.close()
     assert cm.attn_fwd.launches > fwd and cm.attn_bwd.launches > bwd
-    # counted at capture: the train graphs (full, tail) and the eval graphs
+    assert cg.gru_fwd.launches > gru_fwd and cg.gru_bwd.launches > gru_bwd
+    # counted at capture (the train graphs, full and tail, and the eval
+    # graphs) and on every replay: three GRUs a forward, three a backward
     assert counters.get(cm.COUNTER, 0) >= 2
+    steps = counters["train.steps"]
+    assert counters.get(cg.COUNTER, 0) >= 6 * steps
