@@ -931,8 +931,8 @@ def _graph_vs_stepped(cfg, ds, root: str, tag: str, dev, eval_too: bool = False)
     the rate tensor the graph reads). Raises unless the per-batch losses,
     the parameters, BatchNorm buffers, optimizer state, generator state and
     update counts are equal bit for bit and the second epoch's hand-kernel
-    launches equal; with `eval_too`, a fused validation pass's metrics and
-    dumps against a stepped one's. Returns what it measured."""
+    launches equal; with `eval_too`, a replayed validation pass's metrics and
+    dumps against an uncaptured one's. Returns what it measured."""
     import torch
 
     from deep_interpolation_clustering_tpu_torch.ops import _cuda_build as cb
@@ -1586,8 +1586,8 @@ def fused_phase(run: dict, sdata, smi: str, dev) -> dict:
     timing = {}
     for tag, cfg_x, ds_x in (("default", cfg, ds), ("scaled", scfg, sds),
                              ("default_bf16", cfg.replace(compute_dtype="bfloat16"), ds)):
-        tr = Trainer(cfg_x.replace(fused_epoch=False), {"training": ds_x["training"]},
-                     os.path.join(root, "timing_" + tag), device=dev)
+        tr = Trainer(cfg_x, {"training": ds_x["training"]}, os.path.join(root, "timing_" + tag),
+                     device=dev)
         tr.train_steps(2)  # warm-up
         stream = tr._stream()
         step = lambda: tr.step(*next(stream))  # noqa: E731

@@ -202,7 +202,7 @@ class Config:
     # run each epoch (and eval pass) as replays of captured CUDA graphs of
     # the step, one per batch (`train/graphs.py`; JAX's one lax.scan an
     # epoch), on one card and on the ranks of a NCCL group (their
-    # collectives captured too); False steps eagerly, as gloo ranks do.
+    # collectives captured too); False runs them uncaptured, as gloo does.
     fused_epoch: bool = True
     # bit width of the random draws of the fake sample and the
     # augmentation: 16 draws 16-bit select keys, float16 noise and normals

@@ -15,9 +15,9 @@ bit for bit.
 
 The storage keeps its addresses for the cohort's life: a relayout writes
 the new order in place, so a CUDA graph captured over the storage reads
-each epoch's order. A stepped epoch slices block k (`block`); a captured
-step reads it through a (1,) device tensor that holds k (`block_at`, the
-JAX `slice_block`), which the graph's index buffer is.
+each epoch's order. A train step reads block k through a (1,) device
+tensor that holds k (`block_at`, the JAX `slice_block`), which the graph's
+index buffer is; `block` slices it, the reference the tests hold it to.
 
 The transport is the group's: NCCL and gloo both take the device's tensors
 in `all_to_all_single` (gloo took CUDA tensors, float32 and bfloat16, on

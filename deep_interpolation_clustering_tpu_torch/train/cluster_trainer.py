@@ -19,7 +19,8 @@ dumps (every rank holds the whole cohort's), rank 0 fits the centres and
 broadcasts them, so every rank steps the same centres and counts the same
 label delta. NCCL ranks replay the DEC step's graphs as one card does (the
 target's cluster frequencies summed over ranks inside them), with the
-deferred cadence and `pipeline_delta` below; gloo ranks step.
+deferred cadence and `pipeline_delta` below; gloo ranks run the same steps
+uncaptured, each epoch fetched at its end.
 
 The loop is the JAX one (clustering_trainer.py `train`): a validation pass
 every epoch for the delta, and every `eval_interval`-th epoch (and at the
@@ -278,7 +279,7 @@ class ClusterTrainer(Trainer):
 
         def stop_candidacy(host_metrics=None, delta=None):
             """A stop between evals: the stopping epoch's weights become
-            checkpoint candidates. A stepped epoch's metrics were never
+            checkpoint candidates. An undeferred epoch's metrics were never
             written: their row (with the rate) is written here; a deferred
             epoch's row was written by `_drain`."""
             if host_metrics is not None:

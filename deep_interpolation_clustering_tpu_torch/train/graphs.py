@@ -8,14 +8,17 @@ into the graph's buffers with one device copy, replays the graph, and the
 caller copies the outputs out: three calls a batch, none of which waits for
 the device, where the eager step dispatches several hundred operations.
 
-`GraphedStep(fn, ...)` holds one such step. `fn(rows, mask)` reads the batch
-through the index buffer `rows` (the rank's B/D rows of the cohort, or the
-number of the block of a row-sharded cohort) and, for a masked step, the
-(B/D,) `mask`, and returns a dict of tensors (static outputs, overwritten by
-each replay). On a CUDA device the first call warms `fn` up, captures it and
-replays it; on the CPU every call runs `fn` directly on the same buffers
-(the caller asked for the CPU: the bookkeeping is the card's, without the
-graph).
+`GraphedStep(fn, ...)` holds one such step, and is the one place that
+decides whether it is captured. `fn(rows, mask)` reads the batch through the
+index buffer `rows` (the rank's B/D rows of the cohort, or the number of the
+block of a row-sharded cohort) and, for a masked step, the (B/D,) `mask`,
+and returns a dict of tensors (static outputs, overwritten by each replay).
+It captures where the caller's `capture` switch (the trainers'
+`fused_epoch`) is on, the device is CUDA and the world's collectives can be
+captured (`parallel.capturable()`): the first call warms `fn` up, captures
+it and replays it. Everywhere else (the CPU, a gloo group, the switch off)
+every call runs `fn` directly on the same buffers: one body, captured or
+called directly.
 
 Warm-up (the kernels' build, cuBLAS handles, the optimizer's state) must
 not move the trajectory: the tensors `state()` names (parameters, buffers,
@@ -104,14 +107,17 @@ class SharedPool:
 
 class GraphedStep:
     """One step `fn(rows, mask) -> {name: tensor}` over static buffers: a
-    CUDA graph on the card, a direct call on the CPU."""
+    CUDA graph where `capture` is on, the device is CUDA and the world is
+    capturable; a direct call everywhere else."""
 
     def __init__(self, fn: Callable, batch_size: int, device: torch.device, masked: bool,
                  generator: Optional[torch.Generator] = None,
                  state: Optional[Callable[[], List[torch.Tensor]]] = None, warmup: int = 2,
-                 pool: Optional[SharedPool] = None, index_size: Optional[int] = None):
+                 pool: Optional[SharedPool] = None, index_size: Optional[int] = None,
+                 capture: bool = True):
         self.fn = fn
         self.device = device
+        self.capture = capture and device.type == "cuda" and parallel.capturable()
         # the index buffer: `batch_size` rows, or `index_size` entries
         self.rows = torch.zeros(index_size or batch_size, dtype=torch.long, device=device)
         self.mask = torch.ones(batch_size, dtype=torch.float32, device=device) if masked else None
@@ -133,7 +139,7 @@ class GraphedStep:
         self.rows.copy_(rows)
         if self.mask is not None:
             self.mask.copy_(mask)
-        if self.device.type != "cuda":
+        if not self.capture:
             return self.fn(self.rows, self.mask)
         if self.graph is None:
             with tracing.span("capture"):

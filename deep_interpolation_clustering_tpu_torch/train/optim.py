@@ -25,7 +25,7 @@ step 6.4e-6 too long, the same way for every element; torch's fused Adam
 takes (1 - beta2) in float32 instead, which leaves its second moments
 1.3e-5 below the CPU's. SGD is `fused=True` (the foreach one would read a
 tensor rate to the host); RMSprop, which has no bias correction, is
-`capturable=True`. The stepped and the graphed paths on the card use this
+`capturable=True`. Captured and uncaptured steps on the card use this
 same optimizer. On the CPU the rate stays a float and the optimizers are
 torch's defaults.
 

@@ -14,26 +14,26 @@ Every encounter trains once per epoch: a short final batch is padded to the
 full batch by repeating its real rows and trained as one masked step
 (`sample_mask` 1 on the real rows), as the JAX `_tail_train_step` does. An
 eval pass pads its last batch the same way and masks it out of the losses.
-A step's losses stay on the device until its epoch ends; the host fetches
-them then, and every `log_*_freq` batches for the log, as JAX does.
 
-The fused epoch (`fused_epoch`, on by default as in JAX; JAX
-`_train_one_epoch_fused`, `_eval_one_epoch_fused`): on one rank each epoch
-uploads its (n_batches, B) index matrix once and replays captured steps
-(`graphs.GraphedStep`: a full-batch graph and the masked tail's), the
-losses stacking on the device; the batch log lines and `train_batch`
-summary rows are written after the epoch, at the same steps. An eval pass
-replays an eval-forward graph whose outputs are copied into the epoch's
-device buffers: one fetch, or none with `device_dumps`, and with
-`defer_losses` its per-batch losses stay on the device too. Under
-`eval_interval > 1` `train()` dispatches the epochs between evals and
-fetches their losses at the next eval (JAX `train()`'s `drain`). Fused and
-stepped epochs give the same bits (`tests/test_torch_fused.py`). The ranks
-of a NCCL group fuse too, their collectives captured in the graphs
-(`parallel.capturable()`); a graph then reads the rank's B/D rows of each
-batch, or with a sharded cohort the block's number, and the eval's outputs
-are gathered after the pass. The ranks of a gloo group step: gloo's
-collectives run on the host and cannot be captured.
+One body an epoch and one an eval pass (JAX `_train_one_epoch_fused`,
+`_eval_one_epoch_fused`). An epoch uploads its (n_batches, B) index matrix
+once and runs its steps through `graphs.GraphedStep` (a full-batch step and
+the masked tail's), their losses stacking into a table on the device that
+the host fetches once, after the epoch, for the `log_train_freq` batch
+lines and `train_batch` summary rows. An eval pass copies each step's
+losses and outputs into the pass's device buffers: one fetch (with the
+`log_valid_freq` lines), or none with `device_dumps`, and with
+`defer_losses` its per-batch losses stay on the device too. `GraphedStep`
+alone decides whether a step is captured as a CUDA graph and replayed:
+under `fused_epoch` (on by default, as in JAX) on the card, alone or on the
+ranks of a NCCL group, their collectives captured (`parallel.capturable()`);
+elsewhere (the CPU, a gloo group, whose collectives run on the host,
+`fused_epoch=False`) the same body runs uncaptured, with the same bits
+(`tests/test_torch_fused*.py`). A step reads the rank's B/D rows of each
+batch, or with a sharded cohort the block's number; the eval's outputs are
+gathered after the pass. Under `eval_interval > 1` and `_can_fuse`,
+`train()` dispatches the epochs between evals and fetches their losses at
+the next eval (JAX `train()`'s `drain`).
 
 Data-parallel (`parallel.world_size()` D > 1, one rank a device): every
 rank shuffles alike (`RandomState(seed + epoch)`) and takes its B/D rows of
@@ -63,13 +63,13 @@ epoch (`set_epoch`, called by `_epoch_batches`).
 Tracing (`utils.tracing`, off by default): `train()` is the root span
 `train`, each loop iteration an `epoch` span (attribute `epoch`); inside
 it `train_epoch` (children `train_epoch.plan`: the shuffle, the index
-upload and a sharded cohort's `relayout`; `train_epoch.replay`: the replays,
-or a stepped epoch's eager steps), `fetch` (an epoch's losses to the host),
+upload and a sharded cohort's `relayout`; `train_epoch.replay`: the steps,
+replayed or uncaptured), `fetch` (an epoch's losses to the host),
 `eval` (attribute `scope`; `eval.replay`, `eval.fetch`), `checkpoint`
 (`checkpoint.copy`: the state to the host; `checkpoint.write`: the files)
 and the summary's `summary` rows. Counters: `train.steps`, `eval.batches`
 and `host_reads`, one for each transfer of card data to the host (a loss
-table, a dump, a logged loss, a checkpoint's tensors), counted on the CPU
+table, a dump, a checkpoint's tensors), counted on the CPU
 too, so that the count is the same on both devices.
 """
 
@@ -143,7 +143,7 @@ class Trainer:
         self._graphs: Dict[tuple, GraphedStep] = {}
         self._graph_pool = SharedPool()  # one memory pool for all of them
         self._loss_keys: Dict[tuple, List[str]] = {}
-        self._said_stepped = False
+        self._said_why = False
         self.epoch = 1
         self.flag_dict = ckpt.FlagDict(METRICS)
         self.weight_paths = ckpt.weight_dirs(os.path.join(exp_path, "weight"), METRICS,
@@ -281,12 +281,12 @@ class Trainer:
         nothing here."""
 
     def _can_fuse(self, ds: Optional[ArrayDataset] = None) -> bool:
-        """The fused epoch's precondition (JAX `_can_fuse`: the switch and,
-        for a train epoch over `ds`, a full batch), here also a world whose
-        collectives a CUDA graph can capture (`parallel.capturable()`: no
-        group, or a NCCL group of any size); a gloo group steps. Where the
-        switch is on and the epoch steps all the same, the log says why,
-        once."""
+        """Whether the epochs between evals are deferred (JAX `_can_fuse`:
+        the switch and, for a train epoch over `ds`, a full batch), here
+        also a world whose collectives a CUDA graph can capture
+        (`parallel.capturable()`: no group, or a NCCL group); a gloo group
+        runs uncaptured and fetches each epoch. Where the switch is on and
+        the epochs are not deferred all the same, the log says why, once."""
         cfg = self.cfg
         if not cfg.fused_epoch:
             return False
@@ -295,10 +295,10 @@ class Trainer:
             why = f"{len(ds)} encounters, fewer than a batch of {cfg.batch_size}"
         elif not parallel.capturable():
             why = (f"the {torch.distributed.get_backend()} group of {self.world} ranks, "
-                   f"whose collectives a CUDA graph cannot capture")
-        if why and not self._said_stepped:
-            logger.info("fused_epoch: the epochs step eagerly: %s", why)
-            self._said_stepped = True
+                   f"whose collectives a CUDA graph cannot capture: the steps run uncaptured")
+        if why and not self._said_why:
+            logger.info("fused_epoch: each epoch is fetched at its end: %s", why)
+            self._said_why = True
         return why is None
 
     def _epoch_batches(self, epoch: int) -> List[Batch]:
@@ -337,17 +337,12 @@ class Trainer:
 
     def step(self, idx: Union[torch.Tensor, int], sample_mask: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        """One train step on the encounters `idx` (with a sharded cohort,
-        the block `idx`); `sample_mask` (B,) leaves the padded rows of a
-        tail batch out of the losses and BatchNorm."""
-        if self.shard_cohort:
-            batch = self.cohort_blocks("training").block(idx)
-        else:
-            batch = gather_batch(self.cohort_data("training"), idx)
-        if sample_mask is not None:
-            batch["sample_mask"] = sample_mask
-        losses = train_step(self.net, self.opt, self.cfg, batch, self.generator,
-                            self.cfg.denoise)
+        """One uncaptured train step (`_train_fn`) on the encounters `idx` (a
+        sharded cohort's block `idx`); `sample_mask` (B,) leaves the padded
+        rows of a tail batch out of the losses and BatchNorm."""
+        if isinstance(idx, int):  # a block's number, as a (1,) index
+            idx = torch.tensor([idx], device=self.device)
+        losses = self._train_fn()(idx, sample_mask)
         self.num_updates += 1
         return losses
 
@@ -370,47 +365,21 @@ class Trainer:
         return [self.step(*next(stream)) for _ in range(n)]
 
     def train_one_epoch(self) -> Dict[str, float]:
-        """One epoch over every training encounter; returns the mean losses
-        over its batches (the masked tail counts as one, as in JAX) and
-        writes them as the summary's `train` row. Every `log_train_freq`
-        batches one step's losses are fetched for the log."""
+        """One epoch over every training encounter, dispatched and fetched;
+        returns the mean losses over its batches (the masked tail counts as
+        one, as in JAX), the summary's `train` row. The epoch's log line
+        says "(fused)" when its steps were replayed."""
         t0 = time.perf_counter()
-        if self._can_fuse(self.datasets["training"]):
-            n = len(self.datasets["training"])
-            out = self._finalize_fused_epoch(self.epoch, self._dispatch_fused_epoch(),
-                                             self.datasets["training"].num_batches(
-                                                 self.cfg.batch_size))
-            seconds = time.perf_counter() - t0
-            logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s (fused)", self.epoch,
-                        seconds, n / seconds, self._rank_note())
-            return out
-        with tracing.span("train_epoch"):
-            with tracing.span("train_epoch.plan"):
-                batches = self._epoch_batches(self.epoch)
-            n_batches = len(batches)
-            tracing.count("train.steps", n_batches)
-            losses = []
-            with tracing.span("train_epoch.replay"):
-                for i, (idx, mask) in enumerate(batches, start=1):
-                    losses.append(self.step(idx, mask))
-                    if i % self.cfg.log_train_freq == 1:
-                        fetched = {k: float(v) for k, v in losses[-1].items()}
-                        tracing.count("host_reads", len(fetched))
-                        logger.info("%d-[%d/%d (%.0f%%)]: train-%s", self.epoch, i, n_batches,
-                                    100.0 * i / n_batches, _fmt(fetched))
-                        self.summary.add_summary(self.epoch * n_batches + i,
-                                                 scope="train_batch", **fetched)
-        with tracing.span("fetch"):
-            out = _batch_means(_loss_table(losses))  # the fetch ends the epoch's device work
+        n = len(self.datasets["training"])
+        out = self._finalize_fused_epoch(self.epoch, self._dispatch_fused_epoch(),
+                                         self.datasets["training"].num_batches(
+                                             self.cfg.batch_size))
         seconds = time.perf_counter() - t0
-        logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s", self.epoch, seconds,
-                    len(self.datasets["training"]) / seconds, self._rank_note())
-        self.summary.add_summary(self.epoch, scope="train", **out)
-        self._check_replicated()
+        rank = f" (rank {parallel.rank()} of {self.world})" if self.world > 1 else ""
+        captured = any(g.capture for k, g in self._graphs.items() if k[0] == "train")
+        logger.info("epoch %d trained in %.4f s, %.1f encounters/s%s%s", self.epoch, seconds,
+                    n / seconds, rank, " (fused)" if captured else "")
         return out
-
-    def _rank_note(self) -> str:
-        return f" (rank {parallel.rank()} of {self.world})" if self.world > 1 else ""
 
     def _check_replicated(self) -> None:
         """Data-parallel: raise unless every rank holds rank 0's parameters,
@@ -427,7 +396,7 @@ class Trainer:
             raise RuntimeError(f"data-parallel ranks drifted apart after epoch {self.epoch}: "
                                f"{differ[:8]}")
 
-    # ------------------------------------------------------ fused epoch
+    # ------------------------------------------------------------ epoch
     def _mutable_state(self) -> List[torch.Tensor]:
         """What a train step changes in place: the parameters, the BatchNorm
         buffers and the optimizer's state tensors."""
@@ -444,11 +413,11 @@ class Trainer:
             self._graphs[key] = GraphedStep(
                 fn, self.cfg.batch_size // self.world, self.device, masked, self.generator,
                 self._mutable_state, warmup, self._graph_pool,
-                index_size=1 if self.shard_cohort else None)
+                index_size=1 if self.shard_cohort else None, capture=self.cfg.fused_epoch)
         return self._graphs[key]
 
     def _reader(self, cohort: str):
-        """`rows -> batch` for a captured step over `cohort`: its rows
+        """`rows -> batch` for a step over `cohort`: its rows
         gathered from the replicated storage, or the block whose number
         `rows` holds from the sharded one (`ShardedCohort.block_at`)."""
         if self.shard_cohort:
@@ -456,17 +425,26 @@ class Trainer:
         data = self.cohort_data(cohort)
         return lambda rows: gather_batch(data, rows)
 
-    def _train_graph(self, masked: bool) -> GraphedStep:
-        """The captured train step over the training cohort: the full batch,
-        or the masked tail (`sample_mask` from the graph's mask buffer)."""
-        key = ("train", masked)
+    def _train_fn(self):
+        """The train step `fn(rows, mask) -> {name: loss}` over the training
+        cohort (`_reader`), `mask` a tail's `sample_mask` or None."""
         read, cfg = self._reader("training"), self.cfg
 
         def fn(rows, mask):
             batch = read(rows)
             if mask is not None:
                 batch["sample_mask"] = mask
-            losses = train_step(self.net, self.opt, cfg, batch, self.generator, cfg.denoise)
+            return train_step(self.net, self.opt, cfg, batch, self.generator, cfg.denoise)
+        return fn
+
+    def _train_graph(self, masked: bool) -> GraphedStep:
+        """The epoch's train step (`_train_fn`, its losses stacked): the full
+        batch, or the masked tail (`sample_mask` from its mask buffer)."""
+        key = ("train", masked)
+        train = self._train_fn()
+
+        def fn(rows, mask):
+            losses = train(rows, mask)
             self._loss_keys[key] = list(losses)
             return {"losses": torch.stack(list(losses.values()))}
 
@@ -474,7 +452,7 @@ class Trainer:
         return self._graph(key, fn, masked, warmup=2)
 
     def _dispatch_fused_epoch(self) -> Tuple[torch.Tensor, List[str]]:
-        """Replay the epoch's steps with no host sync: the batches of
+        """Run the epoch's steps with no host sync: the batches of
         `_epoch_batches` (its index matrix uploaded once, the tail padded; a
         sharded cohort re-laid out into the epoch's order first, its blocks'
         numbers uploaded once), each batch's rows copied into the graph's
@@ -501,93 +479,20 @@ class Trainer:
     def _finalize_fused_epoch(self, epoch: int, handles: Tuple[torch.Tensor, List[str]],
                               n_batches: int) -> Dict[str, float]:
         """Fetch a dispatched epoch's losses and write its batch log lines and
-        `train_batch` rows (at the steps the stepped epoch logs them) and its
-        `train` row (JAX `_finalize_fused_epoch`): the span `fetch`."""
+        `train_batch` rows (every `log_train_freq` batches) and its `train`
+        row (JAX `_finalize_fused_epoch`): the span `fetch`."""
         with tracing.span("fetch"):
             table, keys = handles
             table = table.cpu().numpy()
             tracing.count("host_reads")
-            for i in range(1, table.shape[0] + 1):
-                if i % self.cfg.log_train_freq == 1:
-                    fetched = {k: float(table[i - 1, j]) for j, k in enumerate(keys)}
-                    logger.info("%d-[%d/%d (%.0f%%)]: train-%s", epoch, i, n_batches,
-                                100.0 * i / n_batches, _fmt(fetched))
-                    self.summary.add_summary(epoch * n_batches + i, scope="train_batch",
-                                             **fetched)
+            for i, fetched in _log_batches(epoch, "train", table, keys, self.cfg.log_train_freq):
+                self.summary.add_summary(epoch * n_batches + i, scope="train_batch", **fetched)
             out = _batch_means((table, keys))
             self.summary.add_summary(epoch, scope="train", **out)
             self._check_replicated()
         return out
 
     # -------------------------------------------------------------- eval
-    def eval_one_epoch(self, scope: str, ds: ArrayDataset, denoise: bool,
-                       dump_keys: Optional[Tuple[str, ...]] = None,
-                       device_dumps: bool = False, defer_losses: bool = False
-                       ) -> Tuple[Dict[str, float], Dict[str, list]]:
-        """Every encounter of `ds` once, in order, in batches of B: the last
-        one padded to B by repeating its real rows, `sample_mask` 1 on them.
-        The metrics are the mean over batches of each masked batch loss (JAX
-        `eval_one_epoch`); the dumps ({key: [array]} with `__index__`) hold
-        exactly the cohort's N rows. One fetch at the end; with
-        `device_dumps` the dumps stay on the device as tensors (for a
-        consumer that runs there: p3's k-means and label delta). A sharded
-        cohort is read in its identity order (JAX `ensure(identity_order())`),
-        the last block's padding masked by `eval_mask`. With `fused_epoch`
-        in a world that `_can_fuse` takes the pass replays captured eval
-        steps (`_eval_one_epoch_fused`); there `defer_losses` (with
-        `device_dumps`) returns the per-batch losses as device tensors,
-        unfetched. The span `eval`: its batches (`eval.replay`), then what
-        goes to the host (`eval.fetch`)."""
-        with tracing.span("eval", scope=scope):
-            tracing.count("eval.batches", ds.num_batches(self.cfg.batch_size))
-            if self._can_fuse():
-                return self._eval_one_epoch_fused(scope, ds, denoise, dump_keys, device_dumps,
-                                                  defer_losses)
-            return self._eval_one_epoch_stepped(scope, ds, denoise, dump_keys, device_dumps)
-
-    def _eval_one_epoch_stepped(self, scope: str, ds: ArrayDataset, denoise: bool,
-                                dump_keys: Optional[Tuple[str, ...]], device_dumps: bool
-                                ) -> Tuple[Dict[str, float], Dict[str, list]]:
-        """The eval pass of eager steps (`eval_one_epoch`)."""
-        cfg = self.cfg
-        n, b = len(ds), cfg.batch_size
-        n_batches = ds.num_batches(b)
-        rows = parallel.shard_rows(b)
-        if self.shard_cohort:
-            blocks = self.cohort_blocks(ds.cohort)
-            self._relayout(blocks, blocks.identity_order(), f"{scope} eval")
-        else:
-            data = self.cohort_data(ds.cohort)
-            idx, tail_mask = self._eval_rows(n, b)
-            idx = torch.as_tensor(idx, device=self.device)
-        pending = []
-        with tracing.span("eval.replay"):
-            for i in range(1, n_batches + 1):
-                mask = None
-                tail = i == n_batches and n % b != 0
-                if self.shard_cohort:
-                    if tail:
-                        mask = torch.as_tensor(blocks.eval_mask[i - 1][rows],
-                                               device=self.device)
-                    batch = blocks.block(i - 1)
-                else:
-                    if tail:
-                        mask = torch.as_tensor(tail_mask[rows], device=self.device)
-                    batch = gather_batch(data, idx[i - 1][rows])
-                losses, outputs = eval_step(self.net, cfg, batch, self.generator, denoise,
-                                            mask, dump_keys)
-                pending.append((losses, outputs))
-                if i % cfg.log_valid_freq == 1:
-                    tracing.count("host_reads", len(losses))
-                    logger.info("%d-[%d/%d (%.0f%%)]: %s-%s", self.epoch, i, n_batches,
-                                100.0 * i / n_batches, scope,
-                                _fmt({k: float(v) for k, v in losses.items()}))
-        with tracing.span("eval.fetch"):
-            metrics = _batch_means(_loss_table([losses for losses, _ in pending]))
-            tracing.count("host_reads")
-            return metrics, self._dumps(((k, torch.cat([o[k] for _, o in pending]))
-                                         for k in pending[0][1]), n_batches, n, device_dumps)
-
     @staticmethod
     def _dumps(bufs: Iterable[Tuple[str, torch.Tensor]], n_batches: int, n: int,
                device_dumps: bool) -> Dict[str, list]:
@@ -621,7 +526,7 @@ class Trainer:
 
     def _eval_graph(self, cohort: str, denoise: bool, dump_keys: Optional[Tuple[str, ...]],
                     masked: bool) -> GraphedStep:
-        """The captured eval forward over `cohort`: its losses stacked and the
+        """The eval forward step over `cohort`: its losses stacked and the
         per-encounter outputs (`dump_keys` of them when given), this rank's
         rows of them."""
         key = ("eval", cohort, denoise, dump_keys, masked)
@@ -635,56 +540,69 @@ class Trainer:
 
         return self._graph(key, fn, masked, warmup=1)
 
-    def _eval_one_epoch_fused(self, scope: str, ds: ArrayDataset, denoise: bool,
-                              dump_keys: Optional[Tuple[str, ...]], device_dumps: bool,
-                              defer_losses: bool) -> Tuple[Dict[str, object], Dict[str, list]]:
-        """The fused eval pass (JAX `_eval_one_epoch_fused`): the batches of
-        the stepped pass (the last padded by repeating its real rows, its
-        mask 1 on them; this rank's rows of each, a sharded cohort read in
-        its identity order) through the eval graphs, each replay's losses
-        and outputs copied into the pass's device buffers, whose rows are
-        gathered over ranks after the pass. The dumps are fetched once, or
-        with `device_dumps` stay on the device; with `defer_losses` too the
-        metrics are the per-batch losses on the device ({name: (n_batches,)})."""
+    def eval_one_epoch(self, scope: str, ds: ArrayDataset, denoise: bool,
+                       dump_keys: Optional[Tuple[str, ...]] = None,
+                       device_dumps: bool = False, defer_losses: bool = False
+                       ) -> Tuple[Dict[str, object], Dict[str, list]]:
+        """Every encounter of `ds` once, in order, in batches of B: the last
+        one padded to B by repeating its real rows, `sample_mask` 1 on them
+        (JAX `eval_one_epoch`, `_eval_one_epoch_fused`). Each batch (this
+        rank's rows of it; a sharded cohort read in its identity order, the
+        last block's padding masked by `eval_mask`) runs through the eval
+        step (`_eval_graph`), whose losses and outputs are copied into the
+        pass's device buffers; their rows are gathered over ranks after the
+        pass. The metrics are the mean over batches of each masked batch
+        loss, fetched in one read with the `log_valid_freq` batch lines; the
+        dumps ({key: [array]} with `__index__`) hold exactly the cohort's N
+        rows, fetched once or with `device_dumps` left on the device (for a
+        consumer that runs there: p3's k-means and label delta). With
+        `defer_losses` too the metrics are the per-batch losses on the
+        device ({name: (n_batches,)}), unfetched and unlogged. The span
+        `eval`: its batches (`eval.replay`), then what goes to the host
+        (`eval.fetch`)."""
         n, b = len(ds), self.cfg.batch_size
         n_batches, n_full = ds.num_batches(b), n // b
         rows = parallel.shard_rows(b)
-        if self.shard_cohort:
-            blocks = self.cohort_blocks(ds.cohort)
-            self._relayout(blocks, blocks.identity_order(), f"{scope} eval")
-            idx = torch.arange(n_batches, device=self.device)[:, None]
-            mask = blocks.eval_mask[-1][rows] if n_full < n_batches else None
-        else:
-            idx, mask = self._eval_rows(n, b)
-            idx = torch.as_tensor(idx[:, rows], device=self.device)
-            mask = None if mask is None else mask[rows]
-        if mask is not None:
-            mask = torch.as_tensor(mask, device=self.device)
-        b = rows.stop - rows.start  # the rows a rank's graph takes
-        table, bufs = None, {}
-        with tracing.span("eval.replay"):
-            for i in range(n_batches):
-                tail = i == n_full
-                out = self._eval_graph(ds.cohort, denoise, dump_keys, tail)(
-                    idx[i], mask if tail else None)
-                if table is None:
-                    table = torch.empty((n_batches,) + tuple(out["__losses__"].shape),
-                                        device=self.device)
-                    bufs = {k: torch.empty((n_batches * b,) + tuple(v.shape[1:]),
-                                           dtype=v.dtype, device=self.device)
-                            for k, v in out.items() if k != "__losses__"}
-                table[i].copy_(out["__losses__"])
-                for k, buf in bufs.items():
-                    buf[i * b:(i + 1) * b].copy_(out[k])
-        keys = self._loss_keys[("eval", ds.cohort, denoise, dump_keys, tail)]
-        with tracing.span("eval.fetch"):
-            if defer_losses and device_dumps:
-                metrics: Dict[str, object] = {k: table[:, j] for j, k in enumerate(keys)}
+        with tracing.span("eval", scope=scope):
+            tracing.count("eval.batches", n_batches)
+            if self.shard_cohort:
+                blocks = self.cohort_blocks(ds.cohort)
+                self._relayout(blocks, blocks.identity_order(), f"{scope} eval")
+                idx = torch.arange(n_batches, device=self.device)[:, None]
+                mask = blocks.eval_mask[-1][rows] if n_full < n_batches else None
             else:
-                metrics = _batch_means((table.cpu().numpy(), keys))
-                tracing.count("host_reads")
-                logger.info("%d: %s-%s", self.epoch, scope, _fmt(metrics))
-            return metrics, self._dumps(bufs.items(), n_batches, n, device_dumps)
+                idx, mask = self._eval_rows(n, b)
+                idx = torch.as_tensor(idx[:, rows], device=self.device)
+                mask = None if mask is None else mask[rows]
+            if mask is not None:
+                mask = torch.as_tensor(mask, device=self.device)
+            b = rows.stop - rows.start  # the rows a rank's step takes
+            table, bufs = None, {}
+            with tracing.span("eval.replay"):
+                for i in range(n_batches):
+                    tail = i == n_full
+                    out = self._eval_graph(ds.cohort, denoise, dump_keys, tail)(
+                        idx[i], mask if tail else None)
+                    if table is None:
+                        table = torch.empty((n_batches,) + tuple(out["__losses__"].shape),
+                                            device=self.device)
+                        bufs = {k: torch.empty((n_batches * b,) + tuple(v.shape[1:]),
+                                               dtype=v.dtype, device=self.device)
+                                for k, v in out.items() if k != "__losses__"}
+                    table[i].copy_(out["__losses__"])
+                    for k, buf in bufs.items():
+                        buf[i * b:(i + 1) * b].copy_(out[k])
+            keys = self._loss_keys[("eval", ds.cohort, denoise, dump_keys, tail)]
+            with tracing.span("eval.fetch"):
+                if defer_losses and device_dumps:
+                    metrics: Dict[str, object] = {k: table[:, j] for j, k in enumerate(keys)}
+                else:
+                    table = table.cpu().numpy()
+                    tracing.count("host_reads")
+                    _log_batches(self.epoch, scope, table, keys, self.cfg.log_valid_freq)
+                    metrics = _batch_means((table, keys))
+                    logger.info("%d: %s-%s", self.epoch, scope, _fmt(metrics))
+                return metrics, self._dumps(bufs.items(), n_batches, n, device_dumps)
 
     def merge_ob_pred(self, ds: ArrayDataset, dumps: Dict[str, list]) -> Dict[str, np.ndarray]:
         """The dumps and the cohort's planes as one dict of arrays (reference
@@ -846,15 +764,24 @@ class Trainer:
         self.summary.close()
 
 
-def _loss_table(losses: List[Dict[str, torch.Tensor]]) -> Tuple[np.ndarray, List[str]]:
-    """The per-batch losses as one (batches, losses) table, fetched from the
-    device at once, and the loss names."""
-    keys = list(losses[0])
-    return torch.stack([torch.stack([l[k] for k in keys]) for l in losses]).cpu().numpy(), keys
+def _log_batches(epoch: int, scope: str, table: np.ndarray, keys: List[str], freq: int
+                 ) -> List[Tuple[int, Dict[str, float]]]:
+    """Log batch i's losses from a fetched (batches, losses) table where
+    i % `freq` == 1 (i from 1, the reference's `log_*_freq` lines); returns
+    them as (i, {name: loss})."""
+    n_batches, out = table.shape[0], []
+    for i in range(1, n_batches + 1):
+        if i % freq == 1:
+            losses = {k: float(table[i - 1, j]) for j, k in enumerate(keys)}
+            logger.info("%d-[%d/%d (%.0f%%)]: %s-%s", epoch, i, n_batches,
+                        100.0 * i / n_batches, scope, _fmt(losses))
+            out.append((i, losses))
+    return out
 
 
 def _batch_means(table_keys: Tuple[np.ndarray, List[str]]) -> Dict[str, float]:
-    """The mean over batches of each loss of a `_loss_table`."""
+    """The mean over batches of each loss of a fetched (batches, losses)
+    table, beside the loss names."""
     table, keys = table_keys
     return {k: float(np.mean(table[:, j], dtype=np.float64)) for j, k in enumerate(keys)}
 

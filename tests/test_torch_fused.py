@@ -1,15 +1,24 @@
-"""The port's fused epoch (`fused_epoch`, `train/graphs.py`) on the CPU,
-where each captured step is called directly on the graphs' static buffers,
-at a small width (B=8, T=24, H=16, a ragged tail in every cohort):
+"""The port's one epoch body (`fused_epoch`, `train/graphs.py`) on the CPU,
+where `GraphedStep` calls each step directly on its static buffers, at a
+small width (B=8, T=24, H=16, a ragged tail in every cohort):
 
-  * fused against stepped (`fused_epoch=False`) `train()`: the parameters,
-    BatchNorm buffers, optimizer state, generator state, the update count
-    and every summary row (per-batch losses, epochs, validation) bit for
-    bit, for each optimizer, under bfloat16, and with `eval_interval=3`
-    deferred against `eval_interval=3` stepped (the port's mirror of the
-    JAX `test_eval_interval_bit_identical`);
-  * a fused eval pass's metrics and dumps against a stepped pass's, with
-    the dumps fetched, left on the device, and with the losses deferred;
+  * `train()` with `fused_epoch` on and off (`=False`: uncaptured, never
+    deferred) against a stepped reference arm written here (`Trainer.step`
+    over `_epoch_batches`, and each eval pass `steps.eval_step` over its
+    padded batches): the parameters, BatchNorm buffers, optimizer state,
+    generator state, the update count and every summary row (per-batch
+    losses, epochs, validation) bit for bit, for each optimizer, under
+    bfloat16, and with `eval_interval=3` deferred against `eval_interval=3`
+    undeferred (the port's mirror of the JAX
+    `test_eval_interval_bit_identical`);
+  * an eval pass's metrics and dumps, with `fused_epoch` on and off,
+    against the stepped reference's, with the dumps fetched, left on the
+    device, and with the losses deferred;
+  * a training cohort under one batch trains through the one body as a
+    single masked tail, with the bits of the stepped reference;
+  * under `fused_epoch=False` an eval pass writes its `log_valid_freq`
+    lines from its one fetched table, and the run writes the summary rows,
+    checkpoints and dumps of the run with the switch on;
   * the DEC loop (JAX `tests/test_dec_stopping.py:114-189`): the deferred
     cadence and `pipeline_delta`'s lagged count, with the speculative
     epoch's rollback and the stop found at an eval's top, give the stop
@@ -30,7 +39,9 @@ at a small width (B=8, T=24, H=16, a ragged tail in every cohort):
 """
 
 import json
+import logging
 import os
+from collections import defaultdict
 
 import numpy as np
 import pytest
@@ -50,6 +61,7 @@ from deep_interpolation_clustering_tpu_torch.data import (
 )
 from deep_interpolation_clustering_tpu_torch.train import ClusterTrainer, Trainer
 from deep_interpolation_clustering_tpu_torch.train import checkpoint as ckpt
+from deep_interpolation_clustering_tpu_torch.train import steps
 from test_torch_trainer import _datasets, _port_cfg
 
 torch.set_num_threads(1)
@@ -96,6 +108,52 @@ def _rows(tr):
         return [json.loads(x) for x in f]
 
 
+def _stepped_eval(tr, scope, ds, denoise, dump_keys=None, device_dumps=False,
+                  defer_losses=False):
+    """The reference eval pass: `steps.eval_step` over `ds` in order, in
+    batches of B, the last padded to B by repeating its real rows and
+    masked to them; the metrics and dumps in `eval_one_epoch`'s form."""
+    b, n = tr.cfg.batch_size, len(ds)
+    data = tr.cohort_data(ds.cohort)
+    losses, outs = [], defaultdict(list)
+    for start in range(0, n, b):
+        real = np.arange(start, min(start + b, n))
+        idx = torch.as_tensor(real[np.arange(b) % len(real)])
+        mask = None if len(real) == b else torch.as_tensor(
+            (np.arange(b) < len(real)).astype(np.float32))
+        batch_losses, out = steps.eval_step(tr.net, tr.cfg, steps.gather_batch(data, idx),
+                                            tr.generator, denoise, mask, dump_keys)
+        losses.append(batch_losses)
+        for k, v in out.items():
+            outs[k].append(v[:len(real)])
+    keys = list(losses[0])
+    table = torch.stack([torch.stack([batch[k] for k in keys]) for batch in losses])
+    if defer_losses and device_dumps:
+        metrics = {k: table[:, j] for j, k in enumerate(keys)}
+    else:
+        metrics = {k: float(np.mean(table[:, j].numpy(), dtype=np.float64))
+                   for j, k in enumerate(keys)}
+    dumps = {k: [torch.cat(v) if device_dumps else torch.cat(v).numpy()] for k, v in outs.items()}
+    dumps["__index__"] = [np.arange(n)]
+    return metrics, dumps
+
+
+def _stepped_epoch(tr):
+    """The reference epoch: `Trainer.step` over `_epoch_batches`, its losses
+    as the table and names `_dispatch_fused_epoch` returns."""
+    losses = [tr.step(*batch) for batch in tr._epoch_batches(tr.epoch)]
+    keys = list(losses[0])
+    return torch.stack([torch.stack([batch[k] for k in keys]) for batch in losses]), keys
+
+
+def _stepped(tr):
+    """Make `tr` the reference arm: its epochs and eval passes the loops
+    above, around the trainer's step bodies."""
+    tr._dispatch_fused_epoch = lambda: _stepped_epoch(tr)
+    tr.eval_one_epoch = lambda *a, **k: _stepped_eval(tr, *a, **k)
+    return tr
+
+
 # ---------------------------------------------------------------- p1
 @pytest.mark.parametrize("kw", [
     dict(),
@@ -106,20 +164,26 @@ def _rows(tr):
 ], ids=["adam", "sgd", "rmsprop", "bf16", "eval_interval3"])
 def test_fused_train_equals_stepped(cohorts, tmp_path, kw):
     runs = {}
-    for fused in (True, False):
-        tr = _trainer(cohorts, tmp_path / str(fused), max_epochs=4, fused_epoch=fused, **kw)
-        last = tr.train()
+    for arm in ("fused", "uncaptured", "stepped"):
+        tr = _trainer(cohorts, tmp_path / arm, max_epochs=4, fused_epoch=arm == "fused", **kw)
+        if arm == "stepped":
+            _stepped(tr)
+        runs[arm] = (tr, tr.train())
         tr.close()
-        runs[fused] = (tr, last)
-    (a, last_a), (b, last_b) = runs[True], runs[False]
-    assert last_a == last_b
-    _same_state(a, b)
-    n_batches = a.datasets["training"].num_batches(8)
-    assert a.num_updates == 3 * n_batches
-    rows = _rows(a)
-    assert rows == _rows(b)
+    ref, last_ref = runs["stepped"]
+    n_batches = ref.datasets["training"].num_batches(8)
+    assert ref.num_updates == 3 * n_batches and not ref._graphs
+    rows = _rows(ref)
     assert [r["scope"] for r in rows].count("train_batch") == 3 * len(range(1, n_batches + 1, 2))
-    assert a._graphs and not b._graphs  # the fused run went through the graph steps
+    for arm in ("fused", "uncaptured"):
+        tr, last = runs[arm]
+        assert last == last_ref, arm
+        _same_state(tr, ref)
+        assert _rows(tr) == rows, arm
+        # the run went through the one body's steps, none captured here
+        assert {k[0] for k in tr._graphs} == {"train", "eval"}, arm
+        assert not any(g.capture for g in tr._graphs.values())
+    assert runs["fused"][0]._graphs.keys() == runs["uncaptured"][0]._graphs.keys()
 
 
 @pytest.mark.parametrize("device_dumps,defer_losses,lean", [
@@ -130,25 +194,91 @@ def test_fused_eval_equals_stepped(cohorts, tmp_path, device_dumps, defer_losses
     tr.train_one_epoch()
     keys = ("hidden", "cluster_pred", "cluster_label") if lean else None
     gen = tr.generator.get_state()
-    out = {}
+    valid = tr.datasets["validation"]
+    m_ref, d_ref = _stepped_eval(tr, "valid", valid, False, keys, device_dumps, defer_losses)
     for fused in (True, False):
         tr.cfg.fused_epoch = fused
         tr.generator.set_state(gen)
-        out[fused] = tr.eval_one_epoch("valid", tr.datasets["validation"], False, keys,
-                                       device_dumps, defer_losses)
-    (m, d), (m_ref, d_ref) = out[True], out[False]
-    if defer_losses:
-        n_batches = tr.datasets["validation"].num_batches(8)
-        assert all(isinstance(v, torch.Tensor) and v.shape == (n_batches,) for v in m.values())
-        m = {k: float(np.mean(v.numpy(), dtype=np.float64)) for k, v in m.items()}
-    assert m == m_ref
-    assert set(d) == set(d_ref) and (set(d) - {"__index__"} == {"hidden"} if lean else True)
-    for k in d_ref:
-        got, want = d[k][0], d_ref[k][0]
-        if device_dumps and k != "__index__":
-            assert isinstance(got, torch.Tensor) and isinstance(want, torch.Tensor)
-        assert np.array_equal(np.asarray(got), np.asarray(want)), k
+        m, d = tr.eval_one_epoch("valid", valid, False, keys, device_dumps, defer_losses)
+        if defer_losses:
+            n_batches = valid.num_batches(8)
+            assert all(isinstance(v, torch.Tensor) and v.shape == (n_batches,)
+                       for v in m.values())
+            assert m.keys() == m_ref.keys()
+            assert all(torch.equal(m[k], m_ref[k]) for k in m_ref), fused
+        else:
+            assert m == m_ref, fused
+        assert set(d) == set(d_ref) and (set(d) - {"__index__"} == {"hidden"} if lean else True)
+        for k in d_ref:
+            got, want = d[k][0], d_ref[k][0]
+            if device_dumps and k != "__index__":
+                assert isinstance(got, torch.Tensor) and isinstance(want, torch.Tensor)
+            assert np.array_equal(np.asarray(got), np.asarray(want)), (fused, k)
     tr.close()
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "uncaptured"])
+def test_cohort_under_one_batch_trains_as_one_masked_tail(cohorts, tmp_path, fused):
+    small = {c: ({k: v[:5] for k, v in d.items()} if c == "training" else d)
+             for c, d in cohorts.items()}
+    tr = _trainer(small, tmp_path / "body", max_epochs=3, fused_epoch=fused)
+    ref = _stepped(_trainer(small, tmp_path / "ref", max_epochs=3, fused_epoch=fused))
+    assert len(tr.datasets["training"]) == 5 and not tr._can_fuse(tr.datasets["training"])
+    for _ in range(2):
+        table, keys = tr._dispatch_fused_epoch()
+        want, want_keys = ref._dispatch_fused_epoch()
+        assert keys == want_keys and table.shape == (1, len(keys))
+        assert torch.equal(table, want)
+        tr.epoch += 1
+        ref.epoch += 1
+    assert set(tr._graphs) == {("train", True)}  # the masked tail alone
+    _same_state(tr, ref)
+    assert tr.num_updates == 2
+    for t in (tr, ref):
+        t.close()
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def test_uncaptured_eval_logs_from_its_table_and_writes_the_same_files(cohorts, tmp_path):
+    files, logged = {}, {}
+    for fused in (True, False):
+        lines = _Lines()
+        logging.getLogger("dicl.torch").addHandler(lines)
+        try:
+            tr = _trainer(cohorts, tmp_path / str(fused), max_epochs=3, fused_epoch=fused)
+            tr.train()
+            tr.eval("training", generate_feat=True, metric="loss")
+            tr.close()
+        finally:
+            logging.getLogger("dicl.torch").removeHandler(lines)
+        logged[fused] = [x for x in lines.lines if "%)]: " in x]  # the batch lines
+        files[fused] = dict(rows=_rows(tr), feat=np.load(
+            tmp_path / str(fused) / "out_feat" / "loss" / "training.npy",
+            allow_pickle=True).item())
+        with np.load(os.path.join(tr.exp_path, "weight", "loss", ckpt.CKPT_NAME)) as z:
+            files[fused]["ckpt"] = {k: z[k] for k in z.files}
+    # log_*_freq 2: batches 1, 3, ... of two epochs and their validation
+    # passes, and of eval()'s pass over the training cohort
+    per_pass = {c: len(range(1, tr.datasets[c].num_batches(8) + 1, 2))
+                for c in ("training", "validation")}
+    assert per_pass["training"] == 3
+    valid = [x for x in logged[False] if "]: valid-" in x]
+    assert len(valid) == 2 * per_pass["validation"]
+    assert len(logged[False]) == len(valid) + 3 * per_pass["training"]
+    assert logged[False] == logged[True]
+    assert files[False]["rows"] == files[True]["rows"]
+    a, b = files[False]["feat"], files[True]["feat"]
+    assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+    a, b = files[False]["ckpt"], files[True]["ckpt"]
+    assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
 
 
 # ---------------------------------------------------------------- p3

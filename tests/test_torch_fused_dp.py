@@ -6,10 +6,10 @@ gloo rank in another. A training cohort of two batches and a 5-row tail
 of one batch and a 5-row tail.
 
 gloo's collectives run on the host and cannot be captured, so a gloo group
-steps. Here the ranks take the fused code path with `parallel.capturable`
-patched true: on the CPU `GraphedStep` calls each step directly on its
-static buffers, which is the bookkeeping of the card's NCCL ranks without
-the graph.
+runs the one epoch body uncaptured and is never deferred. Here the ranks
+also take the deferred cadence with `parallel.capturable` patched true: on
+the CPU `GraphedStep` calls each step directly on its static buffers, which
+is the bookkeeping of the card's NCCL ranks without the graph.
 
   (a) the data-parallel train, masked-tail, eval and DEC steps read nothing
       to the host: `Tensor.item`, `tolist`, `numpy`, `cpu`, `__bool__`,
@@ -20,18 +20,20 @@ the graph.
       holds, and its contents are JAX `ShardedCohort`'s shard on
       `make_mesh(2)` after each relayout;
   (c) a step that reads block k through its (1,) index buffer (`block_at`)
-      has the bits of the step over `block(k)`;
-  (d) two ranks through the fused path have the bits of the stepped epochs,
-      with dropout, fake detection and augmentation on (p1: two epochs and
-      an eval pass; p3: `eval_interval` 3 with `pipeline_delta`); and
+      has the bits of `steps.train_step` over `block(k)`;
+  (d) two ranks through the fused path have the bits of the uncaptured
+      epochs (`fused_epoch=False`), with dropout, fake detection and
+      augmentation on (p1: two epochs and an eval pass; p3: `eval_interval`
+      3 with `pipeline_delta`, deferred against undeferred); and
       without random draws, from JAX's initial weights, both stay within
       the band of the JAX sharded-vs-single tests (tests/test_trainer.py:311,
       tests/test_cohort_shard.py:98) of JAX's sharded fused trainers on
       `make_mesh(2)`;
-  (e) `_can_fuse`: no group and NCCL groups fuse; gloo groups, and NCCL
-      with blocking waits, step and say so once;
+  (e) `_can_fuse`: no group and NCCL groups defer; gloo groups, and NCCL
+      with blocking waits, do not, and say so once; a gloo group's steps
+      are not captured;
   (f) a one-rank gloo group, whose collectives now run, has the bits of no
-      group, stepped and through the fused path.
+      group, uncaptured and through the fused path.
 
 The band (invariant 1 of tests/test_torch_parallel.py): losses within
 1e-5, parameters at most 5e-3 apart with no more than 0.1% of elements
@@ -62,6 +64,7 @@ from deep_interpolation_clustering_tpu_torch.parallel import mesh
 from deep_interpolation_clustering_tpu_torch.parallel.cohort import ShardedCohort
 from deep_interpolation_clustering_tpu_torch.train import ClusterTrainer, Trainer
 from deep_interpolation_clustering_tpu_torch.train.graphs import GraphedStep
+from deep_interpolation_clustering_tpu_torch.train.steps import train_step
 from test_torch_parallel import _params, _params_band, _running_band
 
 torch.set_num_threads(1)
@@ -240,10 +243,10 @@ def _relayouts():
 
 
 def _block_at_steps(cohorts, root):
-    """(c): one trainer steps each batch of an epoch over `block(k)`, a
-    second from the same seed through the captured step's reader
-    (`block_at` of the block's number); the losses and the state after each
-    step, bit for bit."""
+    """(c): one trainer's state is stepped by `steps.train_step` over each
+    batch of an epoch as `block(k)` slices it, a second from the same seed
+    goes through the captured step's reader (`block_at` of the block's
+    number); the losses and the state after each step, bit for bit."""
     cfg = Config(**RANDOM)
     ds = _datasets(cfg, cohorts)
     stepped = Trainer(cfg, ds, os.path.join(root, "block"), device="cpu")
@@ -255,7 +258,11 @@ def _block_at_steps(cohorts, root):
         at = torch.tensor([k2])
         same_rows = all(torch.equal(blocks.block_at(at)[n], v)
                         for n, v in blocks.block(k2).items())
-        want = torch.stack(list(stepped.step(k, mask).values()))
+        batch = stepped.cohort_blocks("training").block(k)
+        if mask is not None:
+            batch["sample_mask"] = mask
+        want = torch.stack(list(train_step(stepped.net, stepped.opt, cfg, batch,
+                                           stepped.generator, cfg.denoise).values()))
         got = indexed._train_graph(mask2 is not None)(at, mask2)["losses"]
         a, b = _state(stepped), _state(indexed)
         out.append(dict(rows=same_rows, losses=torch.equal(got, want), masked=mask is not None,
@@ -266,7 +273,8 @@ def _block_at_steps(cohorts, root):
 
 
 def _gloo_decisions(cohorts, root):
-    """(e) at a real gloo group: `_can_fuse` refuses, and says so once."""
+    """(e) at a real gloo group: `_can_fuse` refuses, and says so once;
+    the epoch's steps are not captured."""
     lines = _Lines()
     log = logging.getLogger("dicl.torch")
     log.addHandler(lines)
@@ -278,8 +286,8 @@ def _gloo_decisions(cohorts, root):
         tr.close()
     finally:
         log.removeHandler(lines)
-    said = [x for x in lines.lines if "step eagerly" in x]
-    return dict(decisions=decisions, said=said, graphs=len(tr._graphs))
+    said = [x for x in lines.lines if "uncaptured" in x]
+    return dict(decisions=decisions, said=said, graphs=[g.capture for g in tr._graphs.values()])
 
 
 def _two_ranks(r, address, cohorts, root, det_sd, dec_sd):
@@ -292,7 +300,7 @@ def _two_ranks(r, address, cohorts, root, det_sd, dec_sd):
             guard = _HostReadGuard()
             runs = {}
             for fused in (True, False):
-                tag = "fused" if fused else "stepped"
+                tag = "fused" if fused else "uncaptured"
                 ds, dds = _datasets(cfg, cohorts), _datasets(dcfg, cohorts)
                 with guard.patched() if fused else contextlib.nullcontext():
                     runs[tag] = dict(
@@ -303,7 +311,7 @@ def _two_ranks(r, address, cohorts, root, det_sd, dec_sd):
             out["random"], out["guarded_calls"] = runs, dict(guard.calls)
             det = {}
             for fused in (True, False):
-                tag = "fused" if fused else "stepped"
+                tag = "fused" if fused else "uncaptured"
                 cfg, dcfg = Config(**DET, fused_epoch=fused), Config(**DET_DEC, fused_epoch=fused)
                 det[tag] = dict(
                     p1=_p1(cfg, _datasets(cfg, cohorts), os.path.join(root, "det_p1_" + tag),
@@ -317,10 +325,11 @@ def _two_ranks(r, address, cohorts, root, det_sd, dec_sd):
 
 
 def _one_rank(r, address, cohorts, root):
-    """(f): a one-rank gloo group, stepped (gloo) and through the fused path."""
+    """(f): a one-rank gloo group, uncaptured (gloo) and through the fused
+    path."""
     parallel.initialize(address, 1, r, "cpu", "gloo", timeout_s=SPAWN_TIMEOUT_S)
     try:
-        out = {"stepped": _small_runs(cohorts, os.path.join(root, "g1_stepped"))}
+        out = {"uncaptured": _small_runs(cohorts, os.path.join(root, "g1_uncaptured"))}
         with _fusable():
             out["fused"] = _small_runs(cohorts, os.path.join(root, "g1_fused"))
         return out
@@ -440,16 +449,14 @@ def test_block_indexed_step_is_the_block_step(run):
 
 @pytest.mark.parametrize("stage", ["p1", "p3"])
 def test_fused_ranks_have_the_stepped_bits(run, stage):
-    """(d), with random draws: fused against stepped at two ranks, and the
-    two ranks alike."""
+    """(d), with random draws: fused against uncaptured at two ranks, both
+    through the one body's steps, and the two ranks alike."""
     for o in run["ranks"]:
-        fused, stepped = o["random"]["fused"][stage], o["random"]["stepped"][stage]
-        assert fused["graphs"] and not stepped["graphs"]
-        _same({k: v for k, v in fused.items() if k != "graphs"},
-              {k: v for k, v in stepped.items() if k != "graphs"}, stage)
+        fused, uncaptured = o["random"]["fused"][stage], o["random"]["uncaptured"][stage]
+        assert fused["graphs"] and fused["graphs"] == uncaptured["graphs"]
+        _same(fused, uncaptured, stage)
         det = o["det"]
-        _same({k: v for k, v in det["fused"][stage].items() if k != "graphs"},
-              {k: v for k, v in det["stepped"][stage].items() if k != "graphs"}, "det " + stage)
+        _same(det["fused"][stage], det["uncaptured"][stage], "det " + stage)
     a, b = run["ranks"]
     _same(a["random"]["fused"][stage]["state"], b["random"]["fused"][stage]["state"], "ranks")
     if stage == "p3":
@@ -486,12 +493,12 @@ def test_fused_ranks_p3_within_the_jax_band(run):
 
 
 def test_can_fuse_decisions(run, tmp_path, monkeypatch):
-    """(e): the real gloo group of the spawn stepped and said so once; here
-    no group and a NCCL group fuse, and a NCCL group with blocking waits
-    steps."""
+    """(e): the real gloo group of the spawn was not deferred, captured
+    nothing and said so once; here no group and a NCCL group defer, and a
+    NCCL group with blocking waits does not."""
     for o in run["ranks"]:
         gloo = o["gloo"]
-        assert gloo["decisions"] == [False, False] and gloo["graphs"] == 0
+        assert gloo["decisions"] == [False, False] and gloo["graphs"] == [False, False]
         assert len(gloo["said"]) == 1 and "gloo group of 2 ranks" in gloo["said"][0]
     cfg = Config(**RANDOM)
     tr = Trainer(cfg, _datasets(cfg, run["cohorts"]), str(tmp_path), device="cpu")
@@ -516,8 +523,9 @@ def test_one_rank_gloo_group_is_no_group(run, tmp_path):
     alone = _small_runs(run["cohorts"], str(tmp_path))
     assert alone["p1"]["graphs"] and alone["p3"]["graphs"]
     one = run["one"]
-    assert not one["stepped"]["p1"]["graphs"] and one["fused"]["p1"]["graphs"]
-    for how in ("stepped", "fused"):
+    assert one["fused"]["p1"]["graphs"] and one["uncaptured"]["p1"]["graphs"] == \
+        one["fused"]["p1"]["graphs"]
+    for how in ("uncaptured", "fused"):
         for stage in ("p1", "p3"):
             _same({k: v for k, v in one[how][stage].items() if k != "graphs"},
                   {k: v for k, v in alone[stage].items() if k != "graphs"}, f"{how} {stage}")

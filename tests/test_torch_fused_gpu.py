@@ -1,20 +1,21 @@
 """The fused epoch on the card: epochs replayed from captured CUDA graphs
-against the same epochs stepped eagerly, bit for bit. They need a CUDA card
+against the same epochs uncaptured, bit for bit. They need a CUDA card
 and `nvcc`, so they skip elsewhere; they import neither JAX nor this
 directory's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_fused_gpu.py
 
 Two trainers from one seed on one cohort: one replays the graphs
-(`Trainer._dispatch_fused_epoch`), the other steps (`Trainer.step` over
-`_epoch_batches`), two epochs each with another rate for the second (the
-graph reads the rate tensor written in place). Equal: the per-batch losses,
-the parameters, the BatchNorm buffers, the optimizer state, the generator's
-state (each replay advances Philox as the eager step does), and the
-hand-kernel launches of an epoch; then a fused eval pass's metrics and dumps
-against a stepped one. At the default Config (B=256, T=354) with and
-without a masked tail, at the scaled configuration (B=4096, T=48, with its
-tail) and under `compute_dtype="bfloat16"`.
+(`Trainer._dispatch_fused_epoch`), the other, under `fused_epoch=False`,
+steps uncaptured (`Trainer.step` over `_epoch_batches`), two epochs each
+with another rate for the second (the graph reads the rate tensor written
+in place). Equal: the per-batch losses, the parameters, the BatchNorm
+buffers, the optimizer state, the generator's state (each replay advances
+Philox as the eager step does), and the hand-kernel launches of an epoch;
+then a replayed eval pass's metrics and dumps against the uncaptured one's,
+the same body. At the default Config (B=256, T=354) with and without a
+masked tail, at the scaled configuration (B=4096, T=48, with its tail) and
+under `compute_dtype="bfloat16"`.
 
 The card's optimizer (`make_optimizer` on CUDA parameters: a tensor rate;
 Adam capturable on float64 step counts, SGD fused, RMSprop capturable)
@@ -26,10 +27,11 @@ parameters and state within 1e-6 of the largest value after every step.
 A one-rank NCCL group (`--data_parallel 1`: its collectives run, and are
 captured in the graphs): p1 (two epochs and a validation pass) and p3 (DEC
 under `eval_interval` 3 and `pipeline_delta`) fused, with the bits of the
-same runs without a group and of the group's stepped runs; the epoch log
-lines say "(fused)"; the collectives a stepped step issues are issued once
+same runs without a group and of the group's uncaptured runs
+(`fused_epoch=False`); the epoch log lines say "(fused)" where the steps
+were replayed; the collectives an uncaptured step issues are issued once
 more while its graph is captured and never by a replay; the NCCL kernels
-the profiler sees in a replay are those of a stepped step (none at one
+the profiler sees in a replay are those of an uncaptured step (none at one
 rank: NCCL runs no kernel for an in-place sum over one rank), and the hand
 kernels of a replay are the launches counted at capture.
 """
@@ -130,10 +132,12 @@ def test_graph_epochs_equal_stepped_epochs(dev, width, n_train, dtype):
     assert not differ, differ
     assert torch.equal(fused.generator.get_state(), stepped.generator.get_state())
     assert fused.num_updates == stepped.num_updates == 2 * n_batches
-    # an eval pass: replayed against stepped, the dumps fetched
+    # an eval pass: replayed against uncaptured, the dumps fetched
     valid = ds["validation"]
     m_fused, d_fused = fused.eval_one_epoch("valid", valid, False)
     m_stepped, d_stepped = stepped.eval_one_epoch("valid", valid, False)
+    assert all(g.graph is not None for g in fused._graphs.values())
+    assert stepped._graphs and all(g.graph is None for g in stepped._graphs.values())
     assert m_fused == m_stepped
     assert set(d_fused) == set(d_stepped)
     for k in d_stepped:
@@ -236,9 +240,9 @@ def test_one_rank_nccl_group_fuses_with_the_bits_of_no_group(dev):
     try:
         assert parallel.grouped() and parallel.capturable()
         fused = _runs(dev, ds, cfg, dcfg)
-        stepped = _runs(dev, ds, cfg.replace(fused_epoch=False),
-                        dcfg.replace(fused_epoch=False))
-        # collectives and kernels of a stepped step and of a replay
+        uncaptured = _runs(dev, ds, cfg.replace(fused_epoch=False),
+                           dcfg.replace(fused_epoch=False))
+        # collectives and kernels of an uncaptured step and of a replay
         tr = Trainer(cfg, ds, tempfile.mkdtemp(), device=dev)
         tr.train_steps(2)
         stream = tr._stream()
@@ -260,16 +264,17 @@ def test_one_rank_nccl_group_fuses_with_the_bits_of_no_group(dev):
         tr.close()
     finally:
         parallel.shutdown()
-    for name, run in (("fused", fused), ("stepped", stepped)):
+    for name, run in (("fused", fused), ("uncaptured", uncaptured)):
         for stage in ("p1", "p3"):
             differ = _differ(run[stage], alone[stage], f"{name} {stage}")
             assert not differ, differ[:8]
     # p1's two epochs replayed, p3's four dispatched and fetched at its evals
     epochs = {k: [x for x in run["lines"] if " trained in " in x]
-              for k, run in (("fused", fused), ("stepped", stepped))}
+              for k, run in (("fused", fused), ("uncaptured", uncaptured))}
     assert len(epochs["fused"]) == 2 and all(x.endswith("(fused)") for x in epochs["fused"])
     assert any("fetched (deferred, eval_interval 3)" in x for x in fused["lines"])
-    assert len(epochs["stepped"]) == 6 and not any("(fused)" in x for x in epochs["stepped"])
+    assert len(epochs["uncaptured"]) == 6 and not any("(fused)" in x
+                                                      for x in epochs["uncaptured"])
     assert per_step["eager"] > 0 and per_step["captured"] == 0
     assert at_capture["captured"] == per_step["eager"] and replayed == 0
     assert prof_replay["nccl_kernels_per_step"] == prof_step["nccl_kernels_per_step"]
